@@ -1,0 +1,237 @@
+"""Mapping and beacon policies (port of ``repro/core/policies.py``).
+
+Two forms of every policy, as in the reference:
+
+- a **tensor** form (``mapping_policy(name)`` / ``beacon_policy(name)``)
+  used by the port's event handlers in ``core/sim.py`` — plain torch on
+  device tensors, no host syncs;
+- a **host** numpy form (``host_pick`` / ``host_stage2`` /
+  ``host_beacon_due``), a copy of the reference's wall-clock adapters.
+
+Ported rules: the mapping rules ``min_search``, ``round_robin``,
+``hashed_random`` and ``staleness_weighted`` and the beacon rules
+``threshold``, ``periodic`` and ``hybrid``.  The failure-detector
+policies (``avoid_suspected``, ``suspect_weighted``) and the
+``heartbeat`` beacon plane need the fault machinery, which is ROADMAP
+item 8; asking for them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+MAPPING_POLICIES = ("min_search", "round_robin", "hashed_random",
+                    "staleness_weighted", "avoid_suspected",
+                    "suspect_weighted")
+BEACON_POLICIES = ("threshold", "periodic", "hybrid")
+ALL_BEACON_POLICIES = BEACON_POLICIES + ("heartbeat",)
+SUSPECT_POLICIES = ("avoid_suspected", "suspect_weighted")
+
+SUSPECT_VIEW = 1 << 30
+SUSPECT_PENALTY = float(1 << 20)
+
+_FAULTS_ITEM = ("needs the fault/failure-detector paths, which are not "
+                "ported yet (ROADMAP item 8)")
+
+
+@dataclass(frozen=True)
+class SimPolicy:
+    """Static policy selection (mapping x beacon)."""
+    mapping: str = "min_search"
+    beacon: str = "threshold"
+
+    def __post_init__(self):
+        if self.mapping not in MAPPING_POLICIES:
+            raise ValueError(f"unknown mapping policy {self.mapping!r}; "
+                             f"choose from {MAPPING_POLICIES}")
+        if self.beacon not in ALL_BEACON_POLICIES:
+            raise ValueError(f"unknown beacon policy {self.beacon!r}; "
+                             f"choose from {ALL_BEACON_POLICIES}")
+
+
+DEFAULT_POLICY = SimPolicy()
+
+
+# ==========================================================================
+# Tensor mapping policies
+#
+#   fn(view, age, g, rr, app, i, *, k, T_b) -> cluster (0-d int64 tensor)
+#   view (k,) int   per-cluster load summaries, own entry exact
+#   age  (k,) f32   ticks since each summary was received (own entry 0)
+#   g        int    the deciding GMN (a host int: the event loop reads it
+#                   with the event record)
+#   rr       0-d    the GMN's persistent decision counter
+#   app, i   int    application id / decision index within the fork
+#   T_b      0-d    f32 beacon period
+# ==========================================================================
+
+def _own_first_argmin(score, g, k):
+    """``perm[argmin(score[perm])]`` with ``perm = (arange(k) + g) % k``:
+    the min-search starting at the deciding GMN's own index, ties going
+    to the first entry in that order (torch.argmin keeps the first)."""
+    return (torch.argmin(torch.roll(score, -g)) + g) % k
+
+
+def _map_min_search(view, age, g, rr, app, i, *, k, T_b):
+    return _own_first_argmin(view, g, k)
+
+
+def _map_round_robin(view, age, g, rr, app, i, *, k, T_b):
+    return ((g + rr) % k).to(torch.int64)
+
+
+def _map_hashed_random(view, age, g, rr, app, i, *, k, T_b):
+    h = _hash_u32(int(app), int(i), int(g))
+    return torch.full((), h % k, dtype=torch.int64, device=view.device)
+
+
+def _map_staleness_weighted(view, age, g, rr, app, i, *, k, T_b):
+    # score = view + age / T_b, in f32 like the reference
+    score = view.to(torch.float32) \
+        + age / torch.clamp(T_b, min=1.0)
+    return _own_first_argmin(score, g, k)
+
+
+_MAPPING = {
+    "min_search": _map_min_search,
+    "round_robin": _map_round_robin,
+    "hashed_random": _map_hashed_random,
+    "staleness_weighted": _map_staleness_weighted,
+}
+
+
+def mapping_policy(name: str):
+    if name in SUSPECT_POLICIES:
+        raise NotImplementedError(f"mapping policy {name!r} {_FAULTS_ITEM}")
+    try:
+        return _MAPPING[name]
+    except KeyError:
+        raise ValueError(f"unknown mapping policy {name!r}; "
+                         f"choose from {MAPPING_POLICIES}") from None
+
+
+# ==========================================================================
+# Tensor beacon policies:  fn(delta, t, last_tx, *, dn_th, T_b) -> bool
+# (the k > 1 gate stays in the caller, as in the reference)
+# ==========================================================================
+
+def _bc_threshold(delta, t, last_tx, *, dn_th, T_b):
+    return delta >= dn_th
+
+
+def _bc_periodic(delta, t, last_tx, *, dn_th, T_b):
+    return (t - last_tx) >= T_b
+
+
+def _bc_hybrid(delta, t, last_tx, *, dn_th, T_b):
+    return torch.logical_or(delta >= dn_th, (t - last_tx) >= T_b)
+
+
+_BEACON = {
+    "threshold": _bc_threshold,
+    "periodic": _bc_periodic,
+    "hybrid": _bc_hybrid,
+}
+
+
+def beacon_policy(name: str):
+    if name == "heartbeat":
+        raise NotImplementedError(f"beacon policy 'heartbeat' {_FAULTS_ITEM}")
+    try:
+        return _BEACON[name]
+    except KeyError:
+        raise ValueError(f"unknown beacon policy {name!r}; "
+                         f"choose from {BEACON_POLICIES}") from None
+
+
+# ==========================================================================
+# uint32 mixing hash, computed in int64 masked to 32 bits (torch has no
+# full uint32 arithmetic).  The same operators serve Python ints and
+# int64 tensors: a product that wraps int64 keeps its low 32 bits, which
+# is all the mask keeps.
+# ==========================================================================
+
+_H1, _H2, _H3, _H4 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x2C1B3C6D
+_M32 = 0xFFFFFFFF
+
+
+def _hash_u32(a, b, c):
+    """Xor-multiply mix of three ints (Python ints or int64 tensors) into
+    a value in [0, 2**32) — the reference's ``_hash_u32`` bits."""
+    h = ((a & _M32) * _H1 & _M32) ^ ((b & _M32) * _H2 & _M32) \
+        ^ ((c & _M32) * _H3 & _M32)
+    h = h ^ (h >> 15)
+    h = (h * _H4) & _M32
+    return h ^ (h >> 12)
+
+
+def _hash_u32_host(a: int, b: int, c: int) -> int:
+    """Python-int form of :func:`_hash_u32` (the reference's host twin)."""
+    h = ((a * _H1) & _M32) ^ ((b * _H2) & _M32) ^ ((c * _H3) & _M32)
+    h ^= h >> 15
+    h = (h * _H4) & _M32
+    return h ^ (h >> 12)
+
+
+# ==========================================================================
+# Host (numpy) adapters — copies of the reference's wall-clock forms.
+# ==========================================================================
+
+def host_pick(name: str, view, age=None, own: int = 0, rr: int = 0,
+              salt: int = 0, i: int = 0, *, T_b: float = float("inf"),
+              susp_mult: float = float("inf")) -> int:
+    """Stage-1 cluster choice in the wall-clock domain."""
+    view = np.asarray(view, np.float64)
+    k = view.shape[0]
+    if name == "round_robin":
+        return int((own + rr) % k)
+    if name == "hashed_random":
+        return int(_hash_u32_host(int(salt), int(i), int(own)) % k)
+    perm = (np.arange(k) + own) % k
+    if name in SUSPECT_POLICIES:
+        a = np.zeros(k, np.float32) if age is None \
+            else np.asarray(age, np.float32)
+        sus = a > np.float32(susp_mult) * np.float32(T_b)
+    if name in ("staleness_weighted", "suspect_weighted"):
+        # f32 score like the tensor form; f64 would resolve near-ties
+        # differently
+        a = np.zeros(k, np.float32) if age is None \
+            else np.asarray(age, np.float32)
+        view = view.astype(np.float32) \
+            + a / np.float32(max(float(T_b), 1.0))
+        if name == "suspect_weighted":
+            view = view + np.where(sus, np.float32(SUSPECT_PENALTY),
+                                   np.float32(0.0))
+    elif name == "avoid_suspected":
+        view = np.where(sus, np.float64(SUSPECT_VIEW), view)
+        if bool(sus[np.arange(k) != own].all()):
+            return int(own)
+    elif name != "min_search":
+        raise ValueError(f"unknown mapping policy {name!r}; "
+                         f"choose from {MAPPING_POLICIES}")
+    return int(perm[int(np.argmin(view[perm]))])
+
+
+def host_stage2(loads, alive=None) -> int:
+    """Stage-2 unit choice: argmin over the exact local load table, dead
+    units masked out."""
+    loads = np.asarray(loads, np.float64)
+    if alive is not None:
+        loads = np.where(np.asarray(alive, bool), loads, np.inf)
+    return int(np.argmin(loads))
+
+
+def host_beacon_due(name: str, delta, now: float = 0.0,
+                    last_tx: float = 0.0, *, dn_th,
+                    T_b: float = float("inf")) -> bool:
+    """Status-communication trigger in the wall-clock domain."""
+    if name == "threshold":
+        return bool(abs(delta) >= dn_th)
+    if name in ("periodic", "heartbeat"):
+        return bool((now - last_tx) >= T_b)
+    if name == "hybrid":
+        return bool(abs(delta) >= dn_th or (now - last_tx) >= T_b)
+    raise ValueError(f"unknown beacon policy {name!r}; "
+                     f"choose from {ALL_BEACON_POLICIES}")

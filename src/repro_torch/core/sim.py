@@ -1,0 +1,545 @@
+"""Event-driven transaction-level simulator (port of ``repro/core/sim.py``).
+
+The paper's TLM (Sec 5): k GMNs that serialize mapping decisions, m PEs
+with FCFS queues, one global bus and k local buses, two-stage task
+mapping (Sec 4.1), status beacons (Sec 4.2) and join barriers (Tab 2).
+
+This slice ports the reference's golden configuration: the ``ideal``
+fabric, the ``linear`` event queue, ``batch_pop=1``, no faults, no
+trace and ``record_s1=False``.  Any other value raises
+``NotImplementedError`` naming its ROADMAP item.
+
+How the loop runs.  The reference is one ``lax.while_loop``; here the
+loop is Python and every state tensor lives on the device.  Each
+iteration makes one device->host read: the packed event record
+``(t, slot, typ, a0, a1, a2)`` of the queue's minimum.  The host uses it
+to stop at ``t >= INF`` and to dispatch on ``typ``; ``app``/``g``/``cnt``
+and ``pe`` then index state tensors as host ints.  Every other value —
+times, loads, views, policy decisions, beacon firing — stays a device
+tensor, and no handler reads one back.  The reference's ``lax.scan``s
+are Python loops over device tensors.
+
+State is a dict of tensors with the reference's leaf names and dtypes
+(int32/float32/bool), updated in place: the handlers write single
+elements and rows, which saves a copy of each leaf per event.  A
+handler mutates the state and returns its *staged record* — the event
+pushes and the deferred view-row write that the reference's handlers
+return from inside ``lax.switch`` — and the loop applies it after the
+handler, in the reference's order (pop, then one bulk push).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import policies as P
+from repro_torch.core import transport as T
+from repro_torch.core.eventq import INF, QUEUE_IMPLS
+from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy  # noqa: F401
+from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology  # noqa: F401
+from repro_torch.device import resolve_device
+
+EV_ARRIVE = 0
+EV_LOCAL_SPAWN = 1
+EV_JOIN_EXIT = 2
+
+F32, I32 = torch.float32, torch.int32
+
+
+@dataclass(frozen=True)
+class SimShape:
+    """Shape-determining simulator parameters."""
+    m: int = 256                 # processing elements
+    k: int = 16                  # global management nodes (clusters)
+    n_childs: int = 100          # child tasks per application
+    queue_cap: int = 2048
+    max_apps: int = 512
+    record_s1: bool = False      # stage-1 decision traces (not ported)
+    queue_impl: str = "linear"   # only "linear" is ported
+    batch_pop: int = 1           # only 1 is ported
+
+    def __post_init__(self):
+        if self.queue_impl not in QUEUE_IMPLS:
+            raise ValueError(f"unknown queue_impl {self.queue_impl!r}; "
+                             f"choose from {QUEUE_IMPLS}")
+        if not 1 <= self.batch_pop <= self.queue_cap:
+            raise ValueError(f"batch_pop {self.batch_pop} must be in "
+                             f"[1, queue_cap={self.queue_cap}]")
+
+    @property
+    def mpk(self) -> int:
+        return self.m // self.k
+
+    @property
+    def ns(self) -> int:
+        """Static stage-1 fan-out: cluster targets per application."""
+        return stage1_targets(self)
+
+
+def stage1_targets(shape) -> int:
+    """Static number of LOCAL_SPAWN targets per ARRIVE (Sec 4.1)."""
+    return int(min(shape.k, max(1, -(-shape.n_childs // shape.mpk))))
+
+
+class SimKnobs(NamedTuple):
+    """Numeric knobs as 0-d tensors in the reference's dtypes."""
+    c_b: torch.Tensor            # f32, message delay
+    c_s: torch.Tensor            # f32, selection delay coefficient
+    c_join: torch.Tensor         # f32, GMN barrier-decrement processing
+    dn_th: torch.Tensor          # i32, beacon drift threshold
+    T_b: torch.Tensor            # f32, beacon period/deadline
+    c_hop: torch.Tensor          # f32, per-hop mesh latency (unused: ideal)
+    susp_mult: torch.Tensor      # f32, failure-detector multiplier (unused)
+    retry_after: torch.Tensor    # f32, re-beacon delay (unused)
+
+    @classmethod
+    def make(cls, c_b=8.0, c_s=8.0, c_join=8.0, dn_th=4, T_b=1000.0,
+             c_hop=2.0, susp_mult=3.0, retry_after=0.0,
+             device="cpu") -> "SimKnobs":
+        def f(v, dt):
+            return torch.tensor(v, dtype=dt, device=device)
+        return cls(f(c_b, F32), f(c_s, F32), f(c_join, F32), f(dn_th, I32),
+                   f(T_b, F32), f(c_hop, F32), f(susp_mult, F32),
+                   f(retry_after, F32))
+
+    def to(self, device) -> "SimKnobs":
+        return SimKnobs(*(v.to(device) for v in self))
+
+
+@dataclass(frozen=True)
+class SimParams:
+    m: int = 256
+    k: int = 16
+    c_b: float = 8.0
+    c_s: float = 8.0
+    c_join: float = 8.0
+    dn_th: int = 4
+    n_childs: int = 100
+    queue_cap: int = 2048
+    max_apps: int = 512
+    T_b: float = 1000.0
+    c_hop: float = 2.0
+    susp_mult: float = 3.0
+    retry_after: float = 0.0
+    mapping: str = "min_search"
+    beacon: str = "threshold"
+    topology: str = "ideal"
+    record_s1: bool = False
+    queue_impl: str = "linear"
+    batch_pop: int = 1
+
+    def __post_init__(self):
+        # the same validation as SimShape (one source of the rules)
+        self.shape  # noqa: B018
+
+    @property
+    def mpk(self) -> int:
+        return self.m // self.k
+
+    @property
+    def shape(self) -> SimShape:
+        return SimShape(m=self.m, k=self.k, n_childs=self.n_childs,
+                        queue_cap=self.queue_cap, max_apps=self.max_apps,
+                        record_s1=self.record_s1,
+                        queue_impl=self.queue_impl,
+                        batch_pop=self.batch_pop)
+
+    @property
+    def knobs(self) -> SimKnobs:
+        """The knobs as CPU tensors (``simulate`` moves them)."""
+        return SimKnobs.make(c_b=self.c_b, c_s=self.c_s, c_join=self.c_join,
+                             dn_th=self.dn_th, T_b=self.T_b, c_hop=self.c_hop,
+                             susp_mult=self.susp_mult,
+                             retry_after=self.retry_after)
+
+    @property
+    def policy(self) -> SimPolicy:
+        return SimPolicy(mapping=self.mapping, beacon=self.beacon)
+
+    @property
+    def topo(self) -> Topology:
+        return Topology(kind=self.topology)
+
+
+def _log2_levels(v: int) -> float:
+    """Static decision-tree depth factor: log2(v) for v > 1, else 0."""
+    return float(np.log2(v)) if v > 1 else 0.0
+
+
+def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
+                    faults=None, trace=None) -> None:
+    """Raise for every configuration outside this slice of the port."""
+    if shape.queue_impl != "linear":
+        raise NotImplementedError(
+            f"queue_impl {shape.queue_impl!r} is not ported yet "
+            "(ROADMAP item 5.2); only 'linear' is")
+    if shape.batch_pop != 1:
+        raise NotImplementedError(
+            "batch_pop > 1 is not ported yet (ROADMAP item 5.2)")
+    if shape.record_s1:
+        raise NotImplementedError(
+            "record_s1 (serving replay traces) is not ported yet "
+            "(ROADMAP item 10)")
+    if faults is not None:
+        raise NotImplementedError(
+            "fault schedules are not ported yet (ROADMAP item 8)")
+    if trace is not None:
+        raise NotImplementedError(
+            "in-loop tracing is not ported yet (ROADMAP item 9)")
+    T.require_ported(topology)
+    P.mapping_policy(policy.mapping)
+    P.beacon_policy(policy.beacon)
+
+
+class _Ctx:
+    """Static shape ints, policy, topology and the knob tensors on the
+    run's device, plus the few constant tensors the handlers reuse."""
+
+    def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
+                 topology: Topology, device):
+        self.m, self.k, self.mpk = shape.m, shape.k, shape.mpk
+        self.n_childs = shape.n_childs
+        self.queue_cap, self.max_apps = shape.queue_cap, shape.max_apps
+        self.ns = shape.ns
+        self.policy, self.topology = policy, topology
+        self.device = device
+        knobs = knobs.to(device)
+        self.c_b, self.c_s, self.c_join = knobs.c_b, knobs.c_s, knobs.c_join
+        self.dn_th, self.T_b = knobs.dn_th, knobs.T_b
+        # f32 tensor times the static float, as the reference's traced
+        # ``knobs.c_s * _log2_levels(k)``
+        self.sel_global = knobs.c_s * _log2_levels(shape.k)
+        self.sel_local = knobs.c_s * _log2_levels(shape.mpk)
+        self.pick_cluster = P.mapping_policy(policy.mapping)
+        self.beacon_due = P.beacon_policy(policy.beacon)
+        # per-target child counts of a fork: share + 1 for the first rem
+        share = self.n_childs // self.ns
+        rem = self.n_childs - share * self.ns
+        self.cnts = torch.tensor([share + (1 if i < rem else 0)
+                                  for i in range(self.ns)], dtype=I32,
+                                 device=device)
+        self.one_i32 = torch.ones((1,), dtype=I32, device=device)
+
+
+def make_state(p, device):
+    k, mpk, Q, A = p.k, p.mpk, p.queue_cap, p.max_apps
+
+    def z(shape, dt=F32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def inf(shape):
+        return torch.full(shape, INF, dtype=F32, device=device)
+
+    return {
+        # event queue (slot-recycled)
+        "ev_time": inf((Q,)),
+        "ev_type": z((Q,), I32),
+        "ev_a": z((Q, 3), I32),                # (app, gmn/cluster, pe/cnt)
+        # infra
+        "pe_free": z((k, mpk)),
+        "gmn_free": z((k,)),
+        "gbus_free": z(()),
+        "lbus_free": z((k,)),
+        # load bookkeeping
+        "loads": z((k, mpk), I32),             # mapped tasks per PE
+        "view": z((k, k), I32),                # GMN g's view of cluster c
+        "view_t": z((k, k)),                   # tick view[g, c] was received
+        "last_bcast": z((k,), I32),
+        "last_bcast_t": z((k,)),
+        "rr_ptr": z((k,), I32),                # per-GMN decision counter
+        "beacons_tx": z((), I32),
+        # in-flight beacon matrix (stays INF on the ideal fabric)
+        "bcn_t": inf((k, k)),
+        "beacons_rx": z((), I32),
+        "bcn_skew_sum": z(()),
+        "bcn_skew_max": z(()),
+        # management accounting
+        "mgmt_msgs": z((), I32),
+        "mgmt_latency": z(()),
+        "mgmt_proc": z(()),
+        # applications
+        "app_remaining": z((A,), I32),
+        "app_arrive": inf((A,)),
+        "app_done": inf((A,)),
+        "events_processed": z((), I32),
+        "dropped": z((), I32),
+        # queue occupancy telemetry: live entries and their high-water
+        # mark, sampled at the start of each iteration (before the pop)
+        "evq_len": z((), I32),
+        "evq_peak": z((), I32),
+    }
+
+
+def _take(arr, i):
+    """``arr[i]`` for a 0-d device index, as a gather (no host read)."""
+    return arr.index_select(0, i.reshape(1)).reshape(arr.shape[1:])
+
+
+def _add1(arr, i, delta):
+    """``arr.at[i].add(delta)`` as a one-hot select."""
+    hot = torch.arange(arr.shape[0], device=arr.device) == i
+    return torch.where(hot, arr + delta, arr)
+
+
+def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
+    """Insert the masked entries of an event batch, exactly as pushing
+    them one by one in order: the j-th masked entry takes the j-th free
+    queue slot (one pass over the queue: cumsum of the free mask plus a
+    stable argsort that brings the pushed entries first).  Returns the
+    number of entries dropped for want of a free slot (0-d tensor)."""
+    n = times.shape[0]
+    free = st["ev_time"] >= INF
+    free_rank = torch.cumsum(free, 0) - 1      # slot's rank among free
+    cnt = mask.sum()
+    order = torch.argsort(torch.logical_not(mask).to(I32), stable=True)
+    # ranks past the batch (and the -1 of taken slots) read a clamped
+    # entry that ``write`` masks off
+    idx = torch.clamp(free_rank, 0, n - 1)
+
+    def col(x):
+        return x.index_select(0, order).index_select(0, idx)
+
+    ct = col(times)
+    ctyp = torch.full_like(st["ev_type"], typ)
+    ca = torch.stack([col(a0.to(I32)), col(a1.to(I32)), col(a2.to(I32))], -1)
+    write = free & (free_rank < cnt)
+    st["ev_time"] = torch.where(write, ct, st["ev_time"])
+    st["ev_type"] = torch.where(write, ctyp, st["ev_type"])
+    st["ev_a"] = torch.where(write[:, None], ca, st["ev_a"])
+    drop = torch.clamp(cnt - free.sum(), min=0)
+    st["dropped"] += drop
+    return drop
+
+
+def _staged(p, h_t, h_typ, h_a0, h_a1, h_a2, vrow_i=None, vrow=None):
+    """One handler's staged record: its event pushes (all of them taken;
+    the reference pads to a fixed width with masked-off rows, which
+    change no slot assignment) and the deferred view-row write of
+    _handle_arrive.  Under the ideal fabric there is no beacon fan-out
+    segment."""
+    return {"push_t": h_t, "push_typ": h_typ, "push_a0": h_a0,
+            "push_a1": h_a1, "push_a2": h_a2, "vrow_i": vrow_i,
+            "vrow": vrow}
+
+
+def _stage_none(p):
+    """The no-push staged record."""
+    return _staged(p, None, None, None, None, None)
+
+
+def _apply_staged(st, p, stg):
+    """Apply a staged record's deferred view-row write."""
+    if stg["vrow_i"] is not None:
+        st["view"][stg["vrow_i"]] = stg["vrow"]
+
+
+def _maybe_beacon(st, p, g, t):
+    """Status broadcast check (Sec 4.2): the selected BeaconPolicy, and
+    the k > 1 gate (a single cluster never broadcasts)."""
+    if p.k == 1:
+        return
+    load_g = st["loads"][g].sum()
+    delta = torch.abs(load_g - st["last_bcast"][g])
+    due = p.beacon_due(delta, t, st["last_bcast_t"][g], dn_th=p.dn_th,
+                       T_b=p.T_b)
+    _fire_beacon(st, p, g, t, due, load_g)
+
+
+def _fire_beacon(st, p, g, t, fire, load_g):
+    """Transmit a status beacon from ``g`` when ``fire`` holds.  Ideal
+    fabric: serialize on the global bus and update every receiver's view
+    atomically at the grant."""
+    t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
+    st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
+    st["view"][:, g] = torch.where(fire, load_g.to(I32), st["view"][:, g])
+    st["view_t"][:, g] = torch.where(fire, t_tx, st["view_t"][:, g])
+    st["last_bcast"][g] = torch.where(fire, load_g.to(I32),
+                                      st["last_bcast"][g])
+    st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
+    fire_i = fire.to(I32)
+    st["beacons_tx"] += fire_i
+    st["mgmt_msgs"] += fire_i * (p.k - 1)
+    st["mgmt_latency"] += torch.where(fire, float(p.k - 1) * (t_tx - t),
+                                      0.0)
+
+
+def _handle_arrive(st, p, t, app, g, _unused, lengths):
+    """Stage 1: expand the fork tree at GMN g, fan out LOCAL_SPAWN msgs."""
+    n, ns = p.n_childs, p.ns
+    depth = int(np.ceil(np.log2(ns))) if ns > 1 else 0
+    t_eff = t
+    # GMN compute: 2 stage-1 decisions per fork-tree level (Eqn 3)
+    t_cpu = torch.maximum(t_eff, st["gmn_free"][g])
+    t_tree = t_cpu + 2.0 * depth * p.sel_global
+    st["gmn_free"][g] = t_tree
+    # own cluster count is exact; remote ones come from beacons
+    own_view = T._set1(st["view"][g], g, st["loads"][g].sum())
+    age = T._set1(torch.clamp(t_eff - st["view_t"][g], min=0.0), g, 0.0)
+
+    view, gbus, lbus = own_view, st["gbus_free"], st["lbus_free"]
+    rr = st["rr_ptr"][g]
+    cs, t_arrs, lats, remotes = [], [], [], []
+    for i in range(ns):
+        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
+        # optimistic local bookkeeping of the task-start just sent
+        view = _add1(view, c, p.cnts[i])
+        is_remote = c != g
+        t_arr, gbus, lbus, lat = T.unicast(
+            p.topology, g, c, t_tree, is_remote, gbus=gbus, lbus=lbus,
+            c_b=p.c_b)
+        rr = rr + 1
+        cs.append(c)
+        t_arrs.append(t_arr)
+        lats.append(lat)
+        remotes.append(is_remote)
+    st["rr_ptr"][g] = rr
+    st["gbus_free"], st["lbus_free"] = gbus, lbus
+    st["mgmt_msgs"] += torch.stack(remotes).sum()
+    st["mgmt_latency"] += torch.stack(lats).sum()
+    st["mgmt_proc"] += t_tree - t_eff
+    # fill_, not item assignment: assigning a Python scalar into a CUDA
+    # tensor copies it from the host and waits for the card
+    st["app_remaining"][app].fill_(n)
+    st["app_arrive"][app] = t
+    return _staged(p, torch.stack(t_arrs), EV_LOCAL_SPAWN,
+                   torch.full((ns,), app, dtype=I32, device=p.device),
+                   torch.stack(cs), p.cnts, vrow_i=g, vrow=view)
+
+
+def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
+    """Stage 2: GMN g maps cnt childs onto its PEs (exact local view);
+    each task-start rides the cluster's local bus.  The reference scans
+    a static n_max >= cnt steps whose tail is masked off (exact no-ops);
+    the count is a host int here, so the loop takes cnt steps."""
+    t_eff = t
+    pe_free, loads = st["pe_free"][g], st["loads"][g]    # row views
+    t_cpu = torch.maximum(t_eff, st["gmn_free"][g])
+    bus = st["lbus_free"][g]
+    pes, finishes, lats = [], [], []
+    for i in range(cnt):
+        t_cpu = t_cpu + p.sel_local
+        pe = torch.argmin(loads)                   # stage-2 min-search
+        t_msg = torch.maximum(t_cpu, bus) + p.c_b
+        bus = t_msg
+        start = torch.maximum(t_msg, _take(pe_free, pe))
+        finish = start + lengths[app, i]
+        pe_free.index_copy_(0, pe.reshape(1), finish.reshape(1))
+        loads.index_add_(0, pe.reshape(1), p.one_i32)
+        pes.append(pe)
+        finishes.append(finish)
+        lats.append(t_msg - t_cpu)
+    st["gmn_free"][g] = t_cpu
+    st["lbus_free"][g] = bus
+    st["mgmt_msgs"] += cnt
+    st["mgmt_latency"] += torch.stack(lats).sum()
+    st["mgmt_proc"] += t_cpu - t_eff
+
+    _maybe_beacon(st, p, g, t_cpu)
+
+    return _staged(p, torch.stack(finishes), EV_JOIN_EXIT,
+                   torch.full((cnt,), app, dtype=I32, device=p.device),
+                   torch.full((cnt,), g, dtype=I32, device=p.device),
+                   torch.stack(pes))
+
+
+def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
+    """A child finished: join-exit message over its cluster's local bus,
+    load decrement, beacon check, forward to the barrier GMN (the
+    application's arrival GMN) and barrier decrement."""
+    t_msg = torch.maximum(t, st["lbus_free"][g]) + p.c_b
+    st["lbus_free"][g] = t_msg
+    st["loads"][g, pe] -= 1
+    st["mgmt_msgs"] += 1
+    st["mgmt_latency"] += t_msg - t
+    _maybe_beacon(st, p, g, t_msg)
+    pg = int(parent_gmns[app])
+    remote = pg != g
+    t_fwd, gbus, lbus, lat = T.forward(
+        p.topology, g, pg, t_msg, remote, gbus=st["gbus_free"],
+        lbus=st["lbus_free"], c_b=p.c_b)
+    st["gbus_free"], st["lbus_free"] = gbus, lbus
+    st["mgmt_msgs"] += int(remote)
+    st["mgmt_latency"] += lat
+    t_bar = torch.maximum(t_fwd, st["gmn_free"][pg]) + p.c_join
+    st["mgmt_proc"] += t_bar - t_fwd
+    st["gmn_free"][pg] = t_bar
+    rem = st["app_remaining"][app] - 1
+    st["app_remaining"][app] = rem
+    st["app_done"][app] = torch.where(rem == 0, t_bar, st["app_done"][app])
+    return _stage_none(p)
+
+
+def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
+             lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
+             topology: Topology = DEFAULT_TOPOLOGY, faults=None, trace=None):
+    """The event loop on ``arrivals.device``: arrivals (A,) f32,
+    arrival_gmns (A,) i32, lengths (A, n_childs) f32 tensors.  Returns
+    the final state dict."""
+    _require_ported(shape, policy, topology, faults, trace)
+    dev = arrivals.device
+    p = _Ctx(shape, knobs, policy, topology, dev)
+    st = make_state(p, dev)
+    # the barrier GMN of each application, read by the host dispatch
+    parent_gmns = arrival_gmns.cpu().numpy()
+    sim_len = torch.tensor(sim_len, dtype=F32, device=dev)
+
+    n_apps = arrivals.shape[0]
+    live = arrivals < sim_len
+    _bulk_push(st, p, live, arrivals, EV_ARRIVE,
+               torch.arange(n_apps, device=dev), arrival_gmns,
+               torch.zeros((n_apps,), dtype=I32, device=dev))
+    st["evq_len"] = (live.sum() - st["dropped"]).to(I32)
+    st["evq_peak"] = st["evq_len"].clone()
+
+    handlers = {
+        EV_ARRIVE: lambda t, a: _handle_arrive(st, p, t, *a, lengths),
+        EV_LOCAL_SPAWN: lambda t, a: _handle_local_spawn(st, p, t, *a,
+                                                         lengths),
+        EV_JOIN_EXIT: lambda t, a: _handle_join_exit(st, p, t, *a, lengths,
+                                                     parent_gmns),
+    }
+    while True:
+        slot = torch.argmin(st["ev_time"]).reshape(1)
+        t = st["ev_time"].index_select(0, slot)
+        # the loop's one device->host read: (t, slot, typ, a0, a1, a2)
+        head = torch.cat([t, slot.to(F32),
+                          st["ev_type"].index_select(0, slot).to(F32),
+                          st["ev_a"].index_select(0, slot)[0].to(F32)])
+        t_h, slot_h, typ, a0, a1, a2 = head.tolist()
+        if t_h >= INF:
+            break
+        t = t.reshape(())
+        st["evq_peak"] = torch.maximum(st["evq_peak"], st["evq_len"])
+        st["events_processed"] += 1
+        stg = handlers[int(typ)](t, (int(a0), int(a1), int(a2)))
+        _apply_staged(st, p, stg)
+        # pop, then the handler's pushes (the popped slot is free again)
+        st["ev_time"][int(slot_h)].fill_(INF)
+        if stg["push_t"] is not None:
+            n = stg["push_t"].shape[0]
+            drop = _bulk_push(st, p, torch.ones((n,), dtype=torch.bool,
+                                                device=dev),
+                              stg["push_t"], stg["push_typ"],
+                              stg["push_a0"], stg["push_a1"],
+                              stg["push_a2"])
+            st["evq_len"] += n - 1 - drop
+        else:
+            st["evq_len"] -= 1
+    return st
+
+
+def run(p: SimParams, arrivals, arrival_gmns, lengths, sim_len: float = 1e7,
+        faults=None, trace=None, device=None):
+    """arrivals (A,) f32 times (INF = unused); arrival_gmns (A,) i32;
+    lengths (A, n_childs) f32 child task lengths (numpy arrays or
+    tensors).  Runs on ``device`` (default: the CUDA card) and returns
+    the final state dict of tensors there."""
+    dev = resolve_device(device)
+    return simulate(p.shape, p.knobs,
+                    torch.as_tensor(arrivals, dtype=F32).to(dev),
+                    torch.as_tensor(arrival_gmns, dtype=I32).to(dev),
+                    torch.as_tensor(lengths, dtype=F32).to(dev),
+                    sim_len, p.policy, p.topo, faults, trace)
