@@ -9,38 +9,63 @@ any failure ends the run with a non-zero exit:
 
 1. device   the card's ``nvidia-smi`` name and power limit (also printed
             raw on a line of their own), torch and CUDA versions;
-2. build    compiles every kernel source of the port with ``nvcc``;
+2. build    compiles every kernel source of the port with ``nvcc``, one
+            process per source, all at once;
 3. k1       the mapper kernel against its plain torch version on the
             card, at the ``scheduler_overhead`` shapes (m=256, k in
             {1, 8, 16, 32, 256}, T=100), random floats and the all-zero
             tie; kernel, plain and empty-launch times;
-4. golden   the frozen golden grid and single-app anchor;
-5. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
+4. k2       flash attention against its plain version, on the JAX
+            tests' cases in f32 and bf16, at the reduced Jamba's shape
+            (head dim 16) and at Jamba's prefill shape
+            (B=2, S=4096, Hq=32, Hkv=8, D=128, causal); kernel, plain,
+            bound and ``scaled_dot_product_attention`` times there;
+5. k3       the selective scan against its plain version, on the JAX
+            tests' cases and at Jamba's shape (B=2, S=4096, Di=8192,
+            N=16, f32 A); kernel, plain and bound times;
+6. golden   the frozen golden grid and single-app anchor;
+7. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
             interference seed 1) at sim_len 4e6 — or 1e6, said in the
-            line, when the rate measured in phase 4 would put 4e6 over a
+            line, when the rate measured in phase 6 would put 4e6 over a
             third of the run's time limit — against the frozen digests;
-6. mapper   ``mapping.map_batch``/``map_one`` on a cuda ``MapperState``
+8. mapper   ``mapping.map_batch``/``map_one`` on a cuda ``MapperState``
             at m=256, k=16, T=100, against the plain version;
-7. profile  the paper point at sim_len 1e6 (13,824 events), timed, then
+9. profile  the paper point at sim_len 1e6 (13,824 events), timed, then
             run again under ``torch.profiler``: kernels per event and
             device kernel time against wall time (the event loop's
             device busy share);
-8. syncs    the same run under torch's sync debug mode, which warns at
+10. syncs   the same run under torch's sync debug mode, which warns at
             every call that waits for the card: all but a few set-up
             syncs must come from the loop's one packed read per event;
+11. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+            forward on the card (K2, K3) against the same weights on
+            the CPU (plain versions);
+12. lm_prefill the full-width 16-layer Jamba in bf16: one
+            ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
+            twice and K3 14 times and give finite logits; then timed
+            (tokens/s) and profiled (device time by kernel);
+13. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+            dict must equal ``goldens.SERVE``; decode ms per step;
 
 then the ``kernels`` line and, last, the ``{"ok": true, "device": ...}``
-line.  Kernel launch counts are zeroed before phase 5 and read after
-phase 6 (the main path); the comparison launches of phase 3 do not
-count.
+line.  Each main path reads its own launch counts, zeroed just before
+it and read just after: the TLM path (phases 7-8: K1), the prefill
+(phase 12: K2, K3) and ``serve()`` (phase 13, whose decode steps
+are plain torch).  The comparison launches of phases 3-5 and 11 do not
+count.  Float32 matmuls run in full float32
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` are set False) so the f32
+comparisons hold the kernels, not TF32 rounding.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,10 +73,13 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
-# the time limit of an on-card smoke run, nvcc builds included
-TIME_LIMIT_S = 1200.0
+# the time limit the on-card smoke runs get (the tool's default call
+# limit), nvcc builds included
+TIME_LIMIT_S = 900.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
+KERNEL_SOURCES = ("hier_minsearch", "flash_attention", "selective_scan")
 K1_KS = (1, 8, 16, 32, 256)
 K1_M, K1_T, K1_MAIN_K = 256, 100, 16
 SETUP_SYNCS_MAX = 32           # host<->card copies of a run's set-up
@@ -108,8 +136,10 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build("hier_minsearch")
-    emit({"phase": "build", "libraries": {"hier_minsearch": lib},
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
+                                                 KERNEL_SOURCES)))
+    emit({"phase": "build", "libraries": libs,
           "seconds": time.perf_counter() - t0})
 
 
@@ -329,32 +359,411 @@ def phase_syncs():
           "other_syncs": others, "by_line": dict(lines)})
 
 
+# --------------------------------------------------------------------------
+# K2, K3 and the LM serving path
+# --------------------------------------------------------------------------
+
+# the JAX tests' cases (tests/test_kernels_flash.py, test_kernels_scan.py)
+K2_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, window)
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 4, 4, 32, True, 0),
+    (2, 128, 128, 8, 2, 64, False, 0),
+    (1, 256, 256, 2, 2, 64, True, 64),
+    (1, 192, 192, 2, 1, 64, True, 0),
+    (1, 128, 256, 2, 2, 64, True, 0),
+    (2, 256, 256, 4, 1, 16, True, 0),     # the reduced Jamba of lm_small
+]
+K2_MODEL = (2, 4096, 4096, 32, 8, 128, True, 0)   # Jamba's prefill shape
+K3_CASES = [(2, 64, 16, 4), (1, 128, 32, 8), (2, 32, 8, 4), (1, 64, 8, 16)]
+K3_MODEL = (2, 4096, 8192, 16)                    # (B, S, Di, N)
+# K2: the reference test's tolerances (1e-4 f32; 2e-2 bf16, one rounding
+# of outputs of order one).  K3: 1e-4 in f32; in bf16 the two f32 results
+# may round to neighbouring bf16 values, one unit in the last place,
+# <= 2**-7 of the value (outputs reach ~100 at the model shape).
+K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+K3_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 2.0 ** -7)}
+LM_SMALL_TOL = 1e-3     # f32 logits of order 5, card vs CPU sum orders
+LM_SMALL_TOKENS = (2, 256)
+PREFILL_B, PREFILL_S, PREFILL_LAYERS = 2, 4096, 16
+PREFILL_K2, PREFILL_K3 = 2, 14    # attention and Mamba layers of 16
+
+
+def _dtypes():
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def k2_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, elem_bytes):
+    """Least time for attention's work: the larger of q, k, v, o bytes
+    over the memory rate and the score and output products of the
+    unmasked (q, k) pairs over the bf16 tensor-core peak."""
+    import numpy as np
+    qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= qpos >= kpos
+    if window:
+        ok &= (qpos - kpos) < window
+    flops = 4.0 * B * Hq * D * float(ok.sum())
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * elem_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def k3_bound_ms(B, S, Di, N, elem_bytes):
+    """Least time for the scan: the larger of its bytes (x, dt, B, C in,
+    y out; A, D f32 in) over the memory rate and its f32 operations (per
+    state element: the dt*A product, the exponential, three products
+    and two sums; per channel step three more) over the f32 peak."""
+    nbytes = (3 * B * S * Di + 2 * B * S * N) * elem_bytes + 4 * (Di * N + Di)
+    ops = 7.0 * B * S * Di * N + 3.0 * B * S * Di
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _k2_inputs(case, dtype, gen):
+    import torch
+    B, Sq, Skv, Hq, Hkv, D = case[:6]
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+
+
+def phase_k2():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = [], 0.0
+    for case in K2_CASES + [K2_MODEL]:
+        causal, win = case[6], case[7]
+        for name, dtype in _dtypes().items():
+            q, k, v = _k2_inputs(case, dtype, gen)
+            got = FA.flash_attention(q, k, v, causal=causal,
+                                     sliding_window=win)
+            want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                            sliding_window=win)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not err < K2_TOL[name]:
+                raise AssertionError(f"k2 {case} {name}: kernel vs plain "
+                                     f"max abs err {err} >= {K2_TOL[name]}")
+            worst = max(worst, err)
+            rows.append({"case": list(case), "dtype": name,
+                         "max_abs_err": err})
+            del got, want
+        del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = _k2_inputs(K2_MODEL, torch.bfloat16, gen)
+    causal, win = K2_MODEL[6], K2_MODEL[7]
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
+                                            sliding_window=win), rounds=5)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(
+        q, k, v, causal=causal, sliding_window=win), rounds=3, warmup=1)
+    # the yardstick: one PyTorch call on the same inputs (never used by
+    # the port), on (B, H, S, D) copies made outside the timing
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    sdpa_err = float((sdpa().transpose(1, 2).float()
+                      - FA.flash_attention(q, k, v).float()).abs().max())
+    library_ms = cuda_ms(sdpa, rounds=10)
+    bound, by = k2_bound_ms(*K2_MODEL, elem_bytes=2)
+    emit({"phase": "k2", "cases": rows, "all_match": True,
+          "model_shape": list(K2_MODEL), "dtype": "bfloat16", "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+          "sdpa_ms": library_ms, "sdpa_vs_kernel_max_abs": sdpa_err,
+          "kernel_over_sdpa": ms / library_ms})
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+def _k3_inputs(case, dtype, gen):
+    import torch
+    import torch.nn.functional as F
+    B, S, Di, N = case
+    x = torch.randn((B, S, Di), generator=gen, device="cuda")
+    dt = F.softplus(torch.randn((B, S, Di), generator=gen, device="cuda")
+                    - 1)
+    A = -torch.exp(torch.randn((Di, N), generator=gen, device="cuda") * 0.5)
+    Bc = torch.randn((B, S, N), generator=gen, device="cuda")
+    Cc = torch.randn((B, S, N), generator=gen, device="cuda")
+    D = torch.ones((Di,), device="cuda")
+    return x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), D
+
+
+def phase_k3():
+    import torch
+    from repro_torch.kernels import selective_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = [], 0.0
+    for case in K3_CASES + [K3_MODEL]:
+        for name, dtype in _dtypes().items():
+            args = _k3_inputs(case, dtype, gen)
+            got = SS.selective_scan(*args).float()
+            want = SS.selective_scan_plain(*args).float()
+            torch.cuda.synchronize()
+            atol, rtol = K3_TOL[name]
+            diff = (got - want).abs()
+            err = float(diff.max())
+            if not bool((diff <= atol + rtol * want.abs()).all()):
+                raise AssertionError(f"k3 {case} {name}: kernel vs plain "
+                                     f"max abs err {err} beyond {atol} + "
+                                     f"{rtol} |plain|")
+            worst = max(worst, err)
+            rows.append({"case": list(case), "dtype": name,
+                         "max_abs_err": err,
+                         "max_abs_plain": float(want.abs().max())})
+    args = _k3_inputs(K3_MODEL, torch.bfloat16, gen)
+    ms = cuda_ms(lambda: SS.selective_scan(*args), rounds=10)
+    plain_ms = cuda_ms(lambda: SS.selective_scan_plain(*args), rounds=2,
+                       warmup=1)
+    bound, by = k3_bound_ms(*K3_MODEL, elem_bytes=2)
+    emit({"phase": "k3", "cases": rows, "all_match": True,
+          "model_shape": list(K3_MODEL), "dtype": "bfloat16", "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+          "library_ms": None})
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def _jamba(n_layers=None):
+    from repro_torch.configs import get_config, reduced_config
+    if n_layers is None:
+        return reduced_config(get_config("jamba_v01_52b"), n_layers=8)
+    return dataclasses.replace(get_config("jamba_v01_52b"),
+                               n_layers=n_layers)
+
+
+def phase_lm_small():
+    """The reduced 8-layer Jamba in f32: the card's forward (K2, K3)
+    against the CPU's (plain versions) on the same weights."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import model as MDL
+    cfg = _jamba()
+    params = MDL.init_model(cfg, torch.float32, seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, LM_SMALL_TOKENS))
+    want, want_aux = MDL.forward(params, cfg, tokens)
+    got, aux = MDL.forward(convert.params_to(params, "cuda"), cfg,
+                           tokens.cuda())
+    got, aux = got.cpu(), aux.cpu()
+    err = float((got - want).abs().max())
+    aux_err = float((aux - want_aux).abs().max())
+    if not (err < LM_SMALL_TOL and aux_err < LM_SMALL_TOL):
+        raise AssertionError(f"lm_small: card vs CPU logits max abs err "
+                             f"{err}, aux {aux_err} (tolerance "
+                             f"{LM_SMALL_TOL})")
+    emit({"phase": "lm_small", "match": True, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "tokens": list(LM_SMALL_TOKENS),
+          "max_abs_err": err, "aux_max_abs_err": aux_err,
+          "max_abs_logit": float(want.abs().max()), "tol": LM_SMALL_TOL})
+
+
+def _device_time(prof) -> dict:
+    """Device time (ms) of a profiled region: in all, by kernel group
+    (K2, K3, cuBLAS matmuls, the rest) and its eight longest kernels."""
+    import torch
+    by_name, busy = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += e.duration_ns()
+        name = e.name()[:70]
+        by_name[name] = by_name.get(name, 0) + e.duration_ns()
+    groups = {"flash_attention (K2)": 0, "selective_scan (K3)": 0,
+              "gemm": 0, "other": 0}
+    for name, ns in by_name.items():
+        low = name.lower()
+        key = ("flash_attention (K2)" if "fa_fwd_kernel" in name
+               else "selective_scan (K3)" if "scan_kernel" in name
+               else "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                                     "cutlass", "cublas"))
+               else "other")
+        groups[key] += ns
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_busy_ms": busy / 1e6,
+            "device_ms_by_group": {k: v / 1e6 for k, v in groups.items()},
+            "top_kernels_ms": [[n, ns / 1e6] for n, ns in top]}
+
+
+def phase_lm_prefill():
+    """Full-width Jamba cut to 16 layers, bf16: the prefill's kernel
+    launches (its own main path), finiteness, tokens/s and where its
+    device time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as MDL
+    cfg = _jamba(PREFILL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = MDL.init_model(cfg, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    step = make_prefill_step(cfg)
+    FA.launches = SS.launches = HM.launches = 0   # the prefill path starts
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = {"flash_attention": FA.launches,
+                "selective_scan": SS.launches,
+                "hier_minsearch": HM.launches}     # ... and ends here
+    if launches != {"flash_attention": PREFILL_K2,
+                    "selective_scan": PREFILL_K3, "hier_minsearch": 0}:
+        raise AssertionError(f"lm_prefill launches {launches}, want K2 x"
+                             f"{PREFILL_K2} and K3 x{PREFILL_K3}")
+    if logits.shape != (PREFILL_B, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_prefill logits {tuple(logits.shape)} "
+                             f"not finite or of the wrong shape")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    tokens_n = PREFILL_B * PREFILL_S
+    emit({"phase": "lm_prefill", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(), "dtype": "bfloat16",
+          "batch": PREFILL_B, "seq": PREFILL_S, "launches": launches,
+          "finite": True, "init_s": init_s, "wall_s": walls,
+          "tokens_per_s": tokens_n / wall, **_device_time(prof),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_serve():
+    """``serve()`` at full width (16 layers, bf16) on the card: the
+    frozen control-plane result and decode ms per step; then a second
+    run under the profiler for where the decode time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import goldens as G
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.models import model as MDL
+    cfg = _jamba(PREFILL_LAYERS)
+    events = []
+    decode_step = MDL.decode_step
+
+    def timed_step(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode_step(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    MDL.decode_step = timed_step
+    try:
+        FA.launches = SS.launches = HM.launches = 0   # the serve path starts
+        t0 = time.perf_counter()
+        got = SERVE.serve(cfg, dtype=torch.bfloat16, verbose=lambda *_: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": FA.launches,
+                    "selective_scan": SS.launches,
+                    "hier_minsearch": HM.launches}    # ... and ends here
+    finally:
+        MDL.decode_step = decode_step
+    if got != G.SERVE:
+        raise AssertionError(f"lm_serve: {got} != frozen {G.SERVE}")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    torch.cuda.empty_cache()
+    # the profiler starts at the first decode step, after the init
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def profiled_step(*args, **kw):
+        if not prof_on:
+            torch.cuda.synchronize()
+            prof.start()
+            prof_on.append(True)
+        return decode_step(*args, **kw)
+
+    prof_on = []
+    MDL.decode_step = profiled_step
+    try:
+        again = SERVE.serve(cfg, dtype=torch.bfloat16,
+                            verbose=lambda *_: None)
+        torch.cuda.synchronize()
+    finally:
+        MDL.decode_step = decode_step
+        if prof_on:
+            prof.stop()
+    if again != G.SERVE:
+        raise AssertionError(f"lm_serve (profiled): {again} != {G.SERVE}")
+    profiled = _device_time(prof)
+    emit({"phase": "lm_serve", "match": True, **got, "n_layers":
+          cfg.n_layers, "dtype": "bfloat16", "decode_steps": len(step_ms),
+          "decode_ms": step_ms,
+          "decode_ms_median": statistics.median(step_ms),
+          "decode_ms_median_after_first": statistics.median(step_ms[1:]),
+          "wall_s": wall, "launches": launches,
+          "profiled_decode": profiled})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the "
               "card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
 
     phase_device()
     phase_build()
     k1 = phase_k1()
+    k2 = phase_k2()
+    k3 = phase_k3()
     rate = phase_golden()
-    HM.launches = 0                       # the main path's count starts
+    FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
     phase_paper(rate)
     phase_mapper()
-    main_launches = HM.launches           # ... and ends here
-    if main_launches == 0:
-        raise AssertionError("the main path never launched hier_minsearch")
+    tlm_launches = HM.launches                    # ... and ends here
+    if tlm_launches == 0:
+        raise AssertionError("the TLM path never launched hier_minsearch")
     phase_profile()
     phase_syncs()
+    phase_lm_small()
+    prefill = phase_lm_prefill()
+    phase_lm_serve()
+    rows = [(HM, tlm_launches, k1), (FA, prefill["flash_attention"], k2),
+            (SS, prefill["selective_scan"], k3)]
     emit({"kernels": [{
-        "name": HM.NAME, "route": "cuda", "source": HM.SOURCE,
-        "replaces": HM.REPLACES, "launches": main_launches,
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}]})
+        "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+        "replaces": mod.REPLACES, "launches": n,
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m.get("library_ms")}
+        for mod, n, m in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,12 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_IDS,
+    PORTED_ARCHS,
+    SHAPES,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    ShapeConfig,
+    get_config,
+    reduced_config,
+    register,
+)

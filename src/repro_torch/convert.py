@@ -11,6 +11,9 @@ dicts, or objects read by attribute.
   its fields) -> the port's ``SimParams``.
 - :func:`mapper_from_reference`: a reference ``MapperState``'s arrays ->
   the port's ``MapperState``.
+- :func:`model_params_from_reference`: a reference LM parameter tree
+  (``repro.models.model.init_model``, leaves as numpy arrays) -> the
+  port's parameter dict, the stacked super-blocks sliced into a list.
 """
 from __future__ import annotations
 
@@ -64,3 +67,44 @@ def mapper_from_reference(ref, device=None) -> MapperState:
     return MapperState(
         loads=torch.from_numpy(np.array(ref.loads, np.float32)).to(dev),
         view=torch.from_numpy(np.array(ref.view, np.float32)).to(dev))
+
+
+def _leaf_tensor(leaf, dev) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: carry the bits
+        return torch.from_numpy(np.array(arr.view(np.uint16), copy=True)) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, fn) for v in node]
+    return fn(node)
+
+
+def model_params_from_reference(tree, device=None) -> dict:
+    """The port's LM parameters from a reference ``init_model`` tree
+    whose leaves are numpy arrays (or anything ``np.asarray`` takes), in
+    their own dtypes, on ``device`` (default: the card).  The reference
+    stacks its periodic super-blocks along a leading axis of every
+    ``blocks`` leaf; the port keeps one dict per super-block."""
+    dev = resolve_device(device)
+    out = {k: _tree(v, lambda a: _leaf_tensor(a, dev))
+           for k, v in tree.items() if k != "blocks"}
+    blocks = tree.get("blocks") or {}
+    leaves = []
+    _tree(blocks, leaves.append)
+    n_super = int(np.asarray(leaves[0]).shape[0]) if leaves else 0
+    out["blocks"] = [_tree(blocks, lambda a, i=i: _leaf_tensor(
+        np.asarray(a)[i], dev)) for i in range(n_super)]
+    return out
+
+
+def params_to(tree, device):
+    """A parameter or cache dict with every tensor moved to ``device``."""
+    dev = resolve_device(device)
+    return _tree(tree, lambda t: t.to(dev))

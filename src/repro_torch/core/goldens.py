@@ -11,7 +11,12 @@ without JAX (``chip_smoke.py``):
 - its single-application anchor (``independent_tasks``, sim_len 1e7);
 - the paper point: ``SimParams()`` defaults (m=256, k=16, n_childs=100,
   max_apps=512, queue_cap=2048, dn_th=4) under ``interference`` seed 1,
-  at the paper's horizon 4e6 and at 1e6.
+  at the paper's horizon 4e6 and at 1e6;
+- the result of ``launch.serve.serve(cfg)`` with its
+  default arguments (64 requests, 4 clusters of 2 groups, dn_th 4, seed
+  0): it depends on the control plane only, so it holds for any model
+  config, dtype and device (held against the reference by
+  tests/test_torch_serve.py).
 """
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ GRID_APP_DONE_SHA = \
     "72576e858be248d11e21055618ff6a1aba89ebd7f7f4ea3419d9384b59cd3efa"
 SINGLE_APP_DONE = 16240.0
 SINGLE_APP_BEACONS = 8
+
+SERVE = {"finished": 64, "waves": 1, "imbalance": 1.0047190851197014,
+         "beacons_tx": 20}
 
 PAPER_SEED = 1
 PAPER_POINT = {

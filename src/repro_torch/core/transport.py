@@ -4,12 +4,16 @@ Only the ``ideal`` fabric is ported: one global bus for inter-cluster
 messages, k local buses for intra-cluster ones, and beacons that update
 every view atomically at the global-bus grant (in ``core/sim.py``).
 ``shared_bus``, ``hier_tree`` and ``mesh2d`` are ROADMAP item 5.3 and
-raise ``NotImplementedError``.
+raise ``NotImplementedError`` in the event loop.  The host-side pieces
+of every fabric are here already: :func:`mesh_hops` and the wall-clock
+beacon delays the serving engine uses (:func:`host_beacon_delays`).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 TOPOLOGIES = ("ideal", "shared_bus", "hier_tree", "mesh2d")
@@ -29,6 +33,41 @@ class Topology:
 
 
 DEFAULT_TOPOLOGY = Topology()
+
+
+def grid_side(k: int) -> int:
+    """Side of the smallest square GMN grid holding k nodes."""
+    return max(1, math.isqrt(k - 1) + 1) if k > 1 else 1
+
+
+def mesh_hops(k: int) -> np.ndarray:
+    """(k, k) Manhattan hop counts between GMNs placed row-major on a
+    ``grid_side(k)``-wide 2D grid; symmetric, zero diagonal."""
+    s = grid_side(k)
+    pos = np.arange(k)
+    x, y = pos // s, pos % s
+    return (np.abs(x[:, None] - x[None, :])
+            + np.abs(y[:, None] - y[None, :])).astype(np.int32)
+
+
+def host_beacon_delays(kind: str, k: int, src: int, *, c_b: float = 1.0,
+                       c_hop: float = 0.5) -> np.ndarray:
+    """(k,) wall-clock beacon delivery delays from ``src`` per receiver
+    (entry ``src`` is 0 and unused)."""
+    if kind not in TOPOLOGIES:
+        raise ValueError(f"unknown topology {kind!r}; "
+                         f"choose from {TOPOLOGIES}")
+    d = np.zeros(k, np.float64)
+    if kind == "ideal" or k <= 1:
+        return d
+    if kind == "shared_bus":
+        d = ((np.arange(k) - src) % k) * c_b         # own-first order
+    elif kind == "hier_tree":
+        d = np.full(k, 2.0 * c_b)                    # global + local hop
+    else:                                            # mesh2d
+        d = c_b + mesh_hops(k)[src] * c_hop
+    d[src] = 0.0
+    return d
 
 
 def require_ported(topo: Topology) -> None:

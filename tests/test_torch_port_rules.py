@@ -21,7 +21,11 @@ from repro_torch import convert
 from repro_torch.core import mapping as TM
 from repro_torch.core import sim as TS
 from repro_torch.device import resolve_device
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as TSERVE
+from repro_torch.launch import steps as TSTEPS
+from repro_torch.models import model as TMDL
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -101,6 +105,34 @@ def test_entry_points_raise_without_cuda(no_cuda, monkeypatch):
                          np.ones(3, np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.state_from_numpy({"x": np.zeros(3, np.int32)})
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    cfg = reduced_config(get_config("jamba_v01_52b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSERVE.serve(cfg, verbose=lambda *_: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TMDL.init_model(cfg, device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TMDL.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSTEPS.make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSTEPS.make_decode_step(cfg)
+    q = np.zeros((1, 4, 2, 32), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ops.attention(q, q, q)
+    x = np.zeros((1, 4, 8), np.float32)
+    bc = np.zeros((1, 4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ops.selective_scan(x, x, np.zeros((8, 2), np.float32), bc, bc,
+                           np.ones(8, np.float32))
+    params = TMDL.init_model(cfg, torch.float32, device="cpu")
+    tree = {"embed": {k: v.numpy() for k, v in params["embed"].items()}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.model_params_from_reference(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_to(params, None)
 
 
 def test_convert_round_trips_reference_state():
