@@ -10,19 +10,28 @@ any failure ends the run with a non-zero exit:
 1. device   the card's ``nvidia-smi`` name and power limit (also printed
             raw on a line of their own), torch and CUDA versions;
 2. build    compiles every kernel source of the port with ``nvcc``, one
-            process per source, all at once;
+            process per source, all at once: seconds per library,
+            ptxas's registers and spill bytes per kernel, and the count
+            of ``HGMMA`` (tensor-core ``wgmma``) instructions in K2's
+            library, which must not be 0;
 3. k1       the mapper kernel against its plain torch version on the
             card, at the ``scheduler_overhead`` shapes (m=256, k in
             {1, 8, 16, 32, 256}, T=100), random floats and the all-zero
             tie; kernel, plain and empty-launch times;
 4. k2       flash attention against its plain version, on the JAX
             tests' cases in f32 and bf16, at the reduced Jamba's shape
-            (head dim 16) and at Jamba's prefill shape
-            (B=2, S=4096, Hq=32, Hkv=8, D=128, causal); kernel, plain,
-            bound and ``scaled_dot_product_attention`` times there;
+            (head dim 16), at every head dim with lengths that are not
+            multiples of the bf16 kernel's 128-row tiles (Sq < Skv, a
+            window), and at Jamba's prefill shape (B=2, S=4096, Hq=32,
+            Hkv=8, D=128, causal); kernel, plain, bound and
+            ``scaled_dot_product_attention`` times there; a bf16 input
+            that is not 16-byte aligned must raise;
 5. k3       the selective scan against its plain version, on the JAX
-            tests' cases and at Jamba's shape (B=2, S=4096, Di=8192,
-            N=16, f32 A); kernel, plain and bound times;
+            tests' cases, on lengths and widths that are not multiples
+            of the kernel's 64-step runs and channel blocks (and rows
+            that are not whole 16-byte chunks), and at Jamba's shape
+            (B=2, S=4096, Di=8192, N=16, f32 A); kernel, plain and bound
+            times;
 6. golden   the frozen golden grid and single-app anchor;
 7. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
             interference seed 1) at sim_len 4e6 — or 1e6, said in the
@@ -61,6 +70,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -133,14 +144,65 @@ def phase_device():
     return smi
 
 
+def _ptxas(log: str, demangle) -> dict:
+    """Registers and spill bytes (stores + loads) of each kernel in
+    ``nvcc -Xptxas -v`` output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = demangle(m.group(1))
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
+    bin_dir = Path(_build.nvcc_path()).parent
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    def demangle(sym):
+        tool = shutil.which("cu++filt", path=str(bin_dir))
+        if tool is None:
+            return sym
+        name = subprocess.run([tool, sym], capture_output=True,
+                              text=True).stdout.strip() or sym
+        # "void <unnamed>::tc::f<(int)128>(args)" -> "tc::f<128>"
+        name = re.sub(r"\((int|bool)\)", "", name).split("(")[0]
+        return re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "",
+                      name)
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        libs = dict(zip(KERNEL_SOURCES, pool.map(_build.build,
-                                                 KERNEL_SOURCES)))
-    emit({"phase": "build", "libraries": libs,
-          "seconds": time.perf_counter() - t0})
+        built = dict(zip(KERNEL_SOURCES, pool.map(timed, KERNEL_SOURCES)))
+    wall = time.perf_counter() - t0
+    kernels = {}
+    for name in KERNEL_SOURCES:
+        kernels.update(_ptxas(_build.build_log(name).read_text(), demangle))
+    sass = subprocess.run(
+        [str(bin_dir / "cuobjdump"), "-sass", built["flash_attention"][0]],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    if hgmma == 0:
+        raise AssertionError("K2's library holds no HGMMA instruction: the "
+                             "bf16 kernel does not use the tensor cores")
+    emit({"phase": "build", "libraries": {n: b[0] for n, b in built.items()},
+          "seconds": {n: b[1] for n, b in built.items()}, "wall_s": wall,
+          "ptxas": kernels, "k2_hgmma_instructions": hgmma,
+          "spill_free": all(k.get("spill_bytes", 0) == 0
+                            for k in kernels.values())})
 
 
 def _k1_cases():
@@ -373,9 +435,21 @@ K2_CASES = [
     (1, 192, 192, 2, 1, 64, True, 0),
     (1, 128, 256, 2, 2, 64, True, 0),
     (2, 256, 256, 4, 1, 16, True, 0),     # the reduced Jamba of lm_small
+    # every head dim, lengths that are not multiples of the bf16
+    # kernel's 128-row q and key tiles, Sq < Skv, a window
+    (2, 200, 328, 4, 2, 128, True, 0),
+    (1, 130, 257, 2, 1, 16, True, 0),
+    (1, 100, 200, 2, 2, 32, False, 0),
+    (1, 333, 333, 2, 1, 128, True, 96),
+    (1, 70, 190, 2, 2, 64, True, 0),
 ]
 K2_MODEL = (2, 4096, 4096, 32, 8, 128, True, 0)   # Jamba's prefill shape
-K3_CASES = [(2, 64, 16, 4), (1, 128, 32, 8), (2, 32, 8, 4), (1, 64, 8, 16)]
+K3_CASES = [(2, 64, 16, 4), (1, 128, 32, 8), (2, 32, 8, 4), (1, 64, 8, 16),
+            # S not a multiple of the kernel's 64-step runs, Di not one of
+            # its channel blocks; rows not whole 16-byte chunks (Di=37,
+            # N=5); N = 64 and N = 1
+            (2, 1000, 200, 16), (1, 77, 37, 5), (1, 130, 24, 64),
+            (1, 65, 40, 1)]
 K3_MODEL = (2, 4096, 8192, 16)                    # (B, S, Di, N)
 # K2: the reference test's tolerances (1e-4 f32; 2e-2 bf16, one rounding
 # of outputs of order one).  K3: 1e-4 in f32; in bf16 the two f32 results
@@ -474,6 +548,18 @@ def phase_k2():
                       - FA.flash_attention(q, k, v).float()).abs().max())
     library_ms = cuda_ms(sdpa, rounds=10)
     bound, by = k2_bound_ms(*K2_MODEL, elem_bytes=2)
+    # a CUDA input the bf16 kernel cannot take raises, with no detour to
+    # the plain version: a contiguous view 2 bytes past an aligned base
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device="cuda")[1:].view(q.shape)
+    before = FA.launches
+    try:
+        FA.flash_attention(shifted, k, v)
+        raise AssertionError("k2: an unaligned bf16 q did not raise")
+    except ValueError:
+        pass
+    if FA.launches != before:
+        raise AssertionError("k2: the unaligned call launched a kernel")
     emit({"phase": "k2", "cases": rows, "all_match": True,
           "model_shape": list(K2_MODEL), "dtype": "bfloat16", "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -581,8 +667,8 @@ def _device_time(prof) -> dict:
               "gemm": 0, "other": 0}
     for name, ns in by_name.items():
         low = name.lower()
-        key = ("flash_attention (K2)" if "fa_fwd_kernel" in name
-               else "selective_scan (K3)" if "scan_kernel" in name
+        key = ("flash_attention (K2)" if "fa_fwd_" in name
+               else "selective_scan (K3)" if "ssm_scan_fwd" in name
                else "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
                                                      "cutlass", "cublas"))
                else "other")

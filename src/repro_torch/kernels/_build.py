@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``extern "C"`` entry points that return the launch's
 ``cudaError_t``), for ``sm_90a``:
 
-    nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a \
+    nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a -Xptxas -v \
          -shared -Xcompiler -fPIC -o _build/<name>-<sha>.so csrc/<name>.cu
 
-The library goes into ``kernels/_build/`` (git-ignored), named by the
-source's content hash, at first use: a checkout builds what it runs, and
-an edited source rebuilds.  Nothing is built or imported at module
+A source may include the shared headers ``csrc/*.cuh``.  The library goes
+into ``kernels/_build/`` (git-ignored), named by a hash of the source, of
+every header and of the flags, at first use: a checkout builds what it
+runs, and an edited source or header rebuilds.  nvcc's output (ptxas's
+registers, shared memory and spills of each kernel) is kept beside the
+library as ``<library>.log``.  Nothing is built or imported at module
 import time.
 """
 from __future__ import annotations
@@ -25,6 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-O3", "-std=c++17", *ARCH_FLAGS, "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +48,17 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the
+    source, of every ``csrc/*.cuh`` it may include and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> Path:
+    """nvcc's output for the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
 
 
 def build(name: str) -> str:
@@ -60,13 +73,13 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.run(
-        [nvcc_path(), "-O3", "-std=c++17", *ARCH_FLAGS, "-shared",
-         "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC / f"{name}.cu")],
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
                            f"{proc.returncode}\n{proc.stdout}")
+    build_log(name).write_text(proc.stdout)
     os.replace(tmp, lib)
     return str(lib)
 

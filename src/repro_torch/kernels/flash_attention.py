@@ -3,9 +3,20 @@ the port of the Pallas kernel ``repro/kernels/flash_attention.py:_fa_kernel``.
 
 q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's dtype,
 f32 math.  Positions are end-aligned (q row i sits at i + Skv - Sq).
-The kernel (``csrc/flash_attention.cu``, CUDA C++ for sm_90a) runs one
-block per (64-row q tile, q head, batch) with an online softmax in
-registers; its source note says what bounds it.
+``csrc/flash_attention.cu`` (CUDA C++ for sm_90a) holds two kernels, one
+per dtype:
+
+- bfloat16 (the model's prefill): ``fa_fwd_wgmma_bf16``, one block of
+  two warpgroups per (128-row q tile, q head, batch); Q K^T and P V on
+  the tensor cores (``wgmma``), K/V tiles double-buffered in shared
+  memory by ``cp.async``, which needs 16-byte-aligned bases.  P is
+  rounded to bf16 before P V, the one rounding the f32 TPU kernel does
+  not make.
+- float32: ``fa_fwd_simt_f32``, one block per (64-row q tile, q head,
+  batch) with f32 FMAs on the CUDA cores (TF32 tensor cores would miss
+  the f32 tolerance).
+
+The source note says what bounds each.
 
 :func:`flash_attention` dispatches on the tensors' device: a CPU tensor
 takes :func:`flash_attention_plain` (the softmax of
@@ -32,18 +43,20 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:24"
 
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's C entry point, by dtype
+_ENTRY = {torch.float32: "flash_attention_fwd_f32",
+          torch.bfloat16: "flash_attention_fwd_bf16"}
 
 launches = 0    # kernel launches so far (the plain version never counts)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
-    if lib.flash_attention_fwd.argtypes is None:
+def _entry(dtype):
+    fn = getattr(_build.load(NAME), _ENTRY[dtype])
+    if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp] + [ci] * 9 + [vp]
-        lib.flash_attention_fwd.restype = ci
-    return lib
+        fn.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [vp]
+        fn.restype = ci
+    return fn
 
 
 def flash_attention_plain(q, k, v, *, causal=True, sliding_window=0):
@@ -100,7 +113,7 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0):
                          f"{q.device}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in _ENTRY or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -109,17 +122,26 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0):
                          f"{HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
-    if max(B, Hq) > 65535 or math.ceil(Sq / 64) > 2**31 - 1:
+    if q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention bf16 kernel copies 16-byte "
+                             "chunks: q, k, v must start on 16-byte "
+                             "boundaries")
+        # grid (B * Hq, 128-row q tiles)
+        grid_ok = B * Hq <= 2**31 - 1 and math.ceil(Sq / 128) <= 65535
+    else:
+        # grid (64-row q tiles, Hq, B)
+        grid_ok = max(B, Hq) <= 65535 and math.ceil(Sq / 64) <= 2**31 - 1
+    if not grid_ok:
         raise ValueError(f"grid too large for B={B}, Hq={Hq}, Sq={Sq}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    fn = _entry(q.dtype)
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, Hq, Hkv, D, int(bool(causal)), int(sliding_window),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+                 int(sliding_window), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -6,10 +6,16 @@
 
 x, dt (B, S, Di); A (Di, N); B, C (B, S, N); D (Di,) -> y (B, S, Di) in
 x's dtype, f32 math.  The kernel (``csrc/selective_scan.cu``, CUDA C++
-for sm_90a) keeps one (batch, channel)'s state in a thread's registers
-for the whole sequence; its source note says what bounds it.  It takes
-any S and Di (the reference dispatches to its TPU kernel only when
-``S % chunk == 0`` and ``Di % 256 == 0``).
+for sm_90a) keeps one (batch, channel)'s state in registers for the
+whole sequence, spread over L lanes of a warp, four states a lane (L =
+ceil(N / 4) rounded up to a power of two); a block of 128 threads takes
+128 / L channels of one batch row, so the grid is (ceil(Di / (128 / L)),
+B).  Runs of 64 time steps are double-buffered in shared memory with
+``cp.async`` while the previous run is walked; its source note says what
+bounds it.  It takes any S and Di (the reference dispatches to its TPU
+kernel only when ``S % chunk == 0`` and ``Di % 256 == 0``); rows that are
+not whole 16-byte chunks, or bases that are not 16-byte aligned, take
+element copies in the same kernel.
 
 :func:`selective_scan` dispatches on the tensors' device: a CPU tensor
 takes :func:`selective_scan_plain` (the sequential loop of
