@@ -11,13 +11,20 @@ any failure ends the run with a non-zero exit:
             raw on a line of their own), torch and CUDA versions;
 2. build    compiles every kernel source of the port with ``nvcc``, one
             process per source, all at once: seconds per library,
-            ptxas's registers and spill bytes per kernel, and the count
-            of ``HGMMA`` (tensor-core ``wgmma``) instructions in K2's
-            library, which must not be 0;
-3. k1       the mapper kernel against its plain torch version on the
-            card, at the ``scheduler_overhead`` shapes (m=256, k in
-            {1, 8, 16, 32, 256}, T=100), random floats and the all-zero
-            tie; kernel, plain and empty-launch times;
+            ptxas's registers, spill and stack bytes per kernel, the
+            count of ``HGMMA`` (tensor-core ``wgmma``) instructions in
+            K2's library, which must not be 0, and for each instance of
+            K1's warp kernel its ``REDUX`` and ``BAR`` instructions:
+            at least one ``REDUX``, no ``BAR``, no spills, no stack;
+3. k1       the mapper's two kernels (warp and block) against its plain
+            torch version on the card, at the ``scheduler_overhead``
+            shapes (m=256, k in {1, 8, 16, 32, 256}, T=100), random
+            floats and the all-zero tie, NaN and infinite loads and
+            costs, -0.0, odd shapes and one shape (64 x 64) above the
+            warp kernel's capacity that only the block kernel takes;
+            at the m=256 shapes each kernel's device time per launch
+            (``torch.profiler``), its time per Python call (CUDA
+            events), the plain version's and the empty launch's;
 4. k2       flash attention against its plain version, on the JAX
             tests' cases in f32 and bf16, at the reduced Jamba's shape
             (head dim 16), at every head dim with lengths that are not
@@ -93,6 +100,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCES = ("hier_minsearch", "flash_attention", "selective_scan")
 K1_KS = (1, 8, 16, 32, 256)
 K1_M, K1_T, K1_MAIN_K = 256, 100, 16
+# ragged shapes, and one above the warp kernel's capacity (block only)
+K1_ODD, K1_BLOCK_ONLY = ((5, 7), (37, 3)), (64, 64)
+K1_KERNEL_NAMES = ("assign_warp", "assign_block", "empty_kernel")
 SETUP_SYNCS_MAX = 32           # host<->card copies of a run's set-up
 
 
@@ -145,8 +155,8 @@ def phase_device():
 
 
 def _ptxas(log: str, demangle) -> dict:
-    """Registers and spill bytes (stores + loads) of each kernel in
-    ``nvcc -Xptxas -v`` output."""
+    """Registers, stack frame and spill bytes (stores + loads) of each
+    kernel in ``nvcc -Xptxas -v`` output."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -154,10 +164,11 @@ def _ptxas(log: str, demangle) -> dict:
             fn = demangle(m.group(1))
             out[fn] = {}
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and fn:
-            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            out[fn]["stack_bytes"] = int(m.group(1))
+            out[fn]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             out[fn]["registers"] = int(m.group(1))
@@ -191,24 +202,54 @@ def phase_build():
     kernels = {}
     for name in KERNEL_SOURCES:
         kernels.update(_ptxas(_build.build_log(name).read_text(), demangle))
-    sass = subprocess.run(
-        [str(bin_dir / "cuobjdump"), "-sass", built["flash_attention"][0]],
-        capture_output=True, text=True, check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    sass = _sass(bin_dir, built["flash_attention"][0], demangle)
+    hgmma = sum("HGMMA" in line for lines in sass.values() for line in lines)
     if hgmma == 0:
         raise AssertionError("K2's library holds no HGMMA instruction: the "
                              "bf16 kernel does not use the tensor cores")
+    k1_warp = {}
+    for fn, lines in _sass(bin_dir, built["hier_minsearch"][0],
+                           demangle).items():
+        if fn.startswith("assign_warp"):
+            k1_warp[fn] = {**kernels[fn], **{
+                op: sum(bool(re.search(rf"\b{op}\b", ln)) for ln in lines)
+                for op in ("REDUX", "BAR")}}
+    if not k1_warp or any(
+            v["REDUX"] == 0 or v["BAR"] != 0 or v.get("spill_bytes") != 0
+            or v.get("stack_bytes") != 0 for v in k1_warp.values()):
+        raise AssertionError(f"K1's warp kernel: want REDUX, no BAR, no "
+                             f"spills and no stack in every instance, got "
+                             f"{k1_warp}")
     emit({"phase": "build", "libraries": {n: b[0] for n, b in built.items()},
           "seconds": {n: b[1] for n, b in built.items()}, "wall_s": wall,
           "ptxas": kernels, "k2_hgmma_instructions": hgmma,
+          "k1_warp": k1_warp,
           "spill_free": all(k.get("spill_bytes", 0) == 0
                             for k in kernels.values())})
 
 
+def _sass(bin_dir: Path, lib: str, demangle) -> dict:
+    """The SASS lines of each kernel in a built library
+    (``cuobjdump -sass``), by demangled name."""
+    text = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = demangle(m.group(1))
+            out[fn] = []
+        elif fn is not None:
+            out[fn].append(line)
+    return out
+
+
 def _k1_cases():
     """(label, loads, costs, exact) on the host; exact = integer data,
-    where loads must match bit for bit."""
+    where loads must match bit for bit (NaN where the plain version has
+    NaN)."""
     rng = np.random.default_rng(0)
+    nan, inf = np.nan, np.inf
     cases = []
     for k in K1_KS:
         mpk = K1_M // k
@@ -219,7 +260,75 @@ def _k1_cases():
                       (rng.random(K1_T) + 0.5).astype(np.float32), False))
     cases.append(("all-zero tie 3x3", np.zeros((3, 3), np.float32),
                   np.ones(9, np.float32), True))
+    nan_cost = rng.integers(1, 4, 10).astype(np.float32)
+    nan_cost[5] = nan
+    cases += [
+        ("nan in a row", np.array([[1, 2], [nan, 0], [3, 4]], np.float32),
+         np.ones(3, np.float32), True),
+        ("all nan 2x2", np.full((2, 2), nan, np.float32),
+         np.ones(3, np.float32), True),
+        ("nan cost at step 5 of 10",
+         rng.integers(0, 5, (4, 4)).astype(np.float32), nan_cost, True),
+        ("+inf, -inf and nan-sum rows",
+         np.array([[inf, 1], [2, -inf], [inf, -inf], [0, 0]], np.float32),
+         np.ones(5, np.float32), True),
+        ("-inf row", np.array([[5, 1], [2, -inf], [0, 0]], np.float32),
+         np.ones(4, np.float32), True),
+        ("all +inf 3x3", np.full((3, 3), inf, np.float32),
+         np.ones(5, np.float32), True),
+        ("-0.0 beside +0.0",
+         np.array([[0.0, -0.0], [-0.0, 0.0], [-0.0, -0.0]], np.float32),
+         np.ones(4, np.float32), True),
+    ]
+    for k, mpk in (*K1_ODD, K1_BLOCK_ONLY):
+        cases.append((f"float {k}x{mpk}",
+                      (rng.random((k, mpk)) * 5).astype(np.float32),
+                      (rng.random(K1_T) + 0.5).astype(np.float32), False))
+        cases.append((f"ties {k}x{mpk}",
+                      rng.integers(0, 3, (k, mpk)).astype(np.float32),
+                      np.ones(K1_T, np.float32), True))
     return cases
+
+
+def _k1_compare(a_k, l_k, a_p, l_p, exact: bool):
+    """(assignments equal, loads equal, max abs err): NaN only where the
+    plain version has NaN; elsewhere bit for bit if ``exact``, else
+    within 1e-5 (equal infinities count as 0)."""
+    import torch
+    nan_p = torch.isnan(l_p)
+    keep = ~nan_p
+    x, y = l_k[keep], l_p[keep]
+    diff = torch.where(x == y, 0.0, (x - y).abs())
+    err = float(diff.max()) if diff.numel() else 0.0
+    same = (torch.equal(x.view(torch.int32), y.view(torch.int32)) if exact
+            else err <= 1e-5)
+    return (torch.equal(a_k, a_p),
+            same and torch.equal(torch.isnan(l_k), nan_p), err)
+
+
+def _k1_device_ms(groups, reps: int) -> dict:
+    """Median device time (ms) per launch of each (label, fn) group, fn
+    launching one K1 kernel, from ``torch.profiler``'s kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _, fn in groups:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, fn in groups:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    recs = sorted((e.start_ns(), e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and any(w in e.name() for w in K1_KERNEL_NAMES))
+    if len(recs) != len(groups) * reps:
+        raise AssertionError(f"k1: {len(recs)} profiled kernels for "
+                             f"{len(groups)} x {reps} launches")
+    return {label: statistics.median(
+        d for _, d in recs[i * reps:(i + 1) * reps]) / 1e6
+        for i, (label, _) in enumerate(groups)}
 
 
 def phase_k1():
@@ -229,33 +338,65 @@ def phase_k1():
     for label, loads_h, costs_h, exact in _k1_cases():
         loads = torch.from_numpy(loads_h).cuda()
         costs = torch.from_numpy(costs_h).cuda()
-        a_k, l_k = HM.assign_tasks(loads, costs)
-        a_p, l_p = HM.assign_tasks_plain(loads, costs)
-        torch.cuda.synchronize()
-        err = float((l_k - l_p).abs().max())
-        same_assign = bool(torch.equal(a_k, a_p))
-        same_loads = bool(torch.equal(l_k, l_p)) if exact else err <= 1e-5
-        if not (same_assign and same_loads):
-            raise AssertionError(f"k1 {label}: kernel and plain version "
-                                 f"disagree (assignments equal: "
-                                 f"{same_assign}, loads max err {err})")
-        worst = max(worst, err)
         k, mpk = loads_h.shape
+        a_p, l_p = HM.assign_tasks_plain(loads, costs)
+        variants = ("warp", "block") if k * mpk <= HM.WARP_MAX_N \
+            else ("block",)
+        if HM._variant(k, mpk) != variants[0]:
+            raise AssertionError(f"k1 {label}: the wrapper picks "
+                                 f"{HM._variant(k, mpk)}, not {variants[0]}")
         row = {"case": label, "k": k, "mpk": mpk, "T": len(costs_h),
-               "max_abs_err": err}
-        if label.startswith("unit"):
-            row["ms"] = cuda_ms(lambda: HM.assign_tasks(loads, costs),
-                                rounds=10, per_round=10)
-            row["plain_ms"] = cuda_ms(
-                lambda: HM.assign_tasks_plain(loads, costs), rounds=5)
-            row["bound_ms"], row["bound_by"] = k1_bound_ms(k, mpk, K1_T)
-            row["us_per_decision"] = row["ms"] * 1e3 / K1_T
+               "variants": list(variants)}
+        for v in variants:
+            a_k, l_k = HM._launch(loads, costs, v)
+            torch.cuda.synchronize()     # a fault in the run shows here
+            same_a, same_l, err = _k1_compare(a_k, l_k, a_p, l_p, exact)
+            if not (same_a and same_l):
+                raise AssertionError(f"k1 {label}: the {v} kernel and the "
+                                     f"plain version disagree (assignments "
+                                     f"equal: {same_a}, loads equal: "
+                                     f"{same_l}, max err {err})")
+            worst = max(worst, err)
+            row[f"{v}_max_abs_err"] = err
+        if len(variants) == 1:
+            before = HM.launches
+            try:
+                HM._launch(loads, costs, "warp")
+                raise AssertionError(f"k1 {label}: the warp kernel took a "
+                                     f"shape above its capacity")
+            except ValueError:
+                pass
+            if HM.launches != before:
+                raise AssertionError(f"k1 {label}: a refused call launched")
         rows.append(row)
-    empty_ms = cuda_ms(HM.empty_launch, rounds=10, per_round=10)
-    main = next(r for r in rows if r["case"] == f"unit k={K1_MAIN_K}")
-    emit({"phase": "k1", "cases": rows, "empty_launch_ms": empty_ms,
-          "all_match": True})
-    return {"max_abs_err": worst, "ms": main["ms"],
+    # times at the m=256 shapes on all-zero loads, unit costs
+    timed, groups = [], [("empty", HM.empty_launch)]
+    for k in K1_KS:
+        loads = torch.zeros((k, K1_M // k), device="cuda")
+        costs = torch.ones(K1_T, device="cuda")
+        timed.append((k, loads, costs))
+        for v in ("warp", "block"):
+            groups.append((f"{v} k={k}", lambda loads=loads, costs=costs,
+                           v=v: HM._launch(loads, costs, v)))
+    device_ms = _k1_device_ms(groups, reps=20)
+    times = []
+    for k, loads, costs in timed:
+        row = {"k": k, "mpk": K1_M // k, "T": K1_T}
+        for v in ("warp", "block"):
+            row[f"{v}_ms"] = device_ms[f"{v} k={k}"]
+            row[f"{v}_us_per_decision"] = row[f"{v}_ms"] * 1e3 / K1_T
+            row[f"{v}_call_ms"] = cuda_ms(
+                lambda: HM._launch(loads, costs, v), rounds=10, per_round=10)
+        row["plain_ms"] = cuda_ms(
+            lambda: HM.assign_tasks_plain(loads, costs), rounds=5)
+        row["bound_ms"], row["bound_by"] = k1_bound_ms(k, K1_M // k, K1_T)
+        times.append(row)
+    empty = {"device_ms": device_ms["empty"],
+             "call_ms": cuda_ms(HM.empty_launch, rounds=10, per_round=10)}
+    main = next(r for r in times if r["k"] == K1_MAIN_K)
+    emit({"phase": "k1", "cases": rows, "all_match": True, "times": times,
+          "empty_launch": empty, "warp_max_n": HM.WARP_MAX_N})
+    return {"max_abs_err": worst, "ms": main["warp_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"]}
 

@@ -4,105 +4,369 @@
 // Replaces the Pallas TPU kernel repro/kernels/hier_minsearch.py:
 // _assign_kernel.  For t = 0..T-1, in order: stage 1 picks the cluster c
 // with the least row sum of the (k, m/k) load matrix, stage 2 the unit p
-// with the least load inside row c, then loads[c, p] += costs[t].  Ties
-// go to the lowest index, as jnp.argmin / torch.argmin break them.
+// with the least load inside row c, then loads[c, p] += costs[t].
+//
+// Ties and NaN, as jnp.argmin and torch.argmin break them: a NaN is the
+// least value and the first NaN wins; otherwise the least value wins,
+// ties to the lowest index; -0.0 ties with +0.0.  Both kernels compare
+// order_key(v) (an order-preserving uint32, NaN -> 0) and then the
+// index, so no input, all-NaN loads or a NaN cost included, can give an
+// index outside [0, k) x [0, m/k).
+//
+// Row sums are recomputed every step, as the reference recomputes
+// loads.sum(axis=1); carrying incremental sums would round differently
+// and be another function.  The order of the additions inside a row is
+// not part of the contract (it is not the reference's in either kernel):
+// assignments equal the reference's, loads bit for bit on integer data
+// and to 1e-5 on floats (tests/test_torch_minsearch.py).
 //
 // What bounds it: nothing the card's peaks describe.  The work is a
 // chain of T dependent decisions over a tiny matrix (1 KB at m = 256):
 // (2*k*m/k + 3*T)*4 bytes is about 1 ns at 3.35 TB/s, and the arithmetic
-// about as little.  The time is launch latency plus the latency of T
-// rounds of block reductions and barriers.  The design keeps the whole
-// chain in one launch of one block: the matrix lives in shared memory
-// for all T steps, and only costs[t] and assign[t] touch device memory.
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 0.147 ms at
-// m=256, k=16, T=100, about 1.5 us per decision.
+// about as little.  The time is the latency of each decision's chain of
+// dependent instructions, times T, plus one launch.  wgmma, TMA and warp
+// specialisation have nothing to do here: there is no product, no tile to
+// stream, and nothing to overlap but the next decision, which waits for
+// this one.
 //
-// Row sums are recomputed every step, left to right, as the reference
-// recomputes loads.sum(axis=1); carrying incremental sums would round
-// differently in f32 and flip near-ties.
+// Two kernels, picked by the wrapper (kernels/hier_minsearch.py:
+// _variant) from the shape alone:
+//
+// assign_warp (n = k*m/k <= 1024, every shape the TLM uses): one block of
+//   one warp that holds the whole matrix in registers for all T steps, V
+//   values a lane (a template, 1..64), with no shared memory and no
+//   barrier.  Lane l holds one contiguous run of the row-major matrix,
+//   and lanes hold rows in ascending order, so "lowest lane, then lowest
+//   local index" is "lowest index".  For k <= 16 a row is split over
+//   G = 2^g lanes (the largest power of two <= 32/k), each summing its
+//   segment as a tree; a __shfl_xor_sync butterfly inside the group gives
+//   every lane of the group the same bits (f32 addition is commutative).
+//   For k >= 17 a lane holds ceil(k/32) whole rows (G = 1), summed in
+//   turn.  Each argmin is a lane's local best (key, index), then
+//   __reduce_min_sync (redux.sync) on the key and __ballot_sync(key ==
+//   min): the lowest tied lane (or row group) is the one with no tied
+//   lane below it.  Stage 2's local best does not depend on c, so it
+//   runs in the shadow of stage 1's reduction; with whole rows a lane
+//   keeps its best row's best unit, and one warp reduction settles both
+//   stages.  Each value's key is kept beside it and recomputed only for
+//   the value that changes.  The owning lane's new value is carried
+//   through its argmin, so the update is one select per register once
+//   the warp has decided (the array is never indexed with a runtime
+//   value, so it stays out of local memory).  costs are read 32 at a
+//   time, one coalesced load a lane, issued one chunk ahead and broadcast
+//   with __shfl_sync(.., t & 31); each chunk's 32 (c, p) pairs stay in
+//   lanes (each reaching its lane one step late, so that shuffle never
+//   stalls the next decision) and leave as one coalesced (32, 2) int32
+//   store; the loads are written once, at the end.  No global access is
+//   left in the dependent chain.  Per decision at m = 256, k = 16 (V = 8,
+//   G = 2) the chain from one update to the next is about 33 dependent
+//   instructions in the SASS: a select and 3 FADDs (the segment's tree),
+//   one SHFL.BFLY + FADD, the row's key (4), REDUX + VOTE and 5 compares
+//   and selects to row c's lanes, REDUX + VOTE and 4 more to the owner's
+//   select, among about 150 issued in all.  Measured (chip_smoke.py
+//   phase k1, NVIDIA H100 80GB HBM3 at 700 W): about 26 us of device time
+//   at m = 256, k = 16, T = 100 (0.26 us a decision), 17-29 us over k in
+//   {1, 8, 16, 32, 256}; the block kernel 115-207 us on the same inputs.
+//
+// assign_block (n > 1024, up to the wrapper's shared-memory limit): PR
+//   11's kernel, kept for large n and as the yardstick: one block of 256
+//   threads, the matrix in shared memory, each thread summing whole rows
+//   left to right, two block-wide argmins of (key, index) per decision
+//   (five-round paired shuffles and three barriers each).  costs are
+//   staged in shared memory 32 at a time, loaded one chunk ahead, so the
+//   block's shared memory is 4*k*(m/k) bytes plus a fixed 196 for any T.
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <cmath>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+// the key of "no candidate": above every real value's key (+inf's is
+// 0xff800000), so a lane or thread without one never wins
+constexpr unsigned kNone = 0xffffffffu;
+
+// The argmin order as one unsigned key: NaN -> 0 (the least), -0.0 ->
+// +0.0 (v + 0.0f), negatives -> ~bits, others -> bits | 0x80000000.
+// Equal keys are equal values (or both NaN); the lower index then wins.
+// No branch: a shift, a LOP3 and a select.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.0f);
+  const unsigned key = b ^ (unsigned(int(b) >> 31) | 0x80000000u);
+  return v != v ? 0u : key;
+}
+
+// ---------------------------------------------------------------------
+// The warp kernel
+// ---------------------------------------------------------------------
+
+// V values a lane.  kSplit: each row over G = 2^group_log2 >= 2 lanes,
+// span values each; else each lane `rows` whole rows (span = rows*mpk).
+template <int V, bool kSplit>
+__global__ void __launch_bounds__(32)
+    assign_warp(const float* __restrict__ loads_in,
+                const float* __restrict__ costs, int k, int mpk, int n_tasks,
+                int group_log2, int rows, int span, int2* __restrict__ assign,
+                float* __restrict__ loads_out) {
+  const int lane = threadIdx.x;
+  const int n = k * mpk;
+  const int group = 1 << group_log2;
+  // this lane's run of the row-major matrix: [start, start + cnt)
+  const int first_row = (lane >> group_log2) * rows;
+  const int start = first_row * mpk + (lane & (group - 1)) * span;
+  const int cnt =
+      max(0, min(span, min((first_row + rows) * mpk, n) - start));
+  // the lanes below this one, and below this one's row group
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned below_group = (1u << (lane & ~(group - 1))) - 1u;
+
+  // the run's values and their keys (kNone past the run); a key is
+  // recomputed only for the value that changes
+  float x[V];
+  unsigned kx[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    x[i] = i < cnt ? loads_in[start + i] : 0.0f;
+    kx[i] = i < cnt ? order_key(x[i]) : kNone;
+  }
+
+  float cbuf = lane < n_tasks ? costs[lane] : 0.0f;     // chunk in use
+  float cnext = 32 + lane < n_tasks ? costs[32 + lane] : 0.0f;
+  // a step's (c, p) reaches its recording lane one step late, so the
+  // shuffles that carry it never stall the next decision
+  int rec_c = 0, rec_p = 0, late_c = 0, late_p = 0, late_j = -1;
+  for (int t0 = 0; t0 < n_tasks; t0 += 32) {
+    const int steps = min(32, n_tasks - t0);
+    for (int j = 0; j < steps; ++j) {
+      const float cost = __shfl_sync(kFull, cbuf, j);
+      // this lane owns (c, p) at x[local], which becomes xl; local and
+      // xl wait on nothing the warp decides
+      bool mine;
+      int local, c, p;
+      float xl;
+      if constexpr (kSplit) {
+        // the segment's sum and least unit, as trees over the registers;
+        // values past the run enter the sum as -0.0 (selected by the
+        // validity predicate: the exact additive identity, so no sum
+        // changes) and the argmin as kNone
+        float v[V], val[V];
+        unsigned key[V];
+        int idx[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          v[i] = i < cnt ? x[i] : -0.0f;
+          val[i] = x[i];
+          key[i] = kx[i];
+          idx[i] = i;
+        }
+#pragma unroll
+        for (int w = 1; w < V; w *= 2) {
+#pragma unroll
+          for (int i = 0; i + w < V; i += 2 * w) {
+            v[i] += v[i + w];
+            const bool right = key[i + w] < key[i];   // ties stay left
+            key[i] = right ? key[i + w] : key[i];
+            idx[i] = right ? idx[i + w] : idx[i];
+            val[i] = right ? val[i + w] : val[i];
+          }
+        }
+        // stage 1: the row with the least sum; its lanes are the tied
+        // lanes with no tied lane below their group (k = 1: row 0)
+        bool in_c = true;
+        c = 0;
+        if (k > 1) {
+          float s = v[0];
+          for (int off = group >> 1; off > 0; off >>= 1)
+            s += __shfl_xor_sync(kFull, s, off);
+          const unsigned rkey = first_row < k ? order_key(s) : kNone;
+          const unsigned least = __reduce_min_sync(kFull, rkey);
+          const unsigned tied = __ballot_sync(kFull, rkey == least);
+          in_c = rkey == least && (tied & below_group) == 0u;
+          c = (__ffs(tied) - 1) >> group_log2;
+        }
+        // stage 2: the least unit among row c's lanes
+        const unsigned key2 = in_c ? key[0] : kNone;
+        const unsigned least = __reduce_min_sync(kFull, key2);
+        const unsigned tied = __ballot_sync(kFull, key2 == least);
+        mine = key2 == least && (tied & below) == 0u;
+        local = idx[0];
+        xl = val[0] + cost;
+        const int owner = __ffs(tied) - 1;
+        p = (owner & (group - 1)) * span + __shfl_sync(kFull, local, owner);
+      } else {
+        // each of the lane's rows in turn: its sum and least unit; keep
+        // the lane's best row (the first of equal keys).  Values past the
+        // run only follow the last row's end, and no row ends there.
+        float s = 0.0f, ev = 0.0f, rv = 0.0f;
+        unsigned ek = kNone, rk = kNone;
+        int ei = 0, col = 0, q = 0, rq = 0, ri = 0;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          s += x[i];
+          const unsigned key = kx[i];
+          const bool lower = key < ek;
+          ek = lower ? key : ek;
+          ei = lower ? i : ei;
+          ev = lower ? x[i] : ev;
+          const bool end = i < cnt && col == mpk - 1;
+          const unsigned sk = order_key(s);
+          const bool best = end && sk < rk;
+          rk = best ? sk : rk;
+          rq = best ? q : rq;
+          ri = best ? ei : ri;
+          rv = best ? ev : rv;
+          s = end ? 0.0f : s;
+          ek = end ? kNone : ek;
+          col = end ? 0 : col + 1;
+          q += end;
+        }
+        // both stages at once: the lane with the least row wins
+        const unsigned least = __reduce_min_sync(kFull, rk);
+        const unsigned tied = __ballot_sync(kFull, rk == least);
+        mine = rk == least && (tied & below) == 0u;
+        local = ri;
+        xl = rv + cost;
+        const int owner = __ffs(tied) - 1;
+        c = __shfl_sync(kFull, first_row + rq, owner);
+        p = __shfl_sync(kFull, ri - rq * mpk, owner);
+      }
+      const unsigned kl = order_key(xl);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const bool hit = mine && i == local;
+        x[i] = hit ? xl : x[i];
+        kx[i] = hit ? kl : kx[i];
+      }
+      if (lane == late_j) {
+        rec_c = late_c;
+        rec_p = late_p;
+      }
+      late_c = c;
+      late_p = p;
+      late_j = j;
+    }
+    if (lane == late_j) {
+      rec_c = late_c;
+      rec_p = late_p;
+    }
+    late_j = -1;
+    if (lane < steps) assign[t0 + lane] = make_int2(rec_c, rec_p);
+    cbuf = cnext;
+    cnext = t0 + 64 + lane < n_tasks ? costs[t0 + 64 + lane] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (i < cnt) loads_out[start + i] = x[i];
+}
+
+template <int V>
+int launch_warp(const float* loads_in, const float* costs, int k, int mpk,
+                int n_tasks, int group_log2, int rows, int span, int2* assign,
+                float* loads_out, cudaStream_t stream) {
+  if (group_log2 > 0)
+    assign_warp<V, true><<<1, 32, 0, stream>>>(loads_in, costs, k, mpk,
+                                               n_tasks, group_log2, rows,
+                                               span, assign, loads_out);
+  else
+    assign_warp<V, false><<<1, 32, 0, stream>>>(loads_in, costs, k, mpk,
+                                                n_tasks, group_log2, rows,
+                                                span, assign, loads_out);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// The block kernel
+// ---------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCostChunk = 32;
 
-__device__ __forceinline__ void better(float v, int i, float& bv, int& bi) {
-  // (value, index) order: smaller value wins, ties to the lower index
-  if (v < bv || (v == bv && i < bi)) {
-    bv = v;
+__device__ __forceinline__ void better(unsigned key, int i, unsigned& bk,
+                                       int& bi) {
+  // (key, index) order: smaller key wins, ties to the lower index
+  if (key < bk || (key == bk && i < bi)) {
+    bk = key;
     bi = i;
   }
 }
 
-__device__ __forceinline__ void warp_argmin(float& bv, int& bi) {
+__device__ __forceinline__ void warp_argmin(unsigned& bk, int& bi) {
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    better(ov, oi, bv, bi);
+    const unsigned ok = __shfl_down_sync(kFull, bk, off);
+    const int oi = __shfl_down_sync(kFull, bi, off);
+    better(ok, oi, bk, bi);
   }
 }
 
-// Index of the least of vals[0..n) over the whole block; every thread
-// returns it.  Starts from (+inf, INT_MAX) so an all-inf input still
-// yields index 0, as argmin does.
-__device__ int block_argmin(const float* vals, int n, float* s_val,
+// The index of the least (key, index) candidate over the whole block;
+// every thread returns it.  A thread without a candidate passes (kNone,
+// INT_MAX), which loses to every real one.
+__device__ int block_argmin(unsigned bk, int bi, unsigned* s_key,
                             int* s_idx) {
-  float bv = INFINITY;
-  int bi = INT_MAX;
-  for (int i = threadIdx.x; i < n; i += kThreads) better(vals[i], i, bv, bi);
-  warp_argmin(bv, bi);
+  warp_argmin(bk, bi);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    s_val[warp] = bv;
+    s_key[warp] = bk;
     s_idx[warp] = bi;
   }
   __syncthreads();
   if (warp == 0) {
-    bv = lane < kWarps ? s_val[lane] : INFINITY;
+    bk = lane < kWarps ? s_key[lane] : kNone;
     bi = lane < kWarps ? s_idx[lane] : INT_MAX;
-    warp_argmin(bv, bi);
+    warp_argmin(bk, bi);
     if (lane == 0) s_idx[kWarps] = bi;
   }
   __syncthreads();
   const int r = s_idx[kWarps];
-  __syncthreads();  // s_val/s_idx are reused by the next call
+  __syncthreads();  // s_key/s_idx are reused by the next call
   return r;
 }
 
 __global__ void __launch_bounds__(kThreads)
-    assign_kernel(const float* __restrict__ loads_in,
-                  const float* __restrict__ costs, int k, int mpk, int n_tasks,
-                  int* __restrict__ assign, float* __restrict__ loads_out) {
-  extern __shared__ float smem[];
-  float* loads = smem;                   // k * mpk
-  float* rowsum = loads + k * mpk;       // k
-  __shared__ float s_val[kWarps];
+    assign_block(const float* __restrict__ loads_in,
+                 const float* __restrict__ costs, int k, int mpk, int n_tasks,
+                 int* __restrict__ assign, float* __restrict__ loads_out) {
+  extern __shared__ float loads[];       // k * mpk
+  __shared__ float s_cost[kCostChunk];
+  __shared__ unsigned s_key[kWarps];
   __shared__ int s_idx[kWarps + 1];
 
   const int n = k * mpk;
   for (int i = threadIdx.x; i < n; i += kThreads) loads[i] = loads_in[i];
+  float cnext = 0.0f;    // threads < kCostChunk: the next chunk's cost
+  if (threadIdx.x < kCostChunk && threadIdx.x < n_tasks)
+    cnext = costs[threadIdx.x];
   __syncthreads();
 
   for (int t = 0; t < n_tasks; ++t) {
+    if (t % kCostChunk == 0 && threadIdx.x < kCostChunk) {
+      // the last step's read of s_cost is behind its closing barrier,
+      // this write before block_argmin's first one
+      s_cost[threadIdx.x] = cnext;
+      const int next = t + kCostChunk + threadIdx.x;
+      cnext = next < n_tasks ? costs[next] : 0.0f;
+    }
     // stage 1: row sums, each summed left to right by one thread
+    unsigned bk = kNone;
+    int bi = INT_MAX;
     for (int r = threadIdx.x; r < k; r += kThreads) {
       float s = 0.0f;
       const float* row = loads + r * mpk;
       for (int j = 0; j < mpk; ++j) s += row[j];
-      rowsum[r] = s;
+      better(order_key(s), r, bk, bi);
     }
-    __syncthreads();
-    const int c = block_argmin(rowsum, k, s_val, s_idx);
+    const int c = block_argmin(bk, bi, s_key, s_idx);
     // stage 2: least-loaded unit inside cluster c
-    const int p = block_argmin(loads + c * mpk, mpk, s_val, s_idx);
+    bk = kNone;
+    bi = INT_MAX;
+    for (int j = threadIdx.x; j < mpk; j += kThreads)
+      better(order_key(loads[c * mpk + j]), j, bk, bi);
+    const int p = block_argmin(bk, bi, s_key, s_idx);
     if (threadIdx.x == 0) {
       assign[2 * t] = c;
       assign[2 * t + 1] = p;
-      loads[c * mpk + p] += costs[t];
+      loads[c * mpk + p] += s_cost[t % kCostChunk];
     }
     __syncthreads();
   }
@@ -115,21 +379,52 @@ __global__ void empty_kernel() {}
 
 extern "C" {
 
-// Map n_tasks tasks onto the (k, mpk) f32 matrix loads_in: writes the
-// (n_tasks, 2) int32 assignments and the final loads.  Device pointers,
-// row-major and contiguous; launched on `stream`.  Returns the launch's
-// cudaError_t (0 = launched).
-int hier_minsearch_assign(const void* loads_in, const void* costs,
-                          void* assign, void* loads_out, int k, int mpk,
-                          int n_tasks, void* stream) {
-  const size_t smem = sizeof(float) * (size_t(k) * mpk + k);
+// Map n_tasks tasks onto the (k, mpk) f32 matrix loads_in with the warp
+// kernel: writes the (n_tasks, 2) int32 assignments and the final loads.
+// The layout (values a lane, log2 of lanes a row, rows a lane, values a
+// lane used) comes from the wrapper (hier_minsearch.py:_warp_layout).
+// Device pointers, row-major and contiguous; launched on `stream`.
+// Returns the launch's cudaError_t (0 = launched).
+int hier_minsearch_warp(const void* loads_in, const void* costs, void* assign,
+                        void* loads_out, int k, int mpk, int n_tasks,
+                        int values, int group_log2, int rows, int span,
+                        void* stream) {
+  const auto li = static_cast<const float*>(loads_in);
+  const auto co = static_cast<const float*>(costs);
+  const auto as = static_cast<int2*>(assign);
+  const auto lo = static_cast<float*>(loads_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (values) {
+#define K1_WARP_CASE(V)                                                  \
+  case V:                                                                \
+    return launch_warp<V>(li, co, k, mpk, n_tasks, group_log2, rows, span, \
+                          as, lo, st);
+    K1_WARP_CASE(1)
+    K1_WARP_CASE(2)
+    K1_WARP_CASE(4)
+    K1_WARP_CASE(8)
+    K1_WARP_CASE(16)
+    K1_WARP_CASE(32)
+    K1_WARP_CASE(64)
+#undef K1_WARP_CASE
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// The same with the block kernel (any n whose matrix fits one block's
+// shared memory).
+int hier_minsearch_block(const void* loads_in, const void* costs,
+                         void* assign, void* loads_out, int k, int mpk,
+                         int n_tasks, void* stream) {
+  const size_t smem = sizeof(float) * size_t(k) * mpk;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        assign_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  assign_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  assign_block<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(loads_in), static_cast<const float*>(costs),
       k, mpk, n_tasks, static_cast<int*>(assign),
       static_cast<float*>(loads_out));
