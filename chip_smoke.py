@@ -53,23 +53,36 @@ any failure ends the run with a non-zero exit:
 10. syncs   the same run under torch's sync debug mode, which warns at
             every call that waits for the card: all but a few set-up
             syncs must come from the loop's one packed read per event;
-11. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+11. sweep   the design-space engine, every sweep in ``"vmap"`` mode
+            (the lane-batched loop of ``core/lanes.py``): the golden
+            grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
+            1e6) through ``sweep`` against their frozen digests; Table 5
+            at the paper's widths (m=256, k in {1, 8, 16, 256}, seeds
+            1-3) cut to sim_len 5e5 through ``ExperimentSpec.run()``
+            against the JAX reference's frozen digests, with its ordering
+            claim and k16/k1 ratio (reported, not gated); fig3a's k=16
+            group (12 lanes, sim_len 5e5) timed in ``"vmap"`` mode and
+            two of its lanes in ``"seq"`` mode (equal leaves), and at
+            sim_len 1e5 its device kernels and syncs per step; the
+            ``scheduler_overhead`` runner, whose K1 assignments must
+            equal the plain version's;
+12. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
             forward on the card (K2, K3) against the same weights on
             the CPU (plain versions);
-12. lm_prefill the full-width 16-layer Jamba in bf16: one
+13. lm_prefill the full-width 16-layer Jamba in bf16: one
             ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
             twice and K3 14 times and give finite logits; then timed
             (tokens/s) and profiled (device time by kernel);
-13. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+14. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
 
 then the ``kernels`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Each main path reads its own launch counts, zeroed just before
-it and read just after: the TLM path (phases 7-8: K1), the prefill
-(phase 12: K2, K3) and ``serve()`` (phase 13, whose decode steps
-are plain torch).  The comparison launches of phases 3-5 and 11 do not
-count.  Float32 matmuls run in full float32
-(``torch.backends.cuda.matmul.allow_tf32`` and
+it and read just after: the TLM path (phases 7-8: K1), the sweep
+(phase 11: K1, from ``scheduler_overhead``), the prefill (phase 13:
+K2, K3) and ``serve()`` (phase 14, whose decode steps are plain torch).
+The comparison launches of phases 3-5 and 12 do not count.  Float32
+matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
 """
@@ -531,25 +544,32 @@ def phase_profile():
           "top_kernels_us": [[n, ns / 1e3] for n, ns in top]})
 
 
-def phase_syncs():
-    """Host syncs of the paper point's event loop (sim_len 1e6) under
-    torch's sync debug mode, which warns at every call that waits for
-    the card."""
+def _sync_lines(run):
+    """``(run(), Counter of source lines)``: every call in ``run`` that
+    waits for the card, under torch's sync debug mode (which warns at
+    each), by the file and line that made it."""
     import warnings
     from collections import Counter
     import torch
-    from repro_torch.core.sim import run
-    p, wl = _paper_run(PROFILE_SIM_LEN)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            st = run(p, *wl, PROFILE_SIM_LEN)
+            out = run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    lines = Counter(f"{Path(r.filename).name}:{r.lineno}" for r in rec
-                    if "synchronizing" in str(r.message))
+    return out, Counter(f"{Path(r.filename).name}:{r.lineno}" for r in rec
+                        if "synchronizing" in str(r.message))
+
+
+def phase_syncs():
+    """Host syncs of the paper point's event loop (sim_len 1e6) under
+    torch's sync debug mode, which warns at every call that waits for
+    the card."""
+    from repro_torch.core.sim import run
+    p, wl = _paper_run(PROFILE_SIM_LEN)
+    st, lines = _sync_lines(lambda: run(p, *wl, PROFILE_SIM_LEN))
     events = _check_paper(st, PROFILE_SIM_LEN, "syncs")
     read_line, per_read = lines.most_common(1)[0]
     others = sum(lines.values()) - per_read
@@ -560,6 +580,177 @@ def phase_syncs():
     emit({"phase": "syncs", "sim_len": PROFILE_SIM_LEN, "events": events,
           "packed_read": read_line, "packed_reads": per_read,
           "other_syncs": others, "by_line": dict(lines)})
+
+
+# --------------------------------------------------------------------------
+# The design-space engine
+# --------------------------------------------------------------------------
+
+# fig3a's k=16 group at the paper's widths: 6 thresholds x 2 seeds
+SWEEP_K, SWEEP_SEEDS = 16, (1, 2)
+SWEEP_THRESHOLDS = (1, 2, 4, 8, 16, 32)
+SWEEP_SIM_LEN = 5e5
+SWEEP_COUNT_SIM_LEN = 1e5     # the horizon kernels and syncs are counted at
+
+
+def _device_kernels(run):
+    """``(run(), device kernels, device busy ns)`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    recs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return out, len(recs), sum(recs)
+
+
+def _same_leaves(got: dict, want: dict) -> bool:
+    """Every leaf equal; ``mgmt_latency`` within rtol 1e-5 (its f32 sums
+    may be taken in another order)."""
+    import torch
+    return set(got) == set(want) and all(
+        torch.allclose(got[k], want[k], rtol=1e-5) if k == "mgmt_latency"
+        else torch.equal(got[k], want[k]) for k in want)
+
+
+def phase_sweep() -> int:
+    """The sweep engine and the paper runners on the card, all sweeps in
+    "vmap" mode.  Returns the K1 launches of its ``scheduler_overhead``
+    run."""
+    import torch
+    from repro_torch.benchmarks import scheduler_overhead, table5
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimParams
+    from repro_torch.kernels import hier_minsearch as HM
+    t_phase, walls = time.perf_counter(), {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # the golden grid and its single-app anchor
+    p = SimParams(**G.GRID_PARAMS)
+    st, one = timed("golden", lambda: (
+        SW.sweep(p.shape, SW.knob_batch(dn_th=G.GRID_DN_TH),
+                 W.interference_batch(p, seeds=G.GRID_SEEDS,
+                                      sim_len=G.GRID_SIM_LEN),
+                 G.GRID_SIM_LEN, mode="vmap"),
+        SW.sweep(p.shape, SW.knob_batch(), W.independent_batch(p, n_apps=1),
+                 1e7, mode="vmap")))
+    got = [st["beacons_tx"].tolist(), G.sha256_f32(st["app_done"]),
+           float(one["app_done"][0, 0, 0]), int(one["beacons_tx"][0, 0])]
+    want = [G.GRID_BEACONS, G.GRID_APP_DONE_SHA, G.SINGLE_APP_DONE,
+            G.SINGLE_APP_BEACONS]
+    if got != want:
+        raise AssertionError(f"sweep: golden grid {got} != {want}")
+    # the fig3b spot grid
+    p = SimParams(**G.FIG3B_PARAMS)
+    st = timed("fig3b_spot", lambda: SW.sweep(
+        p.shape, SW.knob_batch(dn_th=G.FIG3B_DN_TH),
+        W.interference_batch(p, seeds=(G.FIG3B_SEED,),
+                             sim_len=G.FIG3B_SIM_LEN),
+        G.FIG3B_SIM_LEN, mode="vmap"))
+    got = [st["beacons_tx"].tolist(), G.sha256_f32(st["app_done"])]
+    if got != [G.FIG3B_BEACONS, G.FIG3B_APP_DONE_SHA]:
+        raise AssertionError(f"sweep: fig3b spot grid {got}")
+    fig3b_steps = int(st["events_processed"].max())
+    # Table 5 at the paper's widths, cut to sim_len 5e5
+    frame = timed("table5", lambda: table5.spec(
+        G.TABLE5_SIM_LEN, G.TABLE5_SEEDS).run(mode="vmap"))
+    digest = G.table5_digest(frame)
+    if frame.mode != "vmap" or digest != G.TABLE5:
+        raise AssertionError(f"sweep: table5 ({frame.mode}) {digest} != "
+                             f"the reference's {G.TABLE5}")
+    t5 = table5.payload_of(frame)
+    # fig3a's k=16 group: the lane loop against per-lane runs
+    p = SimParams(m=256, k=SWEEP_K, n_childs=100, max_apps=512,
+                  queue_cap=2048)
+    kn = SW.knob_batch(dn_th=SWEEP_THRESHOLDS)
+    wl = W.interference_batch(p, seeds=SWEEP_SEEDS, sim_len=SWEEP_SIM_LEN)
+    st_v = timed("lanes_vmap", lambda: SW.sweep(p.shape, kn, wl,
+                                                SWEEP_SIM_LEN, mode="vmap"))
+    # knob 0 over both seeds: lanes (0, 0) and (0, 1) of the grid
+    st_s = timed("lanes_seq", lambda: SW.sweep(
+        p.shape, SW.knob_batch(dn_th=SWEEP_THRESHOLDS[:1]), wl,
+        SWEEP_SIM_LEN, mode="seq"))
+    if not _same_leaves({k: v[0] for k, v in st_s.items()},
+                        {k: v[0] for k, v in st_v.items()}):
+        raise AssertionError("sweep: seq lanes differ from the vmap grid")
+    ev_v = int(st_v["events_processed"].sum())
+    ev_s = int(st_s["events_processed"].sum())
+    wl_c = W.interference_batch(p, seeds=SWEEP_SEEDS,
+                                sim_len=SWEEP_COUNT_SIM_LEN)
+
+    def count_run():
+        return SW.sweep(p.shape, kn, wl_c, SWEEP_COUNT_SIM_LEN, mode="vmap")
+    st_c, n_kernels, busy_ns = _device_kernels(count_run)
+    steps_c = int(st_c["events_processed"].max())
+    _, lines = _sync_lines(count_run)
+    read_line, reads = lines.most_common(1)[0]
+    others = sum(lines.values()) - reads
+    # one read per step, the last one seeing every lane done
+    if reads != steps_c + 1 or others > SETUP_SYNCS_MAX:
+        raise AssertionError(f"sweep: host syncs per line {dict(lines)} "
+                             f"for {steps_c} steps")
+    # the scheduler_overhead runner: K1 (the warp kernel phase k1 holds
+    # against the plain version at these shapes) and the sweep engine
+    if any(HM._variant(k, K1_M // k) != "warp" for k in K1_KS):
+        raise AssertionError("sweep: scheduler_overhead's shapes leave "
+                             "the warp kernel")
+    before = HM.launches
+    so = timed("scheduler_overhead",
+               lambda: scheduler_overhead.run(verbose=False))
+    so_launches = HM.launches - before
+    if so_launches == 0 or not all(so["two_stage_matches_plain"].values()):
+        raise AssertionError(f"sweep: scheduler_overhead launched K1 "
+                             f"{so_launches} times, assignments equal to "
+                             f"the plain version's: "
+                             f"{so['two_stage_matches_plain']}")
+    emit({"phase": "sweep", "mode": "vmap", "golden_match": True,
+          "fig3b_spot_match": True, "fig3b_spot_steps": fig3b_steps,
+          "table5": {"sim_len": G.TABLE5_SIM_LEN, "digests_match": True,
+                     "events_per_lane": {k: v["events_processed"]
+                                         for k, v in digest.items()},
+                     "group_walls_s": [g.wall_s for g in frame.groups],
+                     "speedup": {k: r["speedup"]
+                                 for k, r in t5["rows"].items()},
+                     "ordering_clustered_best":
+                         t5["ordering_clustered_best"],
+                     "ratio_k16_over_k1": t5["ratio_k16_over_k1"]["ours"],
+                     "paper_ratio_k16_over_k1":
+                         t5["ratio_k16_over_k1"]["paper"]},
+          "lanes": {"k": SWEEP_K, "sim_len": SWEEP_SIM_LEN,
+                    "lanes": len(SWEEP_THRESHOLDS) * len(SWEEP_SEEDS),
+                    "events": ev_v,
+                    "steps": int(st_v["events_processed"].max()),
+                    "vmap_events_per_s": ev_v / walls["lanes_vmap"],
+                    "seq_lanes": len(SWEEP_SEEDS), "seq_events": ev_s,
+                    "seq_events_per_s": ev_s / walls["lanes_seq"],
+                    "vmap_over_seq": (ev_v / walls["lanes_vmap"])
+                    / (ev_s / walls["lanes_seq"]),
+                    "count_sim_len": SWEEP_COUNT_SIM_LEN,
+                    "count_steps": steps_c,
+                    "kernels_per_step": n_kernels / (steps_c + 1),
+                    "device_busy_us_per_step": busy_ns / 1e3 / (steps_c + 1),
+                    "packed_read": read_line,
+                    "reads_per_step": reads / (steps_c + 1),
+                    "other_syncs": others},
+          "scheduler_overhead": {
+              "k1_launches": so_launches, "matches_plain": True,
+              "us_per_decision": {k: r["us_per_decision"]
+                                  for k, r in so["two_stage"].items()},
+              "flat_argmin_us_per_batch": so["flat_argmin_us_per_batch"],
+              "sweep_engine": so["sweep_engine"]},
+          "walls_s": walls, "wall_s": time.perf_counter() - t_phase})
+    return so_launches
 
 
 # --------------------------------------------------------------------------
@@ -979,10 +1170,16 @@ def main() -> int:
         raise AssertionError("the TLM path never launched hier_minsearch")
     phase_profile()
     phase_syncs()
+    FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
+    sweep_launches = phase_sweep()
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
+        raise AssertionError("the sweep path launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
     phase_lm_small()
     prefill = phase_lm_prefill()
     phase_lm_serve()
-    rows = [(HM, tlm_launches, k1), (FA, prefill["flash_attention"], k2),
+    rows = [(HM, tlm_launches + sweep_launches, k1),
+            (FA, prefill["flash_attention"], k2),
             (SS, prefill["selective_scan"], k3)]
     emit({"kernels": [{
         "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,

@@ -1,0 +1,303 @@
+"""The lane-batched event loop: L runs of one static shape advanced
+together — the port's counterpart of ``jax.vmap(simulate)`` in the
+reference's ``core/sweep.py`` (``_sweep``), and the engine of
+``sweep(mode="vmap")``.
+
+The lanes of one call share the static shape (m, k, n_childs,
+queue_cap, max_apps), the policy and the fabric; they differ in their
+knobs and their workload.  Every state leaf carries a leading lane axis
+(L,), under ``make_state``'s names and dtypes, and lane l ends with the
+bits ``sim.simulate`` ends with on lane l's knobs and workload
+(``mgmt_latency`` up to the order of its f32 vector sums, as in
+``sim``; tests/test_torch_sweep.py).
+
+One step serves every lane:
+
+1. **Pop.**  ``argmin(ev_time, dim=1)`` (the first minimal slot: the
+   linear queue's tie contract), a gather of each lane's packed record
+   ``(t, slot, typ, a0, a1, a2)``, and one read of the (L, 6) block to
+   the host — the loop's only sync.  A lane whose head is INF is done:
+   every update below is masked by the lanes it belongs to, so no later
+   step changes a done lane.
+2. **Dispatch.**  Each event type present in the step runs its handler
+   once, over all lanes, under that type's lane mask.  ``app``, ``g``
+   and ``pe`` stay device tensors (L,); each state update is a one-hot
+   ``torch.where`` on the (lane, app), (lane, g) or (lane, g, pe)
+   elements, so an element outside the mask takes no arithmetic (inside
+   the LOCAL_SPAWN's decisions, a scatter into the lane's row copies
+   that writes a masked lane's own value back).  The
+   host's copy of the records decides only which handlers run and how
+   many stage-2 steps the longest LOCAL_SPAWN takes: a shorter spawn
+   masks its tail to exact no-ops, as the reference's static ``n_max``
+   scan does.  The beacon check that ends a LOCAL_SPAWN and the one in
+   the middle of a JOIN_EXIT run once for both (their lanes are
+   disjoint, and each lane keeps its own order of updates).
+3. **Commit**, in the reference's order: the ARRIVE lanes' view-row
+   write, the pop, then one bulk push per pushing event type
+   (``sim._bulk_push`` along the queue axis).
+
+Done lanes cost a step's work until the last lane ends: the loop runs
+as many steps as the longest lane has events.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import policies as P
+from repro_torch.core import transport as T
+from repro_torch.core.eventq import INF
+from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy
+from repro_torch.core.sim import (EV_ARRIVE, EV_JOIN_EXIT, EV_LOCAL_SPAWN,
+                                  F32, I32, SimKnobs, SimShape, _bulk_push,
+                                  _Ctx, _init_queue, _require_ported,
+                                  make_state)
+from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology
+
+
+class _LaneCtx(_Ctx):
+    """``sim._Ctx`` over (L,) knob tensors, with the lane form of the
+    mapping rule, each lane's barrier GMNs and the index ranges that the
+    one-hot selects compare against."""
+
+    def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
+                 topology: Topology, device, arrival_gmns):
+        super().__init__(shape, knobs, policy, topology, device)
+        self.pick_cluster = P.lane_mapping_policy(policy.mapping)
+        self.depth = int(np.ceil(np.log2(self.ns))) if self.ns > 1 else 0
+        self.lane = torch.arange(arrival_gmns.shape[0], device=device)
+        self.ar_k = torch.arange(self.k, device=device)
+        self.ar_mpk = torch.arange(self.mpk, device=device)
+        self.ar_slot = torch.arange(self.queue_cap, device=device)
+        self.ar_app = torch.arange(self.max_apps, device=device)
+        # the barrier GMN of each application (its arrival GMN), per lane
+        self.parent_gmns = arrival_gmns.to(torch.int64)
+
+
+def _rows(x, p, idx):
+    """``x[l, idx[l]]`` for every lane l (one gather)."""
+    return x[p.lane, idx]
+
+
+def _arrive(st, p, m, t, app, g, g_oh):
+    """``sim._handle_arrive`` on the lanes of ``m``, with its staged
+    view-row write; returns the LOCAL_SPAWN times and clusters (L, ns)."""
+    hot = m[:, None] & g_oh
+    t_cpu = torch.maximum(t, _rows(st["gmn_free"], p, g))
+    t_tree = t_cpu + 2.0 * p.depth * p.sel_global
+    st["gmn_free"] = torch.where(hot, t_tree[:, None], st["gmn_free"])
+    own = _rows(st["loads"], p, g).sum(-1).to(I32)
+    view = torch.where(g_oh, own[:, None], _rows(st["view"], p, g))
+    age = torch.clamp(t[:, None] - _rows(st["view_t"], p, g), min=0.0)
+    age = torch.where(g_oh, 0.0, age)
+    gbus, rr = st["gbus_free"], _rows(st["rr_ptr"], p, g)
+    cs, t_arrs, lats, remotes = [], [], [], []
+    for i in range(p.ns):
+        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
+        view = torch.where(p.ar_k == c[:, None], view + p.cnts[i], view)
+        is_remote = c != g
+        t_arr, gbus, _, lat = T.unicast(p.topology, g, c, t_tree, is_remote,
+                                        gbus=gbus, lbus=None, c_b=p.c_b)
+        rr = rr + 1
+        cs.append(c)
+        t_arrs.append(t_arr)
+        lats.append(lat)
+        remotes.append(is_remote)
+    st["rr_ptr"] = torch.where(hot, rr[:, None], st["rr_ptr"])
+    st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
+    st["mgmt_msgs"] += torch.where(m, torch.stack(remotes, 1).sum(1), 0)
+    st["mgmt_latency"] += torch.where(m, torch.stack(lats, 1).sum(1), 0.0)
+    st["mgmt_proc"] += torch.where(m, t_tree - t, 0.0)
+    hot_a = m[:, None] & (p.ar_app == app[:, None])
+    st["app_remaining"] = torch.where(hot_a, p.n_childs, st["app_remaining"])
+    st["app_arrive"] = torch.where(hot_a, t[:, None], st["app_arrive"])
+    st["view"] = torch.where(hot[:, :, None], view[:, None, :], st["view"])
+    return torch.stack(t_arrs, 1), torch.stack(cs, 1)
+
+
+def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
+    """``sim._handle_local_spawn`` on the lanes of ``m`` (before its
+    beacon check): ``n_steps`` stage-2 decisions, those past a lane's
+    ``cnt`` masked off.  Returns the GMN's finish time (L,), the
+    JOIN_EXIT times and PEs (L, n_steps) and the mask of real ones."""
+    hot = m[:, None] & g_oh
+    pe_free, loads = _rows(st["pe_free"], p, g), _rows(st["loads"], p, g)
+    t_cpu = torch.maximum(t, _rows(st["gmn_free"], p, g))
+    bus = _rows(st["lbus_free"], p, g)
+    length = _rows(lengths, p, app)
+    act = m[:, None] & (torch.arange(n_steps, device=p.device)
+                        < cnt[:, None])
+    on_i32 = act.to(I32)
+    pes, finishes, lats, t_cpus, buses = [], [], [], [], []
+    for i in range(n_steps):
+        # a lane past its cnt runs on unmasked: only its PE and load
+        # updates are masked (below); its times are never read
+        t_cpu = t_cpu + p.sel_local
+        pe = torch.argmin(loads, dim=1)            # stage-2 min-search
+        t_msg = torch.maximum(t_cpu, bus) + p.c_b
+        pe = pe[:, None]
+        free = pe_free.gather(1, pe)[:, 0]
+        finish = torch.maximum(t_msg, free) + length[:, i]
+        pe_free.scatter_(1, pe, torch.where(act[:, i], finish, free)[:, None])
+        loads.scatter_add_(1, pe, on_i32[:, i:i + 1])
+        lats.append(t_msg - t_cpu)
+        bus = t_msg
+        pes.append(pe[:, 0])
+        finishes.append(finish)
+        t_cpus.append(t_cpu)
+        buses.append(bus)
+    # each lane's GMN and bus times after its own cnt decisions
+    last = torch.clamp(cnt - 1, 0, n_steps - 1)[:, None]
+    t_cpu = torch.stack(t_cpus, 1).gather(1, last)[:, 0]
+    bus = torch.stack(buses, 1).gather(1, last)[:, 0]
+    st["pe_free"] = torch.where(hot[:, :, None], pe_free[:, None, :],
+                                st["pe_free"])
+    st["loads"] = torch.where(hot[:, :, None], loads[:, None, :], st["loads"])
+    st["gmn_free"] = torch.where(hot, t_cpu[:, None], st["gmn_free"])
+    st["lbus_free"] = torch.where(hot, bus[:, None], st["lbus_free"])
+    st["mgmt_msgs"] += torch.where(m, cnt, 0)
+    # the masked tail adds +0.0 (lanes outside m: only +0.0)
+    st["mgmt_latency"] += torch.where(act, torch.stack(lats, 1), 0.0).sum(1)
+    st["mgmt_proc"] += torch.where(m, t_cpu - t, 0.0)
+    return t_cpu, torch.stack(finishes, 1), torch.stack(pes, 1), act
+
+
+def _join_local(st, p, m, t, g, g_oh, pe):
+    """``sim._handle_join_exit`` up to its beacon check: the join-exit
+    message on the cluster's local bus and the PE's load decrement."""
+    hot = m[:, None] & g_oh
+    t_msg = torch.maximum(t, _rows(st["lbus_free"], p, g)) + p.c_b
+    st["lbus_free"] = torch.where(hot, t_msg[:, None], st["lbus_free"])
+    at = hot[:, :, None] & (p.ar_mpk == pe[:, None])[:, None, :]
+    st["loads"] = torch.where(at, st["loads"] - 1, st["loads"])
+    st["mgmt_msgs"] += m
+    st["mgmt_latency"] += torch.where(m, t_msg - t, 0.0)
+    return t_msg
+
+
+def _join_forward(st, p, m, t_msg, app, g):
+    """The rest of ``sim._handle_join_exit``: forward to the barrier GMN
+    and the barrier decrement."""
+    pg = _rows(p.parent_gmns, p, app)
+    remote = pg != g
+    t_fwd, gbus, _, lat = T.forward(p.topology, g, pg, t_msg, remote,
+                                    gbus=st["gbus_free"], lbus=None,
+                                    c_b=p.c_b)
+    st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
+    st["mgmt_msgs"] += m & remote
+    st["mgmt_latency"] += torch.where(m, lat, 0.0)
+    t_bar = torch.maximum(t_fwd, _rows(st["gmn_free"], p, pg)) + p.c_join
+    st["mgmt_proc"] += torch.where(m, t_bar - t_fwd, 0.0)
+    hot = m[:, None] & (p.ar_k == pg[:, None])
+    st["gmn_free"] = torch.where(hot, t_bar[:, None], st["gmn_free"])
+    hot_a = m[:, None] & (p.ar_app == app[:, None])
+    rem = _rows(st["app_remaining"], p, app) - 1
+    st["app_remaining"] = torch.where(hot_a, rem[:, None],
+                                      st["app_remaining"])
+    st["app_done"] = torch.where(hot_a & (rem == 0)[:, None], t_bar[:, None],
+                                 st["app_done"])
+
+
+def _beacon(st, p, m, g, g_oh, t):
+    """``sim._maybe_beacon`` + ``_fire_beacon`` on the lanes of ``m``
+    (k > 1), each at its own ``t``."""
+    load = _rows(st["loads"], p, g).sum(-1)
+    delta = torch.abs(load - _rows(st["last_bcast"], p, g))
+    fire = m & p.beacon_due(delta, t, _rows(st["last_bcast_t"], p, g),
+                            dn_th=p.dn_th, T_b=p.T_b)
+    t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
+    st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
+    hot = fire[:, None] & g_oh
+    load = load.to(I32)
+    # column g of every receiver's view
+    st["view"] = torch.where(hot[:, None, :], load[:, None, None],
+                             st["view"])
+    st["view_t"] = torch.where(hot[:, None, :], t_tx[:, None, None],
+                               st["view_t"])
+    st["last_bcast"] = torch.where(hot, load[:, None], st["last_bcast"])
+    st["last_bcast_t"] = torch.where(hot, t_tx[:, None], st["last_bcast_t"])
+    fire_i = fire.to(I32)
+    st["beacons_tx"] += fire_i
+    st["mgmt_msgs"] += fire_i * (p.k - 1)
+    st["mgmt_latency"] += torch.where(fire, float(p.k - 1) * (t_tx - t), 0.0)
+
+
+def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
+                   lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
+                   topology: Topology = DEFAULT_TOPOLOGY):
+    """L runs in one loop on ``arrivals.device``: knobs with (L,) leaves,
+    arrivals (L, A) f32, arrival_gmns (L, A) i32, lengths (L, A, n_childs)
+    f32 tensors.  Returns the final state dict, every leaf (L, ...)."""
+    _require_ported(shape, policy, topology)
+    if arrivals.ndim != 2 or lengths.ndim != 3 \
+            or knobs.dn_th.shape != arrivals.shape[:1]:
+        raise ValueError("simulate_lanes needs knobs (L,), arrivals (L, A), "
+                         "arrival_gmns (L, A) and lengths (L, A, n)")
+    dev = arrivals.device
+    p = _LaneCtx(shape, knobs, policy, topology, dev, arrival_gmns)
+    n_lanes = arrivals.shape[0]
+    st = {key: v.repeat((n_lanes,) + (1,) * v.ndim)
+          for key, v in make_state(p, dev).items()}
+    _init_queue(st, p, arrivals, arrival_gmns,
+                torch.tensor(sim_len, dtype=F32, device=dev))
+    while True:
+        slot = torch.argmin(st["ev_time"], dim=1)
+        t = st["ev_time"].gather(1, slot[:, None])
+        typ = st["ev_type"].gather(1, slot[:, None])
+        a = _rows(st["ev_a"], p, slot)
+        # the step's one device->host read: (t, slot, typ, a0, a1, a2)
+        head = torch.cat([t, slot[:, None].to(F32), typ.to(F32), a.to(F32)],
+                         1).tolist()
+        live_h = [r for r in head if r[0] < INF]
+        if not live_h:
+            break
+        types = {int(r[2]) for r in live_h}
+        t = t[:, 0]
+        live = t < INF
+        typ = torch.where(live, typ[:, 0], -1)
+        app, g, a2 = a.to(torch.int64).unbind(1)
+        g_oh = p.ar_k == g[:, None]
+        st["evq_peak"] = torch.where(
+            live, torch.maximum(st["evq_peak"], st["evq_len"]),
+            st["evq_peak"])
+        st["events_processed"] += live
+        pushes = []
+        if EV_ARRIVE in types:
+            m_arr = typ == EV_ARRIVE
+            t_spawns, cs = _arrive(st, p, m_arr, t, app, g, g_oh)
+            pushes.append((m_arr, m_arr[:, None].expand_as(cs), t_spawns,
+                           EV_LOCAL_SPAWN, cs, p.cnts.expand_as(cs), p.ns))
+        beacon_m, beacon_t = [], []
+        if EV_LOCAL_SPAWN in types:
+            m_sp = typ == EV_LOCAL_SPAWN
+            n_steps = max(int(r[5]) for r in live_h
+                          if int(r[2]) == EV_LOCAL_SPAWN)
+            t_gmn, finish, pes, act = _spawn(st, p, m_sp, t, app, g, g_oh,
+                                             a2, n_steps, lengths)
+            pushes.append((m_sp, act, finish, EV_JOIN_EXIT,
+                           g[:, None].expand_as(pes), pes, a2))
+            beacon_m.append(m_sp)
+            beacon_t.append(t_gmn)
+        if EV_JOIN_EXIT in types:
+            m_je = typ == EV_JOIN_EXIT
+            t_msg = _join_local(st, p, m_je, t, g, g_oh, a2)
+            beacon_m.append(m_je)
+            beacon_t.append(t_msg)
+        if beacon_m and p.k > 1:
+            if len(beacon_m) == 1:
+                _beacon(st, p, beacon_m[0], g, g_oh, beacon_t[0])
+            else:
+                _beacon(st, p, beacon_m[0] | beacon_m[1], g, g_oh,
+                        torch.where(beacon_m[0], *beacon_t))
+        if EV_JOIN_EXIT in types:
+            _join_forward(st, p, m_je, t_msg, app, g)
+        # pop, then each pushing type's batch (the popped slot is free)
+        st["ev_time"] = torch.where(
+            live[:, None] & (p.ar_slot == slot[:, None]), INF, st["ev_time"])
+        evq = -live.to(I32)
+        for m, mask, times, typ_new, a1, a2_new, n_new in pushes:
+            drop = _bulk_push(st, p, mask, times, typ_new,
+                              app[:, None].expand_as(times), a1, a2_new)
+            evq = evq + torch.where(m, n_new - drop, 0)
+        st["evq_len"] += evq
+    return st

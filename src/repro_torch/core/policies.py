@@ -4,7 +4,9 @@ Two forms of every policy, as in the reference:
 
 - a **tensor** form (``mapping_policy(name)`` / ``beacon_policy(name)``)
   used by the port's event handlers in ``core/sim.py`` — plain torch on
-  device tensors, no host syncs;
+  device tensors, no host syncs — with a lane form of each mapping rule
+  (``lane_mapping_policy(name)``) for the lane-batched loop of
+  ``core/lanes.py``;
 - a **host** numpy form (``host_pick`` / ``host_stage2`` /
   ``host_beacon_due``), a copy of the reference's wall-clock adapters.
 
@@ -52,6 +54,12 @@ class SimPolicy:
 
 
 DEFAULT_POLICY = SimPolicy()
+
+
+def policy_grid(mappings=MAPPING_POLICIES, beacons=BEACON_POLICIES):
+    """All (mapping x beacon) combinations as SimPolicy values,
+    row-major (mapping outermost)."""
+    return [SimPolicy(m, b) for m in mappings for b in beacons]
 
 
 # ==========================================================================
@@ -110,6 +118,56 @@ def mapping_policy(name: str):
     except KeyError:
         raise ValueError(f"unknown mapping policy {name!r}; "
                          f"choose from {MAPPING_POLICIES}") from None
+
+
+# ==========================================================================
+# Lane forms of the mapping policies (``core/lanes.py``): one decision in
+# each of L runs at once,
+#
+#   fn(view, age, g, rr, app, i, *, k, T_b) -> cluster (L,) int64
+#   view (L, k) int, age (L, k) f32, g/rr/app (L,) tensors, i int,
+#   T_b (L,) f32
+#
+# Each lane's result has the bits of the single-run rule above on that
+# lane's inputs.
+# ==========================================================================
+
+def _lane_own_first_argmin(score, g, k):
+    """Per lane ``perm[argmin(score[perm])]`` with ``perm = (arange(k) +
+    g) % k`` — :func:`_own_first_argmin` with a per-lane ``g``."""
+    perm = (torch.arange(k, device=score.device) + g[:, None]) % k
+    return (torch.argmin(score.gather(1, perm), dim=1) + g) % k
+
+
+def _lane_min_search(view, age, g, rr, app, i, *, k, T_b):
+    return _lane_own_first_argmin(view, g, k)
+
+
+def _lane_round_robin(view, age, g, rr, app, i, *, k, T_b):
+    return ((g + rr) % k).to(torch.int64)
+
+
+def _lane_hashed_random(view, age, g, rr, app, i, *, k, T_b):
+    return _hash_u32(app, i, g) % k
+
+
+def _lane_staleness_weighted(view, age, g, rr, app, i, *, k, T_b):
+    score = view.to(torch.float32) \
+        + age / torch.clamp(T_b, min=1.0)[:, None]
+    return _lane_own_first_argmin(score, g, k)
+
+
+_LANE_MAPPING = {
+    "min_search": _lane_min_search,
+    "round_robin": _lane_round_robin,
+    "hashed_random": _lane_hashed_random,
+    "staleness_weighted": _lane_staleness_weighted,
+}
+
+
+def lane_mapping_policy(name: str):
+    mapping_policy(name)              # the single form's errors
+    return _LANE_MAPPING[name]
 
 
 # ==========================================================================

@@ -288,19 +288,22 @@ def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
     """Insert the masked entries of an event batch, exactly as pushing
     them one by one in order: the j-th masked entry takes the j-th free
     queue slot (one pass over the queue: cumsum of the free mask plus a
-    stable argsort that brings the pushed entries first).  Returns the
-    number of entries dropped for want of a free slot (0-d tensor)."""
-    n = times.shape[0]
+    stable argsort that brings the pushed entries first).  Works along
+    the last axis: a leading lane axis (``core/lanes.py``) pushes each
+    lane's batch into its own queue.  Returns the entries dropped for
+    want of a free slot (per lane)."""
+    n = times.shape[-1]
     free = st["ev_time"] >= INF
-    free_rank = torch.cumsum(free, 0) - 1      # slot's rank among free
-    cnt = mask.sum()
-    order = torch.argsort(torch.logical_not(mask).to(I32), stable=True)
+    free_rank = torch.cumsum(free, -1) - 1     # slot's rank among free
+    cnt = mask.sum(-1, keepdim=True)
+    order = torch.argsort(torch.logical_not(mask).to(I32), dim=-1,
+                          stable=True)
     # ranks past the batch (and the -1 of taken slots) read a clamped
     # entry that ``write`` masks off
     idx = torch.clamp(free_rank, 0, n - 1)
 
     def col(x):
-        return x.index_select(0, order).index_select(0, idx)
+        return x.gather(-1, order).gather(-1, idx)
 
     ct = col(times)
     ctyp = torch.full_like(st["ev_type"], typ)
@@ -308,10 +311,21 @@ def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
     write = free & (free_rank < cnt)
     st["ev_time"] = torch.where(write, ct, st["ev_time"])
     st["ev_type"] = torch.where(write, ctyp, st["ev_type"])
-    st["ev_a"] = torch.where(write[:, None], ca, st["ev_a"])
-    drop = torch.clamp(cnt - free.sum(), min=0)
+    st["ev_a"] = torch.where(write[..., None], ca, st["ev_a"])
+    drop = torch.clamp(cnt - free.sum(-1, keepdim=True), min=0)[..., 0]
     st["dropped"] += drop
     return drop
+
+
+def _init_queue(st, p, arrivals, arrival_gmns, sim_len):
+    """Push every arrival before ``sim_len`` (one ARRIVE per application)
+    and start the occupancy telemetry; arrays may carry a lane axis."""
+    live = arrivals < sim_len
+    apps = torch.arange(arrivals.shape[-1], device=arrivals.device)
+    _bulk_push(st, p, live, arrivals, EV_ARRIVE, apps.expand_as(arrivals),
+               arrival_gmns, torch.zeros_like(arrival_gmns))
+    st["evq_len"] = (live.sum(-1) - st["dropped"]).to(I32)
+    st["evq_peak"] = st["evq_len"].clone()
 
 
 def _staged(p, h_t, h_typ, h_a0, h_a1, h_a2, vrow_i=None, vrow=None):
@@ -486,13 +500,7 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
     parent_gmns = arrival_gmns.cpu().numpy()
     sim_len = torch.tensor(sim_len, dtype=F32, device=dev)
 
-    n_apps = arrivals.shape[0]
-    live = arrivals < sim_len
-    _bulk_push(st, p, live, arrivals, EV_ARRIVE,
-               torch.arange(n_apps, device=dev), arrival_gmns,
-               torch.zeros((n_apps,), dtype=I32, device=dev))
-    st["evq_len"] = (live.sum() - st["dropped"]).to(I32)
-    st["evq_peak"] = st["evq_len"].clone()
+    _init_queue(st, p, arrivals, arrival_gmns, sim_len)
 
     handlers = {
         EV_ARRIVE: lambda t, a: _handle_arrive(st, p, t, *a, lengths),

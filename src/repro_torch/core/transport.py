@@ -35,6 +35,11 @@ class Topology:
 DEFAULT_TOPOLOGY = Topology()
 
 
+def topology_grid(kinds=TOPOLOGIES):
+    """All topology kinds as Topology values (the static sweep axis)."""
+    return [Topology(kind) for kind in kinds]
+
+
 def grid_side(k: int) -> int:
     """Side of the smallest square GMN grid holding k nodes."""
     return max(1, math.isqrt(k - 1) + 1) if k > 1 else 1

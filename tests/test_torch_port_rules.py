@@ -30,7 +30,8 @@ from repro_torch.models import model as TMDL
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# the reference's benchmarks/ scripts import the JAX package
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_modules(path):
@@ -49,6 +50,16 @@ def test_port_imports_no_jax_and_no_reference(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def test_rules_walk_every_subpackage():
+    """The walk covers the paper runners and the sweep engine."""
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES
+             if p.is_relative_to(PORT)}
+    for want in ("benchmarks/common.py", "benchmarks/table5.py",
+                 "benchmarks/scheduler_overhead.py", "core/lanes.py",
+                 "core/sweep.py", "core/experiment.py", "core/analytic.py"):
+        assert want in names, want
+
+
 def test_every_port_module_imports_without_jax():
     """With jax and repro made unimportable, every module of the port
     (and chip_smoke.py) still imports."""
@@ -57,7 +68,7 @@ def test_every_port_module_imports_without_jax():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -105,6 +116,29 @@ def test_entry_points_raise_without_cuda(no_cuda, monkeypatch):
                          np.ones(3, np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.state_from_numpy({"x": np.zeros(3, np.int32)})
+
+
+def test_sweep_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                              monkeypatch):
+    from repro_torch.benchmarks import common, scheduler_overhead, table5
+    from repro_torch.core import experiment as TE
+    from repro_torch.core import sweep as TSW
+    from repro_torch.core import workloads as TW
+    monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
+    p = TS.SimParams(m=16, k=4, n_childs=16, max_apps=32, queue_cap=512)
+    wl = TW.independent_batch(p)
+    for mode in ("auto", "seq", "vmap"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TSW.sweep(p.shape, TSW.knob_batch(), wl, 1e7, mode=mode)
+    spec = TE.ExperimentSpec(base=p, sim_len=1e5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spec.run()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spec.plan().resolve_mode("auto")
+    for runner in (table5, scheduler_overhead):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.run(verbose=False)
+    assert not list(tmp_path.iterdir())
 
 
 def test_lm_entry_points_raise_without_cuda(no_cuda):
