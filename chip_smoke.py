@@ -66,22 +66,45 @@ any failure ends the run with a non-zero exit:
             sim_len 1e5 its device kernels and syncs per step; the
             ``scheduler_overhead`` runner, whose K1 assignments must
             equal the plain version's;
-12. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+12. fabrics  the four fabrics (ideal, shared_bus, hier_tree, mesh2d)
+            through the lane loop at the paper tier of
+            ``topology_frontier`` (m=256, n_childs=100, max_apps=64,
+            queue_cap=8192, c_s=8, dn_th=4, interference seeds 1-2 at
+            pair_period 14,000, k in {16, 32}: 8 groups of 2 lanes) at
+            sim_len 1e6 — or 2.5e5 (34 of the 64 applications), said
+            in the line, when the k=16 hier_tree group's rate at 2.5e5
+            would put 1e6 over the phase's 300 s — against the JAX
+            reference's frozen digests (``goldens.FABRICS``), with
+            ``beacons_rx == (k-1) * beacons_tx`` and an empty ``bcn_t``
+            on every non-ideal lane whose queue dropped nothing (where
+            the 8,192-slot queue overflows, as ``shared_bus`` at k=32
+            does in the reference too: every missing delivery counted in
+            ``dropped`` and ``evq_peak`` at the capacity), and
+            ``bcn_skew_max > 0`` on every non-ideal lane (0 on
+            ``ideal``); seed 1 of each k=16
+            fabric in ``"seq"`` mode, equal to its vmap lane; events/s of
+            each group in both modes; and at sim_len 5e4 (k=16,
+            ``hier_tree``) device kernels and busy time per step, split
+            into steps where every lane delivers a beacon and the rest
+            (the loop's step spans under ``torch.profiler``), device busy
+            share and host reads per step;
+13. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
             forward on the card (K2, K3) against the same weights on
             the CPU (plain versions);
-13. lm_prefill the full-width 16-layer Jamba in bf16: one
+14. lm_prefill the full-width 16-layer Jamba in bf16: one
             ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
             twice and K3 14 times and give finite logits; then timed
             (tokens/s) and profiled (device time by kernel);
-14. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+15. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
 
 then the ``kernels`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Each main path reads its own launch counts, zeroed just before
 it and read just after: the TLM path (phases 7-8: K1), the sweep
-(phase 11: K1, from ``scheduler_overhead``), the prefill (phase 13:
-K2, K3) and ``serve()`` (phase 14, whose decode steps are plain torch).
-The comparison launches of phases 3-5 and 12 do not count.  Float32
+(phase 11: K1, from ``scheduler_overhead``), the fabrics (phase 12,
+which launch none of the three kernels), the prefill (phase 14: K2, K3)
+and ``serve()`` (phase 15, whose decode steps are plain torch).  The
+comparison launches of phases 3-5 and 13 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
@@ -602,7 +625,8 @@ def _device_kernels(run):
         out = run()
         torch.cuda.synchronize()
     recs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA]
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and e.name() not in STEP_SPANS]
     return out, len(recs), sum(recs)
 
 
@@ -751,6 +775,251 @@ def phase_sweep() -> int:
               "sweep_engine": so["sweep_engine"]},
           "walls_s": walls, "wall_s": time.perf_counter() - t_phase})
     return so_launches
+
+
+# --------------------------------------------------------------------------
+# The management fabrics
+# --------------------------------------------------------------------------
+
+FABRIC_BUDGET_S = 300.0        # the phase's share of TIME_LIMIT_S
+FABRIC_PROBE_SIM_LEN = 2.5e5   # the k=16 hier_tree probe, and the fallback
+FABRIC_COUNT_SIM_LEN = 5e4     # the horizon kernels per step are split at
+FABRIC_SEQ_K = 16              # seq runs seed 1 of each fabric at this k
+STEP_SPANS = ("lanes.step_rx", "lanes.step")   # core/lanes.py's spans
+
+
+class _Frames:
+    """Several ResultFrames read as one, by ``state(k=, topology=)``."""
+
+    def __init__(self, frames):
+        self.groups = [g for f in frames for g in f.groups]
+
+    def state(self, k, topology):
+        hits = [g.state for g in self.groups
+                if (g.combo.shape.k, g.combo.topology.kind) == (k, topology)]
+        if len(hits) != 1:
+            raise KeyError((k, topology))
+        return hits[0]
+
+
+def _fabric_spec(ks, topologies, sim_len):
+    """The paper tier of ``topology_frontier`` (linear queue) at
+    ``sim_len``: the given k's and fabrics, seeds (1, 2), vmap mode."""
+    from repro_torch.core import goldens as G
+    from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+    from repro_torch.core.sim import SimParams
+    return ExperimentSpec(
+        shapes=tuple(SimParams(k=k, **G.FABRIC_PARAMS).shape for k in ks),
+        topologies=tuple(topologies), knobs=G.FABRIC_KNOBS,
+        workloads=(WorkloadSpec.make(
+            "interference", seeds=G.FABRIC_SEEDS,
+            pair_periods=(G.FABRIC_PAIR_PERIOD,)),),
+        sim_len=sim_len, mode="vmap")
+
+
+def _step_profile(run):
+    """``(run(), by step kind, device events before the first step)``
+    under ``torch.profiler`` (host and card): each device event goes to
+    the step whose span (``core/lanes.py``) starts last before it; a
+    step's window holds its handlers and the next step's pop and read."""
+    import bisect
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.name()) for e in evs
+                   if e.device_type() == cpu and e.name() in STEP_SPANS)
+    starts = [s0 for s0, _ in spans]
+    by = {n: {"steps": 0, "kernels": 0, "busy_ns": 0} for n in STEP_SPANS}
+    for _, n in spans:
+        by[n]["steps"] += 1
+    before = 0
+    for e in evs:
+        if e.device_type() != cuda or e.name() in STEP_SPANS:
+            continue              # the spans' own device-side annotations
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if i < 0:
+            before += 1
+            continue
+        by[spans[i][1]]["kernels"] += 1
+        by[spans[i][1]]["busy_ns"] += e.duration_ns()
+    return out, by, before
+
+
+def phase_fabrics():
+    """The four fabrics through the lane loop at the paper tier of
+    ``topology_frontier``, against the JAX reference's frozen digests,
+    with beacon conservation and skew gates, seq runs held against their
+    vmap lanes, and kernels per step split by step kind."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimParams
+    t_phase = time.perf_counter()
+
+    # probe: the k=16 hier_tree group at the fallback horizon; its rate a
+    # step predicts the phase at 1e6 (steps: each group's longest lane,
+    # from the frozen digests; a seq event counted as one step)
+    probe = _fabric_spec((16,), ("hier_tree",), FABRIC_PROBE_SIM_LEN) \
+        .run(mode="vmap")
+    probe_steps = int(np.asarray(probe.groups[0].state[
+        "events_processed"]).max())
+    s_per_step = probe.groups[0].wall_s / probe_steps
+    full = G.FABRICS[1e6]
+    work = sum(max(full[k][t]["events_processed"])
+               for k in G.FABRIC_KS for t in G.FABRIC_TOPOLOGIES) \
+        + sum(full[FABRIC_SEQ_K][t]["events_processed"][0]
+              for t in G.FABRIC_TOPOLOGIES)
+    predicted_s = s_per_step * work
+    spent = time.perf_counter() - t_phase
+    sim_len = 1e6 if predicted_s <= FABRIC_BUDGET_S - spent \
+        else FABRIC_PROBE_SIM_LEN
+    if sim_len == FABRIC_PROBE_SIM_LEN:
+        plan = [((16,), [t for t in G.FABRIC_TOPOLOGIES if t != "hier_tree"]),
+                ((32,), G.FABRIC_TOPOLOGIES)]
+        frames = [probe]
+    else:
+        plan = [((16, 32), G.FABRIC_TOPOLOGIES)]
+        frames = []
+    frames += [_fabric_spec(ks, topos, sim_len).run(mode="vmap")
+               for ks, topos in plan]
+    allf = _Frames(frames)
+
+    digest = G.fabric_digest(allf)
+    want = G.FABRICS[sim_len]
+    bad = []
+    for k in G.FABRIC_KS:
+        for topo in G.FABRIC_TOPOLOGIES:
+            got_r, want_r = digest[k][topo], want[k][topo]
+            for key, w in want_r.items():
+                ok = np.allclose(got_r[key], w, rtol=1e-5) \
+                    if key == "mgmt_latency" else got_r[key] == w
+                if not ok:
+                    bad.append((k, topo, key, got_r[key], w))
+            st = allf.state(k, topo)
+            tx = np.asarray(st["beacons_tx"]).ravel()
+            rx = np.asarray(st["beacons_rx"]).ravel()
+            drop = np.asarray(st["dropped"]).ravel()
+            peak = np.asarray(st["evq_peak"]).ravel()
+            skew = np.asarray(st["bcn_skew_max"]).ravel()
+            empty = (np.asarray(st["bcn_t"]) >= 1e17) \
+                .reshape(len(tx), -1).all(1)
+            if topo == "ideal":
+                ok = (rx == 0).all() and (skew == 0).all() and empty.all()
+            else:
+                # exact where nothing dropped; an overflowing lane's
+                # missing deliveries are among its dropped events
+                held = (drop == 0) & (rx == (k - 1) * tx) & empty
+                over = (drop > 0) & (peak == G.FABRIC_PARAMS["queue_cap"]) \
+                    & (rx < (k - 1) * tx) & ((k - 1) * tx <= rx + drop)
+                ok = (held | over).all() and (skew > 0).all()
+            if not ok:
+                bad.append((k, topo, "transport gates", tx.tolist(),
+                            rx.tolist(), drop.tolist(), skew.tolist(),
+                            empty.tolist()))
+    if bad:
+        raise AssertionError(f"fabrics: gates failed {bad}")
+
+    # seq: seed 1 of each k=16 fabric, against its vmap lane
+    p = SimParams(k=FABRIC_SEQ_K, **G.FABRIC_PARAMS)
+    kn = SW.knob_batch(**G.FABRIC_KNOBS)
+    wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS[:1], sim_len=sim_len,
+                              pair_period=G.FABRIC_PAIR_PERIOD)
+    seq = {}
+    for topo in G.FABRIC_TOPOLOGIES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = SW.sweep(p.shape, kn, wl, sim_len, mode="seq", topology=topo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lane = {key: v[0, 0] for key, v in allf.state(FABRIC_SEQ_K,
+                                                      topo).items()}
+        same = set(st) == set(lane) and all(
+            np.allclose(st[key][0, 0].cpu().numpy(), lane[key], rtol=1e-5)
+            if key == "mgmt_latency"
+            else np.array_equal(st[key][0, 0].cpu().numpy(), lane[key])
+            for key in lane)
+        if not same:
+            raise AssertionError(f"fabrics: seq {topo} differs from its "
+                                 "vmap lane")
+        ev = int(st["events_processed"].sum())
+        seq[topo] = {"events": ev, "wall_s": wall, "events_per_s": ev / wall}
+
+    # kernels and reads per step at a short horizon, by step kind
+    pc = SimParams(k=16, **G.FABRIC_PARAMS)
+    wl_c = W.interference_batch(pc, seeds=G.FABRIC_SEEDS,
+                                sim_len=FABRIC_COUNT_SIM_LEN,
+                                pair_period=G.FABRIC_PAIR_PERIOD)
+
+    def count_run():
+        return SW.sweep(pc.shape, kn, wl_c, FABRIC_COUNT_SIM_LEN,
+                        mode="vmap", topology="hier_tree")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_c = count_run()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    steps_c = int(st_c["events_processed"].max())
+    _, by, before = _step_profile(count_run)
+    _, lines = _sync_lines(count_run)
+    read_line, reads = lines.most_common(1)[0]
+    others = sum(lines.values()) - reads
+    if reads != steps_c + 1 or others > SETUP_SYNCS_MAX:
+        raise AssertionError(f"fabrics: host syncs per line {dict(lines)} "
+                             f"for {steps_c} steps")
+    n_steps = sum(b["steps"] for b in by.values())
+    busy = sum(b["busy_ns"] for b in by.values())
+    split = {n.split(".")[1]: {
+        "steps": b["steps"],
+        "kernels_per_step": b["kernels"] / max(b["steps"], 1),
+        "device_busy_us_per_step": b["busy_ns"] / 1e3 / max(b["steps"], 1)}
+        for n, b in by.items()}
+
+    groups = []
+    for g in allf.groups:
+        k, topo = g.combo.shape.k, g.combo.topology.kind
+        ev = int(np.asarray(g.state["events_processed"]).sum())
+        row = {"k": k, "topology": topo, "lanes": int(np.asarray(
+                   g.state["events_processed"]).size),
+               "steps": int(np.asarray(g.state["events_processed"]).max()),
+               "events": ev, "wall_s": g.wall_s,
+               "vmap_events_per_s": ev / g.wall_s,
+               "beacons_tx": np.asarray(g.state["beacons_tx"]).ravel()
+               .tolist(),
+               "beacons_rx": np.asarray(g.state["beacons_rx"]).ravel()
+               .tolist(),
+               "bcn_skew_max": np.asarray(g.state["bcn_skew_max"]).ravel()
+               .tolist()}
+        if k == FABRIC_SEQ_K:
+            row["seq_events_per_s"] = seq[topo]["events_per_s"]
+        groups.append(row)
+    emit({"phase": "fabrics", "sim_len": sim_len, "mode": "vmap",
+          "probe": {"sim_len": FABRIC_PROBE_SIM_LEN, "steps": probe_steps,
+                    "wall_s": probe.groups[0].wall_s,
+                    "predicted_1e6_s": predicted_s},
+          "digests_match": True, "conservation": True, "skew": True,
+          "overflowing_groups": [
+              [g.combo.shape.k, g.combo.topology.kind]
+              for g in allf.groups
+              if int(np.asarray(g.state["dropped"]).sum()) > 0],
+          "groups": groups, "seq": seq,
+          "count": {"k": 16, "topology": "hier_tree",
+                    "sim_len": FABRIC_COUNT_SIM_LEN, "steps": steps_c,
+                    "wall_s": wall_c, "ms_per_step": wall_c / (steps_c + 1)
+                    * 1e3,
+                    "profiled_steps": n_steps, "events_before_steps": before,
+                    "by_step_kind": split,
+                    "device_busy_share": busy / 1e9 / wall_c,
+                    "packed_read": read_line,
+                    "reads_per_step": reads / (steps_c + 1),
+                    "other_syncs": others},
+          "wall_s": time.perf_counter() - t_phase})
 
 
 # --------------------------------------------------------------------------
@@ -1174,6 +1443,12 @@ def main() -> int:
     sweep_launches = phase_sweep()
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
         raise AssertionError("the sweep path launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
+    FA.launches = SS.launches = HM.launches = 0   # the fabric path starts
+    phase_fabrics()
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the fabric path (no kernel of its own) "
+                             "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     phase_lm_small()
     prefill = phase_lm_prefill()

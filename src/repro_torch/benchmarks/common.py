@@ -58,9 +58,12 @@ def save(name: str, payload: dict, spec=None):
     embedded as provenance; None marks a runner without one."""
     os.makedirs(RESULTS_DIR, exist_ok=True)
     path = os.path.join(RESULTS_DIR, f"{name}.json")
-    payload.setdefault("meta", topology_meta())
     if hasattr(spec, "to_dict"):
         spec = spec.to_dict()
+    # the fabrics the spec ran (a runner without a spec ran ``ideal``)
+    payload.setdefault("meta", topology_meta(
+        spec.get("topologies", ("ideal",)) if isinstance(spec, dict)
+        else ("ideal",)))
     payload.setdefault("spec", spec)
     with open(path, "w") as f:
         json.dump(payload, f, indent=1, default=float)

@@ -21,6 +21,15 @@ without JAX (``chip_smoke.py``):
   (1, 2, 3)) cut to sim_len 5e5: per k, ``beacons_tx`` and
   ``events_processed`` per seed, the ``app_done`` sha256 and each lane's
   speedup as the bits of its float32 value (:func:`table5_digest`);
+- the paper tier of ``benchmarks/topology_frontier.py`` on every fabric
+  (m=256, n_childs=100, max_apps=64, queue_cap=8192, c_s=8, dn_th=4,
+  interference seeds (1, 2) at pair_period 14,000, k in (16, 32), the
+  linear queue) at sim_len 1e6 and at 2.5e5, the card's fallback (34
+  of the 64 applications; every one arrives before 4.5e5, so 5e5 would
+  cut nothing): per (k, fabric) the per-seed
+  ``events_processed``, ``beacons_tx``, ``beacons_rx``, ``evq_peak``,
+  ``dropped`` and ``mgmt_latency``, and the ``app_done`` sha256
+  (:func:`fabric_digest`);
 - the result of ``launch.serve.serve(cfg)`` with its
   default arguments (64 requests, 4 clusters of 2 groups, dn_th 4, seed
   0): it depends on the control plane only, so it holds for any model
@@ -88,6 +97,182 @@ TABLE5 = {
         "app_done_sha": "59de22a35e5b154021ecae234d7d49fe"
                         "8745c1506dce976449b747d151b0c3f3",
         "speedup_f32_bits": [1107915792, 1108422532, 1109121152]},
+}
+
+FABRIC_KS = (16, 32)
+FABRIC_SEEDS = (1, 2)
+FABRIC_PAIR_PERIOD = 14_000.0
+FABRIC_SIM_LENS = (1e6, 2.5e5)
+FABRIC_PARAMS = dict(m=256, n_childs=100, max_apps=64, queue_cap=8192)
+FABRIC_KNOBS = {"dn_th": 4, "c_s": 8.0}
+FABRIC_TOPOLOGIES = ("ideal", "shared_bus", "hier_tree", "mesh2d")
+# The JAX reference's run of that spec on the CPU, made by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
+#   import ExperimentSpec, WorkloadSpec; from repro.core.sim import
+#   SimParams; from repro_torch.core import goldens as G; print({sl:
+#   G.fabric_digest(ExperimentSpec(shapes=tuple(SimParams(k=k,
+#   **G.FABRIC_PARAMS).shape for k in G.FABRIC_KS),
+#   topologies=G.FABRIC_TOPOLOGIES, knobs=G.FABRIC_KNOBS, workloads=(
+#   WorkloadSpec.make('interference', seeds=G.FABRIC_SEEDS,
+#   pair_periods=(G.FABRIC_PAIR_PERIOD,)),), sim_len=sl, mode='seq')
+#   .run()) for sl in G.FABRIC_SIM_LENS})"
+FABRICS = {
+    1000000.0: {
+        16: {
+            "ideal": {
+                "events_processed": [6696, 6696],
+                "beacons_tx": [1885, 1893],
+                "beacons_rx": [0, 0],
+                "evq_peak": [547, 537],
+                "dropped": [0, 0],
+                "mgmt_latency": [1872840.75, 2287543.0],
+                "app_done_sha": "030361be819edb4eb6096d4949c15073"
+                                "0eb4dc2b8fd2db9581530c482b388e90"},
+            "shared_bus": {
+                "events_processed": [34941, 34926],
+                "beacons_tx": [1883, 1882],
+                "beacons_rx": [28245, 28230],
+                "evq_peak": [805, 901],
+                "dropped": [0, 0],
+                "mgmt_latency": [25366254.0, 26179352.0],
+                "app_done_sha": "98cfc1a35504a430cf2c4c8363298bee"
+                                "3fdbc26cef7e419824c7290446f7168a"},
+            "hier_tree": {
+                "events_processed": [35016, 35046],
+                "beacons_tx": [1888, 1890],
+                "beacons_rx": [28320, 28350],
+                "evq_peak": [717, 790],
+                "dropped": [0, 0],
+                "mgmt_latency": [3363366.5, 3463099.0],
+                "app_done_sha": "cdf5d452a58e71567d229bf86fb547d5"
+                                "f21c81b83e742f17d2fadae14cd9870f"},
+            "mesh2d": {
+                "events_processed": [34896, 34971],
+                "beacons_tx": [1880, 1885],
+                "beacons_rx": [28200, 28275],
+                "evq_peak": [683, 690],
+                "dropped": [0, 0],
+                "mgmt_latency": [669426.25, 664956.25],
+                "app_done_sha": "5aaf4059fe43ad2b69b18ff9b603ae1f"
+                                "f68721e486f7493c80ffcc64a35a8a67"},
+        },
+        32: {
+            "ideal": {
+                "events_processed": [7068, 7068],
+                "beacons_tx": [2237, 2242],
+                "beacons_rx": [0, 0],
+                "evq_peak": [541, 526],
+                "dropped": [0, 0],
+                "mgmt_latency": [4931316.0, 5464424.0],
+                "app_done_sha": "8e59a37f9b0c2bf29fbe23fd15c44305"
+                                "abfe51b65e574af2a0d3a4b543f47eb7"},
+            "shared_bus": {
+                "events_processed": [69768, 70241],
+                "beacons_tx": [2134, 2148],
+                "beacons_rx": [63294, 63728],
+                "evq_peak": [8192, 8192],
+                "dropped": [3433, 3415],
+                "mgmt_latency": [1370504448.0, 1413305088.0],
+                "app_done_sha": "7c7fc2cc7c3427a569ddc0715b2575f6"
+                                "989939d382073026f8f975dca2f9da73"},
+            "hier_tree": {
+                "events_processed": [75547, 76601],
+                "beacons_tx": [2209, 2243],
+                "beacons_rx": [68479, 69533],
+                "evq_peak": [1179, 1239],
+                "dropped": [0, 0],
+                "mgmt_latency": [4687882.0, 4919742.5],
+                "app_done_sha": "b15a83b595391b98642e4c3ab97fc207"
+                                "80a16f893c5453ef457b62261ae94a63"},
+            "mesh2d": {
+                "events_processed": [76353, 76415],
+                "beacons_tx": [2235, 2237],
+                "beacons_rx": [69285, 69347],
+                "evq_peak": [1197, 930],
+                "dropped": [0, 0],
+                "mgmt_latency": [1554946.875, 1548885.75],
+                "app_done_sha": "08ca8790f541c963e11b22cdf370b9df"
+                                "8694c918d021c3c9a4afc9e65e7e902c"},
+        },
+    },
+    250000.0: {
+        16: {
+            "ideal": {
+                "events_processed": [3456, 3456],
+                "beacons_tx": [977, 971],
+                "beacons_rx": [0, 0],
+                "evq_peak": [508, 504],
+                "dropped": [0, 0],
+                "mgmt_latency": [1364735.25, 1123949.0],
+                "app_done_sha": "374441ed8eab3b686bffa27c846224ea"
+                                "16a71634b26b56106176765514b2a8dc"},
+            "shared_bus": {
+                "events_processed": [18231, 18216],
+                "beacons_tx": [985, 984],
+                "beacons_rx": [14775, 14760],
+                "evq_peak": [794, 870],
+                "dropped": [0, 0],
+                "mgmt_latency": [14513621.0, 14889867.0],
+                "app_done_sha": "88ba0ab76d8d285bf1618eb498082140"
+                                "837db662ab26ea6ead90634da7841a8e"},
+            "hier_tree": {
+                "events_processed": [18141, 18171],
+                "beacons_tx": [979, 981],
+                "beacons_rx": [14685, 14715],
+                "evq_peak": [685, 729],
+                "dropped": [0, 0],
+                "mgmt_latency": [1816900.5, 1872719.5],
+                "app_done_sha": "b25eebcf5dabd5d3afb05c6b033a2a34"
+                                "e040d9157cab5c3495d24d85e532c70d"},
+            "mesh2d": {
+                "events_processed": [18171, 18066],
+                "beacons_tx": [981, 974],
+                "beacons_rx": [14715, 14610],
+                "evq_peak": [687, 637],
+                "dropped": [0, 0],
+                "mgmt_latency": [349452.5, 343338.0],
+                "app_done_sha": "64354a283d985fc4c75f744b1f66a211"
+                                "57aeaa4a1be0eba5ae32482222fb819f"},
+        },
+        32: {
+            "ideal": {
+                "events_processed": [3648, 3648],
+                "beacons_tx": [1162, 1158],
+                "beacons_rx": [0, 0],
+                "evq_peak": [506, 496],
+                "dropped": [0, 0],
+                "mgmt_latency": [3603484.5, 3578900.0],
+                "app_done_sha": "c244f9b0862a68e036a366f06bba7cd6"
+                                "821f75aa20408e5eacdabfee11b37cc1"},
+            "shared_bus": {
+                "events_processed": [40104, 39856],
+                "beacons_tx": [1176, 1168],
+                "beacons_rx": [36456, 36208],
+                "evq_peak": [6141, 5925],
+                "dropped": [0, 0],
+                "mgmt_latency": [434128288.0, 426117856.0],
+                "app_done_sha": "252ca9855c055618d2cdfe11a7c563f0"
+                                "cdb88b0905b9a273b489d10e67df8bef"},
+            "hier_tree": {
+                "events_processed": [39267, 39515],
+                "beacons_tx": [1149, 1157],
+                "beacons_rx": [35619, 35867],
+                "evq_peak": [1148, 1239],
+                "dropped": [0, 0],
+                "mgmt_latency": [2551575.75, 2301543.0],
+                "app_done_sha": "ac490608ff2f7d7d041bafa037eb26b8"
+                                "9af0baf9487e2a4973bbdd1052099e44"},
+            "mesh2d": {
+                "events_processed": [39205, 39453],
+                "beacons_tx": [1147, 1155],
+                "beacons_rx": [35557, 35805],
+                "evq_peak": [1160, 980],
+                "dropped": [0, 0],
+                "mgmt_latency": [798078.25, 802988.125],
+                "app_done_sha": "fd2675e85b6b34b903771dee74371ae1"
+                                "61ee03e2501267b1ca1b79726b4d972b"},
+        },
+    },
 }
 
 SERVE = {"finished": 64, "waves": 1, "imbalance": 1.0047190851197014,
@@ -159,6 +344,24 @@ def table5_digest(frame) -> dict:
                       np.asarray(st["events_processed"]).ravel().tolist(),
                   "app_done_sha": sha256_f32(st["app_done"]),
                   "speedup_f32_bits": speedup.view(np.uint32).tolist()}
+    return out
+
+
+def fabric_digest(frame) -> dict:
+    """The digests of a fabric ResultFrame (the port's or the
+    reference's), keyed as one sim_len's entry of FABRICS."""
+    out = {}
+    for k in FABRIC_KS:
+        out[k] = {}
+        for topo in FABRIC_TOPOLOGIES:
+            st = frame.state(k=k, topology=topo)
+            row = {key: np.asarray(st[key]).ravel().tolist()
+                   for key in ("events_processed", "beacons_tx",
+                               "beacons_rx", "evq_peak", "dropped")}
+            row["mgmt_latency"] = [float(x) for x in np.asarray(
+                st["mgmt_latency"], np.float32).ravel()]
+            row["app_done_sha"] = sha256_f32(st["app_done"])
+            out[k][topo] = row
     return out
 
 

@@ -31,10 +31,13 @@ One step serves every lane:
    masks its tail to exact no-ops, as the reference's static ``n_max``
    scan does.  The beacon check that ends a LOCAL_SPAWN and the one in
    the middle of a JOIN_EXIT run once for both (their lanes are
-   disjoint, and each lane keeps its own order of updates).
-3. **Commit**, in the reference's order: the ARRIVE lanes' view-row
-   write, the pop, then one bulk push per pushing event type
-   (``sim._bulk_push`` along the queue axis).
+   disjoint, and each lane keeps its own order of updates).  Off the
+   ``ideal`` fabric a fired beacon gives each lane an (L, k) fan-out of
+   BEACON_RX arrivals, and a BEACON_RX event writes one element of
+   ``bcn_t``, ``view`` and ``view_t`` per lane.
+3. **Commit**, in the reference's order: the pop, then one bulk push
+   per pushing handler (``sim._bulk_push`` along the queue axis), a
+   LOCAL_SPAWN's beacon fan-out before its JOIN_EXITs.
 
 Done lanes cost a step's work until the last lane ends: the loop runs
 as many steps as the longest lane has events.
@@ -48,10 +51,10 @@ from repro_torch.core import policies as P
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF
 from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy
-from repro_torch.core.sim import (EV_ARRIVE, EV_JOIN_EXIT, EV_LOCAL_SPAWN,
-                                  F32, I32, SimKnobs, SimShape, _bulk_push,
-                                  _Ctx, _init_queue, _require_ported,
-                                  make_state)
+from repro_torch.core.sim import (EV_ARRIVE, EV_BEACON_RX, EV_JOIN_EXIT,
+                                  EV_LOCAL_SPAWN, F32, I32, SimKnobs,
+                                  SimShape, _bulk_push, _Ctx, _init_queue,
+                                  _require_ported, make_state)
 from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology
 
 
@@ -66,7 +69,6 @@ class _LaneCtx(_Ctx):
         self.pick_cluster = P.lane_mapping_policy(policy.mapping)
         self.depth = int(np.ceil(np.log2(self.ns))) if self.ns > 1 else 0
         self.lane = torch.arange(arrival_gmns.shape[0], device=device)
-        self.ar_k = torch.arange(self.k, device=device)
         self.ar_mpk = torch.arange(self.mpk, device=device)
         self.ar_slot = torch.arange(self.queue_cap, device=device)
         self.ar_app = torch.arange(self.max_apps, device=device)
@@ -90,14 +92,17 @@ def _arrive(st, p, m, t, app, g, g_oh):
     view = torch.where(g_oh, own[:, None], _rows(st["view"], p, g))
     age = torch.clamp(t[:, None] - _rows(st["view_t"], p, g), min=0.0)
     age = torch.where(g_oh, 0.0, age)
-    gbus, rr = st["gbus_free"], _rows(st["rr_ptr"], p, g)
-    cs, t_arrs, lats, remotes = [], [], [], []
+    gbus, lbus = st["gbus_free"], st["lbus_free"]
+    rr0 = rr = _rows(st["rr_ptr"], p, g)
+    cs, t_arrs, lats, remotes, views = [], [], [], [], []
     for i in range(p.ns):
+        views.append(view)
         c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
         view = torch.where(p.ar_k == c[:, None], view + p.cnts[i], view)
         is_remote = c != g
-        t_arr, gbus, _, lat = T.unicast(p.topology, g, c, t_tree, is_remote,
-                                        gbus=gbus, lbus=None, c_b=p.c_b)
+        t_arr, gbus, lbus, lat = T.unicast(
+            p.topology, g, c, t_tree, is_remote, gbus=gbus, lbus=lbus,
+            c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
         rr = rr + 1
         cs.append(c)
         t_arrs.append(t_arr)
@@ -105,6 +110,8 @@ def _arrive(st, p, m, t, app, g, g_oh):
         remotes.append(is_remote)
     st["rr_ptr"] = torch.where(hot, rr[:, None], st["rr_ptr"])
     st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
+    if lbus is not st["lbus_free"]:           # a fabric with local hops
+        st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
     st["mgmt_msgs"] += torch.where(m, torch.stack(remotes, 1).sum(1), 0)
     st["mgmt_latency"] += torch.where(m, torch.stack(lats, 1).sum(1), 0.0)
     st["mgmt_proc"] += torch.where(m, t_tree - t, 0.0)
@@ -112,7 +119,14 @@ def _arrive(st, p, m, t, app, g, g_oh):
     st["app_remaining"] = torch.where(hot_a, p.n_childs, st["app_remaining"])
     st["app_arrive"] = torch.where(hot_a, t[:, None], st["app_arrive"])
     st["view"] = torch.where(hot[:, :, None], view[:, None, :], st["view"])
-    return torch.stack(t_arrs, 1), torch.stack(cs, 1)
+    cs = torch.stack(cs, 1)
+    if p.record_s1:
+        rec = {"dec_view": torch.stack(views, 1).to(I32), "dec_age": age,
+               "dec_choice": cs.to(I32), "dec_rr0": rr0, "dec_t": t}
+        for key, v in rec.items():
+            on = hot_a.reshape(hot_a.shape + (1,) * (v.ndim - 1))
+            st[key] = torch.where(on, v[:, None], st[key])
+    return torch.stack(t_arrs, 1), cs
 
 
 def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
@@ -123,7 +137,7 @@ def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
     hot = m[:, None] & g_oh
     pe_free, loads = _rows(st["pe_free"], p, g), _rows(st["loads"], p, g)
     t_cpu = torch.maximum(t, _rows(st["gmn_free"], p, g))
-    bus = _rows(st["lbus_free"], p, g)
+    bus = st["gbus_free"] if p.shared else _rows(st["lbus_free"], p, g)
     length = _rows(lengths, p, app)
     act = m[:, None] & (torch.arange(n_steps, device=p.device)
                         < cnt[:, None])
@@ -154,7 +168,10 @@ def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
                                 st["pe_free"])
     st["loads"] = torch.where(hot[:, :, None], loads[:, None, :], st["loads"])
     st["gmn_free"] = torch.where(hot, t_cpu[:, None], st["gmn_free"])
-    st["lbus_free"] = torch.where(hot, bus[:, None], st["lbus_free"])
+    if p.shared:
+        st["gbus_free"] = torch.where(m, bus, st["gbus_free"])
+    else:
+        st["lbus_free"] = torch.where(hot, bus[:, None], st["lbus_free"])
     st["mgmt_msgs"] += torch.where(m, cnt, 0)
     # the masked tail adds +0.0 (lanes outside m: only +0.0)
     st["mgmt_latency"] += torch.where(act, torch.stack(lats, 1), 0.0).sum(1)
@@ -164,10 +181,15 @@ def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
 
 def _join_local(st, p, m, t, g, g_oh, pe):
     """``sim._handle_join_exit`` up to its beacon check: the join-exit
-    message on the cluster's local bus and the PE's load decrement."""
+    message on the cluster's local bus (the one bus under
+    ``shared_bus``) and the PE's load decrement."""
     hot = m[:, None] & g_oh
-    t_msg = torch.maximum(t, _rows(st["lbus_free"], p, g)) + p.c_b
-    st["lbus_free"] = torch.where(hot, t_msg[:, None], st["lbus_free"])
+    if p.shared:
+        t_msg = torch.maximum(t, st["gbus_free"]) + p.c_b
+        st["gbus_free"] = torch.where(m, t_msg, st["gbus_free"])
+    else:
+        t_msg = torch.maximum(t, _rows(st["lbus_free"], p, g)) + p.c_b
+        st["lbus_free"] = torch.where(hot, t_msg[:, None], st["lbus_free"])
     at = hot[:, :, None] & (p.ar_mpk == pe[:, None])[:, None, :]
     st["loads"] = torch.where(at, st["loads"] - 1, st["loads"])
     st["mgmt_msgs"] += m
@@ -180,10 +202,12 @@ def _join_forward(st, p, m, t_msg, app, g):
     and the barrier decrement."""
     pg = _rows(p.parent_gmns, p, app)
     remote = pg != g
-    t_fwd, gbus, _, lat = T.forward(p.topology, g, pg, t_msg, remote,
-                                    gbus=st["gbus_free"], lbus=None,
-                                    c_b=p.c_b)
+    t_fwd, gbus, lbus, lat = T.forward(
+        p.topology, g, pg, t_msg, remote, gbus=st["gbus_free"],
+        lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
     st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
+    if lbus is not st["lbus_free"]:           # a fabric with local hops
+        st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
     st["mgmt_msgs"] += m & remote
     st["mgmt_latency"] += torch.where(m, lat, 0.0)
     t_bar = torch.maximum(t_fwd, _rows(st["gmn_free"], p, pg)) + p.c_join
@@ -199,16 +223,20 @@ def _join_forward(st, p, m, t_msg, app, g):
 
 
 def _beacon(st, p, m, g, g_oh, t):
-    """``sim._maybe_beacon`` + ``_fire_beacon`` on the lanes of ``m``
-    (k > 1), each at its own ``t``."""
+    """``sim._maybe_beacon`` on the lanes of ``m`` (k > 1), each at its
+    own ``t``.  Returns the fan-out of a non-ideal fabric — the (L, k)
+    push mask and arrival times and the (L,) load — or None on
+    ``ideal``."""
     load = _rows(st["loads"], p, g).sum(-1)
     delta = torch.abs(load - _rows(st["last_bcast"], p, g))
     fire = m & p.beacon_due(delta, t, _rows(st["last_bcast_t"], p, g),
                             dn_th=p.dn_th, T_b=p.T_b)
-    t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
-    st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
     hot = fire[:, None] & g_oh
     load = load.to(I32)
+    if p.rx_on:
+        return _beacon_fanout(st, p, g, t, fire, hot, load)
+    t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
+    st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
     # column g of every receiver's view
     st["view"] = torch.where(hot[:, None, :], load[:, None, None],
                              st["view"])
@@ -220,6 +248,116 @@ def _beacon(st, p, m, g, g_oh, t):
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
     st["mgmt_latency"] += torch.where(fire, float(p.k - 1) * (t_tx - t), 0.0)
+    return None
+
+
+def _beacon_fanout(st, p, g, t, fire, hot, load):
+    """``sim._beacon_fanout`` per lane: the fabric's (L, k) arrival times,
+    the sender's in-flight row and own view cell, and the accounting."""
+    t_tx, t_arr, st["gbus_free"], st["lbus_free"] = T.beacon_tx(
+        p.topology, g, t, fire, gbus=st["gbus_free"], lbus=st["lbus_free"],
+        c_b=p.c_b, c_hop=p.c_hop, hops=p.hops, k=p.k)
+    rcv = p.not_own[g]                             # (L, k) receivers
+    push = fire[:, None] & rcv
+    # row g of bcn_t, and the cell (g, g) of view and view_t
+    row = hot[:, :, None] & push[:, None, :]
+    st["bcn_t"] = torch.where(row, t_arr[:, None, :], st["bcn_t"])
+    cell = hot[:, :, None] & hot[:, None, :]
+    st["view"] = torch.where(cell, load[:, None, None], st["view"])
+    st["view_t"] = torch.where(cell, t_tx[:, None, None], st["view_t"])
+    st["last_bcast"] = torch.where(hot, load[:, None], st["last_bcast"])
+    st["last_bcast_t"] = torch.where(hot, t_tx[:, None], st["last_bcast_t"])
+    fire_i = fire.to(I32)
+    st["beacons_tx"] += fire_i
+    st["mgmt_msgs"] += fire_i * (p.k - 1)
+    st["mgmt_latency"] += torch.where(push, t_arr - t[:, None], 0.0).sum(1)
+    spread = torch.clamp(torch.where(rcv, t_arr, -INF).amax(1)
+                         - torch.where(rcv, t_arr, INF).amin(1), min=0.0)
+    spread = torch.where(fire, spread, 0.0)
+    st["bcn_skew_sum"] += spread
+    st["bcn_skew_max"] = torch.maximum(st["bcn_skew_max"], spread)
+    return push, t_arr, load
+
+
+def _beacon_rx(st, p, m, t, src, rcv, load):
+    """``sim._handle_beacon_rx`` on the lanes of ``m``: one-hot selects on
+    the (lane, src, rcv) element of bcn_t and the (lane, rcv, src) one of
+    view and view_t.  Lanes outside ``m`` read a clamped element."""
+    src, rcv = torch.where(m, src, 0), torch.where(m, rcv, 0)
+    s_oh, r_oh = p.ar_k == src[:, None], p.ar_k == rcv[:, None]
+    sr = m[:, None, None] & s_oh[:, :, None] & r_oh[:, None, :]
+    rs = m[:, None, None] & r_oh[:, :, None] & s_oh[:, None, :]
+    last = st["bcn_t"][p.lane, src, rcv] == t
+    st["bcn_t"] = torch.where(sr & last[:, None, None], INF, st["bcn_t"])
+    st["view"] = torch.where(rs, load.to(I32)[:, None, None], st["view"])
+    st["view_t"] = torch.where(rs, t[:, None, None], st["view_t"])
+    st["beacons_rx"] += m
+
+
+def _step(st, p, types, live_h, t, slot, typ, a, lengths):
+    """One step's handlers over every lane and its commit (the loop's
+    body after the read of the records)."""
+    t = t[:, 0]
+    live = t < INF
+    typ = torch.where(live, typ[:, 0], -1)
+    app, g, a2 = a.to(torch.int64).unbind(1)
+    g_oh = p.ar_k == g[:, None]
+    st["evq_peak"] = torch.where(
+        live, torch.maximum(st["evq_peak"], st["evq_len"]),
+        st["evq_peak"])
+    st["events_processed"] += live
+    # each pushing handler's batch (mask, times, type, a0, a1, a2), in
+    # the order a lane's own pushes take: a lane has one event type,
+    # and a LOCAL_SPAWN's fan-out comes before its JOIN_EXITs
+    pushes = []
+    if EV_BEACON_RX in types:
+        _beacon_rx(st, p, typ == EV_BEACON_RX, t, app, g, a2)
+    if EV_ARRIVE in types:
+        m_arr = typ == EV_ARRIVE
+        t_spawns, cs = _arrive(st, p, m_arr, t, app, g, g_oh)
+        pushes.append((m_arr[:, None].expand_as(cs), t_spawns,
+                       EV_LOCAL_SPAWN, app[:, None].expand_as(cs), cs,
+                       p.cnts.expand_as(cs)))
+    beacon_m, beacon_t, spawn = [], [], None
+    if EV_LOCAL_SPAWN in types:
+        m_sp = typ == EV_LOCAL_SPAWN
+        n_steps = max(int(r[5]) for r in live_h
+                      if int(r[2]) == EV_LOCAL_SPAWN)
+        t_gmn, finish, pes, act = _spawn(st, p, m_sp, t, app, g, g_oh,
+                                         a2, n_steps, lengths)
+        spawn = (act, finish, EV_JOIN_EXIT, app[:, None].expand_as(pes),
+                 g[:, None].expand_as(pes), pes)
+        beacon_m.append(m_sp)
+        beacon_t.append(t_gmn)
+    if EV_JOIN_EXIT in types:
+        m_je = typ == EV_JOIN_EXIT
+        t_msg = _join_local(st, p, m_je, t, g, g_oh, a2)
+        beacon_m.append(m_je)
+        beacon_t.append(t_msg)
+    if beacon_m and p.k > 1:
+        if len(beacon_m) == 1:
+            fan = _beacon(st, p, beacon_m[0], g, g_oh, beacon_t[0])
+        else:
+            fan = _beacon(st, p, beacon_m[0] | beacon_m[1], g, g_oh,
+                          torch.where(beacon_m[0], *beacon_t))
+        if fan is not None:
+            push, t_arr, load = fan
+            pushes.append((push, t_arr, EV_BEACON_RX,
+                           g[:, None].expand_as(t_arr),
+                           p.ar_k.expand_as(t_arr),
+                           load[:, None].expand_as(t_arr)))
+    if spawn is not None:
+        pushes.append(spawn)
+    if EV_JOIN_EXIT in types:
+        _join_forward(st, p, m_je, t_msg, app, g)
+    # pop, then the pushes (the popped slot is free)
+    st["ev_time"] = torch.where(
+        live[:, None] & (p.ar_slot == slot[:, None]), INF, st["ev_time"])
+    evq = -live.to(I32)
+    for mask, times, typ_new, a0, a1, a2_new in pushes:
+        drop = _bulk_push(st, p, mask, times, typ_new, a0, a1, a2_new)
+        evq = evq + mask.sum(1) - drop
+    st["evq_len"] += evq
 
 
 def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
@@ -252,52 +390,10 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         if not live_h:
             break
         types = {int(r[2]) for r in live_h}
-        t = t[:, 0]
-        live = t < INF
-        typ = torch.where(live, typ[:, 0], -1)
-        app, g, a2 = a.to(torch.int64).unbind(1)
-        g_oh = p.ar_k == g[:, None]
-        st["evq_peak"] = torch.where(
-            live, torch.maximum(st["evq_peak"], st["evq_len"]),
-            st["evq_peak"])
-        st["events_processed"] += live
-        pushes = []
-        if EV_ARRIVE in types:
-            m_arr = typ == EV_ARRIVE
-            t_spawns, cs = _arrive(st, p, m_arr, t, app, g, g_oh)
-            pushes.append((m_arr, m_arr[:, None].expand_as(cs), t_spawns,
-                           EV_LOCAL_SPAWN, cs, p.cnts.expand_as(cs), p.ns))
-        beacon_m, beacon_t = [], []
-        if EV_LOCAL_SPAWN in types:
-            m_sp = typ == EV_LOCAL_SPAWN
-            n_steps = max(int(r[5]) for r in live_h
-                          if int(r[2]) == EV_LOCAL_SPAWN)
-            t_gmn, finish, pes, act = _spawn(st, p, m_sp, t, app, g, g_oh,
-                                             a2, n_steps, lengths)
-            pushes.append((m_sp, act, finish, EV_JOIN_EXIT,
-                           g[:, None].expand_as(pes), pes, a2))
-            beacon_m.append(m_sp)
-            beacon_t.append(t_gmn)
-        if EV_JOIN_EXIT in types:
-            m_je = typ == EV_JOIN_EXIT
-            t_msg = _join_local(st, p, m_je, t, g, g_oh, a2)
-            beacon_m.append(m_je)
-            beacon_t.append(t_msg)
-        if beacon_m and p.k > 1:
-            if len(beacon_m) == 1:
-                _beacon(st, p, beacon_m[0], g, g_oh, beacon_t[0])
-            else:
-                _beacon(st, p, beacon_m[0] | beacon_m[1], g, g_oh,
-                        torch.where(beacon_m[0], *beacon_t))
-        if EV_JOIN_EXIT in types:
-            _join_forward(st, p, m_je, t_msg, app, g)
-        # pop, then each pushing type's batch (the popped slot is free)
-        st["ev_time"] = torch.where(
-            live[:, None] & (p.ar_slot == slot[:, None]), INF, st["ev_time"])
-        evq = -live.to(I32)
-        for m, mask, times, typ_new, a1, a2_new, n_new in pushes:
-            drop = _bulk_push(st, p, mask, times, typ_new,
-                              app[:, None].expand_as(times), a1, a2_new)
-            evq = evq + torch.where(m, n_new - drop, 0)
-        st["evq_len"] += evq
+        # the step's span in a profile (chip_smoke.py phase fabrics):
+        # steps whose every live lane delivers a beacon, and the rest
+        with torch.profiler.record_function(
+                "lanes.step_rx" if types == {EV_BEACON_RX}
+                else "lanes.step"):
+            _step(st, p, types, live_h, t, slot, typ, a, lengths)
     return st

@@ -4,10 +4,12 @@ The paper's TLM (Sec 5): k GMNs that serialize mapping decisions, m PEs
 with FCFS queues, one global bus and k local buses, two-stage task
 mapping (Sec 4.1), status beacons (Sec 4.2) and join barriers (Tab 2).
 
-This slice ports the reference's golden configuration: the ``ideal``
-fabric, the ``linear`` event queue, ``batch_pop=1``, no faults, no
-trace and ``record_s1=False``.  Any other value raises
-``NotImplementedError`` naming its ROADMAP item.
+Ported: the four fabrics of ``core/transport`` (``ideal``,
+``shared_bus``, ``hier_tree``, ``mesh2d``, with per-receiver BEACON_RX
+deliveries off ``ideal``), the ``linear`` event queue with
+``batch_pop=1``, and ``record_s1``.  Other queues, ``batch_pop > 1``,
+faults and the trace raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 How the loop runs.  The reference is one ``lax.while_loop``; here the
 loop is Python and every state tensor lives on the device.  Each
@@ -25,7 +27,9 @@ elements and rows, which saves a copy of each leaf per event.  A
 handler mutates the state and returns its *staged record* — the event
 pushes and the deferred view-row write that the reference's handlers
 return from inside ``lax.switch`` — and the loop applies it after the
-handler, in the reference's order (pop, then one bulk push).
+handler, in the reference's order (pop, then one bulk push: a
+beacon's k BEACON_RX rows, masked where it did not fire, before the
+handler's own events).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from repro_torch.device import resolve_device
 EV_ARRIVE = 0
 EV_LOCAL_SPAWN = 1
 EV_JOIN_EXIT = 2
+EV_BEACON_RX = 3
 
 F32, I32 = torch.float32, torch.int32
 
@@ -57,7 +62,7 @@ class SimShape:
     n_childs: int = 100          # child tasks per application
     queue_cap: int = 2048
     max_apps: int = 512
-    record_s1: bool = False      # stage-1 decision traces (not ported)
+    record_s1: bool = False      # record stage-1 decision traces (replay)
     queue_impl: str = "linear"   # only "linear" is ported
     batch_pop: int = 1           # only 1 is ported
 
@@ -91,7 +96,7 @@ class SimKnobs(NamedTuple):
     c_join: torch.Tensor         # f32, GMN barrier-decrement processing
     dn_th: torch.Tensor          # i32, beacon drift threshold
     T_b: torch.Tensor            # f32, beacon period/deadline
-    c_hop: torch.Tensor          # f32, per-hop mesh latency (unused: ideal)
+    c_hop: torch.Tensor          # f32, per-hop mesh latency (mesh2d)
     susp_mult: torch.Tensor      # f32, failure-detector multiplier (unused)
     retry_after: torch.Tensor    # f32, re-beacon delay (unused)
 
@@ -179,17 +184,12 @@ def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
     if shape.batch_pop != 1:
         raise NotImplementedError(
             "batch_pop > 1 is not ported yet (ROADMAP item 5.2)")
-    if shape.record_s1:
-        raise NotImplementedError(
-            "record_s1 (serving replay traces) is not ported yet "
-            "(ROADMAP item 10)")
     if faults is not None:
         raise NotImplementedError(
             "fault schedules are not ported yet (ROADMAP item 8)")
     if trace is not None:
         raise NotImplementedError(
             "in-loop tracing is not ported yet (ROADMAP item 9)")
-    T.require_ported(topology)
     P.mapping_policy(policy.mapping)
     P.beacon_policy(policy.beacon)
 
@@ -208,7 +208,18 @@ class _Ctx:
         self.device = device
         knobs = knobs.to(device)
         self.c_b, self.c_s, self.c_join = knobs.c_b, knobs.c_s, knobs.c_join
-        self.dn_th, self.T_b = knobs.dn_th, knobs.T_b
+        self.dn_th, self.T_b, self.c_hop = knobs.dn_th, knobs.T_b, knobs.c_hop
+        self.record_s1 = shape.record_s1
+        # the mesh's hop table, in f32 (the reference's astype before
+        # the product with c_hop)
+        self.hops = torch.tensor(T.mesh_hops(shape.k), dtype=F32,
+                                 device=device)
+        self.rx_on = topology.kind != "ideal"
+        self.shared = topology.kind == "shared_bus"
+        self.ar_k = torch.arange(shape.k, device=device)
+        self.not_own = self.ar_k[None, :] != self.ar_k[:, None]
+        self.rx_typ = torch.full((shape.k,), EV_BEACON_RX, dtype=I32,
+                                 device=device)
         # f32 tensor times the static float, as the reference's traced
         # ``knobs.c_s * _log2_levels(k)``
         self.sel_global = knobs.c_s * _log2_levels(shape.k)
@@ -222,6 +233,8 @@ class _Ctx:
                                   for i in range(self.ns)], dtype=I32,
                                  device=device)
         self.one_i32 = torch.ones((1,), dtype=I32, device=device)
+        self.ones_b = torch.ones((max(self.n_childs, self.ns),),
+                                 dtype=torch.bool, device=device)
 
 
 def make_state(p, device):
@@ -233,7 +246,7 @@ def make_state(p, device):
     def inf(shape):
         return torch.full(shape, INF, dtype=F32, device=device)
 
-    return {
+    st = {
         # event queue (slot-recycled)
         "ev_time": inf((Q,)),
         "ev_type": z((Q,), I32),
@@ -251,7 +264,9 @@ def make_state(p, device):
         "last_bcast_t": z((k,)),
         "rr_ptr": z((k,), I32),                # per-GMN decision counter
         "beacons_tx": z((), I32),
-        # in-flight beacon matrix (stays INF on the ideal fabric)
+        # in-flight beacon matrix [src, rcv]: the latest pending arrival
+        # per pair (INF = none; stays INF on the ideal fabric), the
+        # per-receiver deliveries and each fired beacon's delivery skew
         "bcn_t": inf((k, k)),
         "beacons_rx": z((), I32),
         "bcn_skew_sum": z(()),
@@ -271,6 +286,16 @@ def make_state(p, device):
         "evq_len": z((), I32),
         "evq_peak": z((), I32),
     }
+    if p.record_s1:
+        # stage-1 decision trace (serving/replay.py): the view each
+        # decision saw, the shared age vector, the choices, the
+        # round-robin pointer before the fork and the arrival tick
+        st |= {"dec_view": z((A, p.ns, k), I32),
+               "dec_age": z((A, k)),
+               "dec_choice": z((A, p.ns), I32),
+               "dec_rr0": z((A,), I32),
+               "dec_t": inf((A,))}
+    return st
 
 
 def _take(arr, i):
@@ -288,10 +313,11 @@ def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
     """Insert the masked entries of an event batch, exactly as pushing
     them one by one in order: the j-th masked entry takes the j-th free
     queue slot (one pass over the queue: cumsum of the free mask plus a
-    stable argsort that brings the pushed entries first).  Works along
-    the last axis: a leading lane axis (``core/lanes.py``) pushes each
-    lane's batch into its own queue.  Returns the entries dropped for
-    want of a free slot (per lane)."""
+    stable argsort that brings the pushed entries first).  ``typ`` is one
+    event type or an int32 tensor of one per entry.  Works along the last
+    axis: a leading lane axis (``core/lanes.py``) pushes each lane's
+    batch into its own queue.  Returns the entries dropped for want of a
+    free slot (per lane)."""
     n = times.shape[-1]
     free = st["ev_time"] >= INF
     free_rank = torch.cumsum(free, -1) - 1     # slot's rank among free
@@ -306,7 +332,8 @@ def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
         return x.gather(-1, order).gather(-1, idx)
 
     ct = col(times)
-    ctyp = torch.full_like(st["ev_type"], typ)
+    ctyp = col(typ) if isinstance(typ, torch.Tensor) \
+        else torch.full_like(st["ev_type"], typ)
     ca = torch.stack([col(a0.to(I32)), col(a1.to(I32)), col(a2.to(I32))], -1)
     write = free & (free_rank < cnt)
     st["ev_time"] = torch.where(write, ct, st["ev_time"])
@@ -328,38 +355,83 @@ def _init_queue(st, p, arrivals, arrival_gmns, sim_len):
     st["evq_peak"] = st["evq_len"].clone()
 
 
-def _staged(p, h_t, h_typ, h_a0, h_a1, h_a2, vrow_i=None, vrow=None):
+def _staged(p, h_t, h_typ, h_a0, h_a1, h_a2, vrow_i=None, vrow=None,
+            fan=None):
     """One handler's staged record: its event pushes (all of them taken;
     the reference pads to a fixed width with masked-off rows, which
-    change no slot assignment) and the deferred view-row write of
-    _handle_arrive.  Under the ideal fabric there is no beacon fan-out
-    segment."""
+    change no slot assignment), the deferred view-row write of
+    _handle_arrive, and the beacon fan-out of a non-ideal fabric
+    (:func:`_beacon_fanout`; None when no beacon check ran): k masked
+    BEACON_RX pushes that come before the handler's own, and the sender's
+    bcn_t row and own view cell."""
     return {"push_t": h_t, "push_typ": h_typ, "push_a0": h_a0,
             "push_a1": h_a1, "push_a2": h_a2, "vrow_i": vrow_i,
-            "vrow": vrow}
+            "vrow": vrow, "fan": fan}
 
 
-def _stage_none(p):
-    """The no-push staged record."""
-    return _staged(p, None, None, None, None, None)
+def _stage_none(p, fan=None):
+    """The record of a handler that pushes nothing of its own."""
+    return _staged(p, None, None, None, None, None, fan=fan)
 
 
 def _apply_staged(st, p, stg):
-    """Apply a staged record's deferred view-row write."""
+    """Apply a staged record's deferred matrix writes: the view row of
+    an ARRIVE, and where a beacon fired, the sender's in-flight row and
+    its own view cell."""
     if stg["vrow_i"] is not None:
         st["view"][stg["vrow_i"]] = stg["vrow"]
+    fan = stg["fan"]
+    if fan is not None:
+        g, on = fan["g"], fan["on"]
+        st["bcn_t"][g] = fan["brow"]
+        st["view"][g, g] = torch.where(on, fan["load"], st["view"][g, g])
+        st["view_t"][g, g] = torch.where(on, fan["t_tx"],
+                                         st["view_t"][g, g])
+
+
+def _commit(st, p, slot, stg):
+    """Pop the event, then push the record's fan-out and the handler's
+    own events in one batch, in that order (the popped slot is free
+    again), and keep the live-entry count."""
+    st["ev_time"][slot].fill_(INF)
+    fan, times = stg["fan"], stg["push_t"]
+    n = 0 if times is None else times.shape[0]
+    if fan is None:
+        if times is None:
+            st["evq_len"] -= 1
+            return
+        drop = _bulk_push(st, p, p.ones_b[:n], times,
+                          stg["push_typ"], stg["push_a0"], stg["push_a1"],
+                          stg["push_a2"])
+        st["evq_len"] += n - 1 - drop
+        return
+    cols = [fan["mask"], fan["t"], p.rx_typ,
+            torch.full((p.k,), fan["g"], dtype=I32, device=p.device),
+            p.ar_k, fan["load"].expand(p.k)]
+    if times is not None:
+        own = [p.ones_b[:n], times,
+               torch.full((n,), stg["push_typ"], dtype=I32, device=p.device),
+               stg["push_a0"], stg["push_a1"], stg["push_a2"]]
+        cols = [torch.cat([f, h.to(f.dtype)]) for f, h in zip(cols, own)]
+    drop = _bulk_push(st, p, *cols)
+    st["evq_len"] += fan["mask"].sum() + (n - 1) - drop
 
 
 def _maybe_beacon(st, p, g, t):
     """Status broadcast check (Sec 4.2): the selected BeaconPolicy, and
-    the k > 1 gate (a single cluster never broadcasts)."""
+    the k > 1 gate (a single cluster never broadcasts).  Returns the
+    fan-out record of a non-ideal fabric (None on ``ideal``, whose
+    delivery is atomic)."""
     if p.k == 1:
-        return
+        return None
     load_g = st["loads"][g].sum()
     delta = torch.abs(load_g - st["last_bcast"][g])
     due = p.beacon_due(delta, t, st["last_bcast_t"][g], dn_th=p.dn_th,
                        T_b=p.T_b)
+    if p.rx_on:
+        return _beacon_fanout(st, p, g, t, due, load_g)
     _fire_beacon(st, p, g, t, due, load_g)
+    return None
 
 
 def _fire_beacon(st, p, g, t, fire, load_g):
@@ -380,6 +452,51 @@ def _fire_beacon(st, p, g, t, fire, load_g):
                                       0.0)
 
 
+def _beacon_fanout(st, p, g, t, fire, load_g):
+    """A beacon from ``g`` over a non-ideal fabric, masked by ``fire`` (a
+    device tensor: where it is false every update below writes the value
+    it read, and the k fan-out rows are masked off and take no slot).
+    The fabric gives each receiver its arrival time; the k BEACON_RX
+    pushes and the bcn_t/own-view writes return in the fan-out record.
+    Arrivals from one source to one receiver increase in send order, so
+    ``bcn_t`` keeps the latest pending arrival per pair and drains on
+    the last one."""
+    t_tx, t_arr, st["gbus_free"], st["lbus_free"] = T.beacon_tx(
+        p.topology, g, t, fire, gbus=st["gbus_free"], lbus=st["lbus_free"],
+        c_b=p.c_b, c_hop=p.c_hop, hops=p.hops, k=p.k)
+    rcv = p.not_own[g]                           # receiver mask
+    push = fire & rcv
+    load = load_g.to(I32)
+    st["last_bcast"][g] = torch.where(fire, load, st["last_bcast"][g])
+    st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
+    fire_i = fire.to(I32)
+    st["beacons_tx"] += fire_i
+    st["mgmt_msgs"] += fire_i * (p.k - 1)
+    st["mgmt_latency"] += torch.where(push, t_arr - t, 0.0).sum()
+    # delivery skew: the latest minus the earliest receiver's arrival
+    spread = torch.clamp(torch.where(rcv, t_arr, -INF).max()
+                         - torch.where(rcv, t_arr, INF).min(), min=0.0)
+    spread = torch.where(fire, spread, 0.0)
+    st["bcn_skew_sum"] += spread
+    st["bcn_skew_max"] = torch.maximum(st["bcn_skew_max"], spread)
+    return {"mask": push, "t": t_arr, "g": g, "load": load, "on": fire,
+            "t_tx": t_tx,
+            "brow": torch.where(push, t_arr, st["bcn_t"][g])}
+
+
+def _handle_beacon_rx(st, p, t, src, rcv, load):
+    """The beacon from GMN ``src`` reaches receiver ``rcv`` carrying load
+    summary ``load`` (host ints from the event record).  Every delivery
+    applies; the in-flight entry clears only when its latest tracked
+    arrival lands."""
+    cur = st["bcn_t"][src, rcv]
+    st["bcn_t"][src, rcv] = torch.where(cur == t, INF, cur)
+    st["view"][rcv, src].fill_(load)
+    st["view_t"][rcv, src] = t
+    st["beacons_rx"] += 1
+    return _stage_none(p)
+
+
 def _handle_arrive(st, p, t, app, g, _unused, lengths):
     """Stage 1: expand the fork tree at GMN g, fan out LOCAL_SPAWN msgs."""
     n, ns = p.n_childs, p.ns
@@ -395,15 +512,17 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
 
     view, gbus, lbus = own_view, st["gbus_free"], st["lbus_free"]
     rr = st["rr_ptr"][g]
-    cs, t_arrs, lats, remotes = [], [], [], []
+    rr0 = rr.clone() if p.record_s1 else None     # rr_ptr[g] is written below
+    cs, t_arrs, lats, remotes, views = [], [], [], [], []
     for i in range(ns):
+        views.append(view)
         c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
         # optimistic local bookkeeping of the task-start just sent
         view = _add1(view, c, p.cnts[i])
         is_remote = c != g
         t_arr, gbus, lbus, lat = T.unicast(
             p.topology, g, c, t_tree, is_remote, gbus=gbus, lbus=lbus,
-            c_b=p.c_b)
+            c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
         rr = rr + 1
         cs.append(c)
         t_arrs.append(t_arr)
@@ -418,20 +537,28 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
     # tensor copies it from the host and waits for the card
     st["app_remaining"][app].fill_(n)
     st["app_arrive"][app] = t
+    cs = torch.stack(cs)
+    if p.record_s1:
+        st["dec_view"][app] = torch.stack(views)
+        st["dec_age"][app] = age
+        st["dec_choice"][app] = cs
+        st["dec_rr0"][app] = rr0
+        st["dec_t"][app] = t
     return _staged(p, torch.stack(t_arrs), EV_LOCAL_SPAWN,
                    torch.full((ns,), app, dtype=I32, device=p.device),
-                   torch.stack(cs), p.cnts, vrow_i=g, vrow=view)
+                   cs, p.cnts, vrow_i=g, vrow=view)
 
 
 def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
     """Stage 2: GMN g maps cnt childs onto its PEs (exact local view);
-    each task-start rides the cluster's local bus.  The reference scans
-    a static n_max >= cnt steps whose tail is masked off (exact no-ops);
-    the count is a host int here, so the loop takes cnt steps."""
+    each task-start rides the cluster's local bus (the one bus under
+    ``shared_bus``).  The reference scans a static n_max >= cnt steps
+    whose tail is masked off (exact no-ops); the count is a host int
+    here, so the loop takes cnt steps."""
     t_eff = t
     pe_free, loads = st["pe_free"][g], st["loads"][g]    # row views
     t_cpu = torch.maximum(t_eff, st["gmn_free"][g])
-    bus = st["lbus_free"][g]
+    bus = st["gbus_free"] if p.shared else st["lbus_free"][g]
     pes, finishes, lats = [], [], []
     for i in range(cnt):
         t_cpu = t_cpu + p.sel_local
@@ -446,35 +573,43 @@ def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
         finishes.append(finish)
         lats.append(t_msg - t_cpu)
     st["gmn_free"][g] = t_cpu
-    st["lbus_free"][g] = bus
+    if p.shared:
+        st["gbus_free"] = bus
+    else:
+        st["lbus_free"][g] = bus
     st["mgmt_msgs"] += cnt
     st["mgmt_latency"] += torch.stack(lats).sum()
     st["mgmt_proc"] += t_cpu - t_eff
 
-    _maybe_beacon(st, p, g, t_cpu)
+    fan = _maybe_beacon(st, p, g, t_cpu)
 
     return _staged(p, torch.stack(finishes), EV_JOIN_EXIT,
                    torch.full((cnt,), app, dtype=I32, device=p.device),
                    torch.full((cnt,), g, dtype=I32, device=p.device),
-                   torch.stack(pes))
+                   torch.stack(pes), fan=fan)
 
 
 def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
-    """A child finished: join-exit message over its cluster's local bus,
-    load decrement, beacon check, forward to the barrier GMN (the
-    application's arrival GMN) and barrier decrement."""
-    t_msg = torch.maximum(t, st["lbus_free"][g]) + p.c_b
-    st["lbus_free"][g] = t_msg
+    """A child finished: join-exit message over its cluster's local bus
+    (the one bus under ``shared_bus``), load decrement, beacon check,
+    forward to the barrier GMN (the application's arrival GMN) and
+    barrier decrement."""
+    if p.shared:
+        t_msg = torch.maximum(t, st["gbus_free"]) + p.c_b
+        st["gbus_free"] = t_msg
+    else:
+        t_msg = torch.maximum(t, st["lbus_free"][g]) + p.c_b
+        st["lbus_free"][g] = t_msg
     st["loads"][g, pe] -= 1
     st["mgmt_msgs"] += 1
     st["mgmt_latency"] += t_msg - t
-    _maybe_beacon(st, p, g, t_msg)
+    # the beacon's bus grant comes before the forward's
+    fan = _maybe_beacon(st, p, g, t_msg)
     pg = int(parent_gmns[app])
     remote = pg != g
-    t_fwd, gbus, lbus, lat = T.forward(
+    t_fwd, st["gbus_free"], st["lbus_free"], lat = T.forward(
         p.topology, g, pg, t_msg, remote, gbus=st["gbus_free"],
-        lbus=st["lbus_free"], c_b=p.c_b)
-    st["gbus_free"], st["lbus_free"] = gbus, lbus
+        lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
     st["mgmt_msgs"] += int(remote)
     st["mgmt_latency"] += lat
     t_bar = torch.maximum(t_fwd, st["gmn_free"][pg]) + p.c_join
@@ -483,7 +618,7 @@ def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
     rem = st["app_remaining"][app] - 1
     st["app_remaining"][app] = rem
     st["app_done"][app] = torch.where(rem == 0, t_bar, st["app_done"][app])
-    return _stage_none(p)
+    return _stage_none(p, fan)
 
 
 def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
@@ -508,6 +643,7 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                                                          lengths),
         EV_JOIN_EXIT: lambda t, a: _handle_join_exit(st, p, t, *a, lengths,
                                                      parent_gmns),
+        EV_BEACON_RX: lambda t, a: _handle_beacon_rx(st, p, t, *a),
     }
     while True:
         slot = torch.argmin(st["ev_time"]).reshape(1)
@@ -524,18 +660,7 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         st["events_processed"] += 1
         stg = handlers[int(typ)](t, (int(a0), int(a1), int(a2)))
         _apply_staged(st, p, stg)
-        # pop, then the handler's pushes (the popped slot is free again)
-        st["ev_time"][int(slot_h)].fill_(INF)
-        if stg["push_t"] is not None:
-            n = stg["push_t"].shape[0]
-            drop = _bulk_push(st, p, torch.ones((n,), dtype=torch.bool,
-                                                device=dev),
-                              stg["push_t"], stg["push_typ"],
-                              stg["push_a0"], stg["push_a1"],
-                              stg["push_a2"])
-            st["evq_len"] += n - 1 - drop
-        else:
-            st["evq_len"] -= 1
+        _commit(st, p, int(slot_h), stg)
     return st
 
 

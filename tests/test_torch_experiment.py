@@ -177,15 +177,25 @@ def test_deprecated_shims_match_reference():
             rp.shape, RSW.knob_batch(dn_th=(2, 4)),
             RW.interference_batch(rp, seeds=(0,), sim_len=1e5),
             policies=[RE.SimPolicy(*x) for x in pols], sim_len=1e5)
-        topo = TSW.sweep_topologies(p.shape, TSW.knob_batch(), wl,
-                                    topologies=("ideal",), sim_len=1e5,
-                                    device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5.3"):
-            TSW.sweep_topologies(p.shape, TSW.knob_batch(), wl,
-                                 topologies=("ideal", "mesh2d"),
-                                 sim_len=1e5, device="cpu")
+        topo = TSW.sweep_topologies(p.shape, TSW.knob_batch(dn_th=(2, 4)),
+                                    wl, sim_len=1e5, device="cpu")
+        want_topo = RSW.sweep_topologies(
+            rp.shape, RSW.knob_batch(dn_th=(2, 4)),
+            RW.interference_batch(rp, seeds=(0,), sim_len=1e5),
+            sim_len=1e5)
     assert set(got) == set(want)
     for key in want:
         assert np.array_equal(got[key]["app_done"],
                               np.asarray(want[key]["app_done"]))
-    assert set(topo) == {"ideal"}
+    # every fabric, leaf for leaf
+    assert set(topo) == set(want_topo) == {"ideal", "shared_bus",
+                                           "hier_tree", "mesh2d"}
+    for kind, w in want_topo.items():
+        assert set(topo[kind]) == set(w)
+        for key in w:
+            if key == "mgmt_latency":
+                assert np.allclose(topo[kind][key], np.asarray(w[key]),
+                                   rtol=1e-5), (kind, key)
+            else:
+                assert np.array_equal(topo[kind][key], np.asarray(w[key])), \
+                    (kind, key)

@@ -1,0 +1,123 @@
+"""The port's event loops on every fabric against the reference on the
+CPU: ``sim.run`` and ``sweep(mode="vmap")`` (the lane loop) leaf for
+leaf on each fabric at k in {1, 4, 16}, ``ExperimentSpec.run`` over a
+topology axis in both modes, and the frozen fabric digests
+(``goldens.FABRICS``).  Every non-ideal run also holds beacon
+conservation and an empty in-flight matrix at its end.
+
+Every leaf is held bitwise except ``mgmt_latency``, at rtol=1e-5 (see
+tests/test_torch_sim.py)."""
+import jax
+import numpy as np
+import pytest
+
+from repro.core import sweep as RSW
+from repro.core import workloads as RW
+from repro.core.experiment import ExperimentSpec as RSpec
+from repro.core.experiment import WorkloadSpec as RWSpec
+from repro.core.sim import SimParams as RefParams
+from repro.core.sim import run as ref_run
+from repro_torch.core import goldens as G
+from repro_torch.core import sweep as TSW
+from repro_torch.core import workloads as TW
+from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+from repro_torch.core.sim import SimParams
+from repro_torch.core.sim import run as port_run
+from repro_torch.core.transport import TOPOLOGIES
+from test_torch_sim import _assert_states_equal
+
+SMALL = dict(m=16, n_childs=16, max_apps=32, queue_cap=512)
+
+
+def _conserved(st, k, topology):
+    """beacons_rx == (k-1) * beacons_tx and bcn_t empty, per lane."""
+    tx = np.asarray(st["beacons_tx"]).ravel()
+    rx = np.asarray(st["beacons_rx"]).ravel()
+    if topology == "ideal" or k == 1:
+        assert (rx == 0).all()
+    else:
+        assert (rx == (k - 1) * tx).all() and tx.sum() > 0
+    assert (np.asarray(st["bcn_t"]) >= 1e17).all()
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_single_loop_matches_reference(topology, k):
+    kw = dict(SMALL, k=k, topology=topology, dn_th=2, c_hop=1.5)
+    rp, tp = RefParams(**kw), SimParams(**kw)
+    want = jax.device_get(ref_run(
+        rp, *RW.interference(rp, sim_len=3e5, seed=1), 3e5))
+    got = port_run(tp, *TW.interference(tp, sim_len=3e5, seed=1), 3e5,
+                   device="cpu")
+    _assert_states_equal(got, want)
+    _conserved(want, k, topology)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_lane_loop_matches_reference(topology, k):
+    """Lanes that differ in dn_th, c_b and c_hop, two seeds."""
+    kw = dict(SMALL, k=k)
+    rp, tp = RefParams(**kw), SimParams(**kw)
+    knobs = dict(dn_th=(2, 8), c_b=(8.0, 3.0), c_hop=(2.0, 0.5))
+    want = jax.device_get(RSW.sweep(
+        rp.shape, RSW.knob_batch(**knobs),
+        RW.interference_batch(rp, seeds=(0, 1), sim_len=2e5), 2e5,
+        topology=topology))
+    got = TSW.sweep(tp.shape, TSW.knob_batch(**knobs),
+                    TW.interference_batch(tp, seeds=(0, 1), sim_len=2e5),
+                    2e5, mode="vmap", topology=topology, device="cpu")
+    _assert_states_equal(got, want)
+    _conserved(want, k, topology)
+
+
+def _spec(pkg_spec, pkg_wl, base):
+    return pkg_spec(base=base, shapes=(2, 4), topologies=TOPOLOGIES,
+                    knobs={"dn_th": (1, 4)},
+                    workloads=(pkg_wl("interference", seeds=(0, 1)),),
+                    sim_len=1e5)
+
+
+@pytest.mark.parametrize("mode", ["seq", "vmap"])
+def test_experiment_topology_axis_matches_reference(mode):
+    want = _spec(RSpec, RWSpec, RefParams(**SMALL)).run()
+    got = _spec(ExperimentSpec, WorkloadSpec, SimParams(**SMALL)) \
+        .run(mode=mode, device="cpu")
+    assert got.mode == mode and len(got.groups) == len(want.groups) == 8
+    for k in (2, 4):
+        for topo in TOPOLOGIES:
+            w = want.state(k=k, topology=topo)
+            g = got.state(k=k, topology=topo)
+            assert set(g) == set(w)
+            for key in w:
+                wv, gv = np.asarray(w[key]), np.asarray(g[key])
+                assert gv.dtype == wv.dtype, key
+                if key == "mgmt_latency":
+                    assert np.allclose(gv, wv, rtol=1e-5), key
+                else:
+                    assert np.array_equal(gv, wv), (k, topo, key)
+            _conserved(w, k, topo)
+
+
+def test_fabric_goldens_shape():
+    """The frozen digests cover every (sim_len, k, fabric) of the card's
+    phase.  Each non-ideal entry whose queue dropped nothing conserves
+    beacons; where the 8,192-slot queue overflows (shared_bus at k=32)
+    the missing deliveries are among the dropped events."""
+    assert set(G.FABRICS) == set(G.FABRIC_SIM_LENS)
+    cap = G.FABRIC_PARAMS["queue_cap"]
+    for sim_len, by_k in G.FABRICS.items():
+        assert set(by_k) == set(G.FABRIC_KS)
+        for k, by_topo in by_k.items():
+            assert set(by_topo) == set(G.FABRIC_TOPOLOGIES)
+            for topo, row in by_topo.items():
+                tx, rx, drop, peak = (np.array(row[key]) for key in (
+                    "beacons_tx", "beacons_rx", "dropped", "evq_peak"))
+                assert len(tx) == len(G.FABRIC_SEEDS)
+                if topo == "ideal":
+                    assert (rx == 0).all() and (drop == 0).all()
+                    continue
+                full = (k - 1) * tx
+                assert ((drop == 0) & (rx == full)
+                        | (drop > 0) & (peak == cap) & (rx < full)
+                        & (full <= rx + drop)).all(), (sim_len, k, topo)

@@ -73,7 +73,6 @@ def test_queue_overflow_drops_match_reference():
 
 @pytest.mark.parametrize("change,item", [
     (dict(queue_impl="tree"), "5.2"), (dict(batch_pop=2), "5.2"),
-    (dict(record_s1=True), "10"), (dict(topology="hier_tree"), "5.3"),
     (dict(mapping="avoid_suspected"), "8"), (dict(beacon="heartbeat"), "8"),
 ])
 def test_unported_configurations_raise(change, item):
