@@ -50,9 +50,10 @@ any failure ends the run with a non-zero exit:
             run again under ``torch.profiler``: kernels per event and
             device kernel time against wall time (the event loop's
             device busy share);
-10. syncs   the same run under torch's sync debug mode, which warns at
-            every call that waits for the card: all but a few set-up
-            syncs must come from the loop's one packed read per event;
+10. syncs   the profiled run, under torch's sync debug mode as well,
+            which warns at every call that waits for the card: all but a
+            few set-up syncs must come from the loop's one packed read
+            per event;
 11. sweep   the design-space engine, every sweep in ``"vmap"`` mode
             (the lane-batched loop of ``core/lanes.py``): the golden
             grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
@@ -66,45 +67,68 @@ any failure ends the run with a non-zero exit:
             sim_len 1e5 its device kernels and syncs per step; the
             ``scheduler_overhead`` runner, whose K1 assignments must
             equal the plain version's;
-12. fabrics  the four fabrics (ideal, shared_bus, hier_tree, mesh2d)
-            through the lane loop at the paper tier of
-            ``topology_frontier`` (m=256, n_childs=100, max_apps=64,
-            queue_cap=8192, c_s=8, dn_th=4, interference seeds 1-2 at
-            pair_period 14,000, k in {16, 32}: 8 groups of 2 lanes) at
-            sim_len 1e6 — or 2.5e5 (34 of the 64 applications), said
-            in the line, when the k=16 hier_tree group's rate at 2.5e5
-            would put 1e6 over the phase's 300 s — against the JAX
+12. fabrics  ``shared_bus`` and ``hier_tree`` at k=16 and ``shared_bus``
+            at k=32 through the lane loop on the linear queue at the
+            paper tier of ``topology_frontier`` (m=256, n_childs=100,
+            max_apps=64, queue_cap=8192, c_s=8, dn_th=4, interference
+            seeds 1-2 at pair_period 14,000: 3 groups of 2 lanes;
+            ``mesh2d``, and ``hier_tree`` at k=32, run in phase 13 on the
+            tree queue): ``hier_tree`` at k=16 at sim_len 2.5e5 (34 of
+            the 64 applications), then the rest and the seq runs at 1e6
+            — or 1e5, said in the line, when the ``hier_tree`` group's
+            rate would put 1e6 over the phase's 150 s — against the JAX
             reference's frozen digests (``goldens.FABRICS``), with
             ``beacons_rx == (k-1) * beacons_tx`` and an empty ``bcn_t``
-            on every non-ideal lane whose queue dropped nothing (where
-            the 8,192-slot queue overflows, as ``shared_bus`` at k=32
-            does in the reference too: every missing delivery counted in
-            ``dropped`` and ``evq_peak`` at the capacity), and
-            ``bcn_skew_max > 0`` on every non-ideal lane (0 on
-            ``ideal``); seed 1 of each k=16
-            fabric in ``"seq"`` mode, equal to its vmap lane; events/s of
-            each group in both modes; and at sim_len 5e4 (k=16,
-            ``hier_tree``) device kernels and busy time per step, split
-            into steps where every lane delivers a beacon and the rest
-            (the loop's step spans under ``torch.profiler``), device busy
-            share and host reads per step;
-13. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+            on every lane whose queue dropped nothing (where the
+            8,192-slot queue overflows, every missing delivery counted
+            in ``dropped`` and ``evq_peak`` at the capacity), and
+            ``bcn_skew_max > 0`` on every lane; seed 1 of ``shared_bus``,
+            ``hier_tree`` and ``mesh2d`` at k=16 in ``"seq"`` mode (the
+            single loop), equal to its vmap lane where the phase ran one
+            at its horizon and to the frozen digest's counters of its
+            lane; events/s of
+            each group in both modes; and at
+            sim_len 2e4 (``hier_tree``) device kernels and busy time per
+            step, split into steps where every lane delivers a beacon
+            and the rest (the loop's step spans under
+            ``torch.profiler``, lane steps 51-250), and host reads per
+            step;
+13. queues  the tree and calendar event queues and the same-timestamp
+            BEACON_RX batch window (``batch_pop``) through the lane
+            loop at the same tier, seeds 1-2: at k=16 on ``hier_tree`` every
+            queue with batch_pop 1 at
+            sim_len 2e4 equal to the linear queue leaf for leaf (but
+            the queue's own leaves), and with batch_pop 64 at 2.5e5
+            equal to ``goldens.FABRICS``; the tree queue with batch_pop
+            64 at k=32 on ``hier_tree`` and ``mesh2d`` equal to
+            ``goldens.FABRICS``; the tier's cut points: k=1 at 2.5e5
+            (linear queue), and k=256 (32,768 slots, tree/64) on
+            ``hier_tree`` and ``mesh2d`` at 1e5, equal to
+            ``goldens.CUTS``; conservation and
+            an empty ``bcn_t`` on every drop-free lane; seed 1 of the
+            k=16 tree/64 run in ``"seq"`` mode equal to its vmap lane;
+            steps and events/s of every run (the k=16 ones against phase
+            ``fabrics``' linear run at 2.5e5), and of each k=16 combo at
+            sim_len 2e4 (linear/1's from phase 12) the kernels, device
+            busy time and host reads a step, split by step kind;
+14. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
             forward on the card (K2, K3) against the same weights on
             the CPU (plain versions);
-14. lm_prefill the full-width 16-layer Jamba in bf16: one
+15. lm_prefill the full-width 16-layer Jamba in bf16: one
             ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
             twice and K3 14 times and give finite logits; then timed
             (tokens/s) and profiled (device time by kernel);
-15. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+16. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
 
 then the ``kernels`` line and, last, the ``{"ok": true, "device": ...}``
 line.  Each main path reads its own launch counts, zeroed just before
 it and read just after: the TLM path (phases 7-8: K1), the sweep
-(phase 11: K1, from ``scheduler_overhead``), the fabrics (phase 12,
-which launch none of the three kernels), the prefill (phase 14: K2, K3)
-and ``serve()`` (phase 15, whose decode steps are plain torch).  The
-comparison launches of phases 3-5 and 13 do not count.  Float32
+(phase 11: K1, from ``scheduler_overhead``), the fabrics (phase 12)
+and the queues (phase 13), which launch none of the three kernels, the
+prefill (phase 15: K2, K3) and ``serve()`` (phase 16, whose decode
+steps are plain torch).  The comparison launches of phases 3-5 and 14
+do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
@@ -527,7 +551,9 @@ def phase_mapper():
 def phase_profile():
     """Device busy share of the event loop at the paper point (sim_len
     1e6): CUDA kernel time over wall time, against the same run timed
-    without the profiler first."""
+    without the profiler first.  The profiled run is also under torch's
+    sync debug mode: returns its events and host syncs by line for
+    :func:`phase_syncs`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sim import run
@@ -538,11 +564,14 @@ def phase_profile():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = _check_paper(st, PROFILE_SIM_LEN, "profile")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = run(p, *wl, PROFILE_SIM_LEN)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st = run(p, *wl, PROFILE_SIM_LEN)
+            torch.cuda.synchronize()
+            return st, prof, time.perf_counter() - t0
+    (st, prof, wall_prof), lines = _sync_lines(profiled)
     _check_paper(st, PROFILE_SIM_LEN, "profile")
     # the raw kineto records: millions of them, too many to build the
     # profiler's Python event tree from
@@ -565,6 +594,7 @@ def phase_profile():
           "device_busy_share": busy_ns / 1e9 / wall,
           "device_busy_share_profiled": busy_ns / 1e9 / wall_prof,
           "top_kernels_us": [[n, ns / 1e3] for n, ns in top]})
+    return events, lines
 
 
 def _sync_lines(run):
@@ -586,14 +616,10 @@ def _sync_lines(run):
                         if "synchronizing" in str(r.message))
 
 
-def phase_syncs():
-    """Host syncs of the paper point's event loop (sim_len 1e6) under
-    torch's sync debug mode, which warns at every call that waits for
-    the card."""
-    from repro_torch.core.sim import run
-    p, wl = _paper_run(PROFILE_SIM_LEN)
-    st, lines = _sync_lines(lambda: run(p, *wl, PROFILE_SIM_LEN))
-    events = _check_paper(st, PROFILE_SIM_LEN, "syncs")
+def phase_syncs(events: int, lines):
+    """Host syncs of the paper point's event loop (sim_len 1e6, phase
+    profile's profiled run) under torch's sync debug mode, which warns
+    at every call that waits for the card."""
     read_line, per_read = lines.most_common(1)[0]
     others = sum(lines.values()) - per_read
     # one read per iteration, the last one seeing the empty queue
@@ -715,9 +741,9 @@ def phase_sweep() -> int:
 
     def count_run():
         return SW.sweep(p.shape, kn, wl_c, SWEEP_COUNT_SIM_LEN, mode="vmap")
-    st_c, n_kernels, busy_ns = _device_kernels(count_run)
+    (st_c, n_kernels, busy_ns), lines = _sync_lines(
+        lambda: _device_kernels(count_run))
     steps_c = int(st_c["events_processed"].max())
-    _, lines = _sync_lines(count_run)
     read_line, reads = lines.most_common(1)[0]
     others = sum(lines.values()) - reads
     # one read per step, the last one seeing every lane done
@@ -781,25 +807,18 @@ def phase_sweep() -> int:
 # The management fabrics
 # --------------------------------------------------------------------------
 
-FABRIC_BUDGET_S = 300.0        # the phase's share of TIME_LIMIT_S
-FABRIC_PROBE_SIM_LEN = 2.5e5   # the k=16 hier_tree probe, and the fallback
-FABRIC_COUNT_SIM_LEN = 5e4     # the horizon kernels per step are split at
-FABRIC_SEQ_K = 16              # seq runs seed 1 of each fabric at this k
+FABRIC_BUDGET_S = 150.0        # the phase's share of TIME_LIMIT_S
+FABRIC_PROBE_SIM_LEN = 2.5e5   # the k=16 hier_tree probe
+FABRIC_CUT_SIM_LEN = 1e5       # the other runs where 1e6 does not fit
+FABRIC_COUNT_SIM_LEN = 2e4     # the horizon kernels per step are split at
+# the groups run here (the script's time limit leaves no room for the
+# rest of FABRICS: mesh2d at k=16 and k=32, and hier_tree at k=32, run
+# in phase queues on the tree queue with batch_pop 64, against the same
+# digests; the ideal fabric is the paper point's, phases paper and sweep)
+FABRIC_GROUPS = ((16, "shared_bus"), (16, "hier_tree"), (32, "shared_bus"))
+FABRIC_SEQ_K = 16              # seq runs seed 1 of these fabrics at this k
+FABRIC_SEQ_TOPOLOGIES = ("shared_bus", "hier_tree", "mesh2d")
 STEP_SPANS = ("lanes.step_rx", "lanes.step")   # core/lanes.py's spans
-
-
-class _Frames:
-    """Several ResultFrames read as one, by ``state(k=, topology=)``."""
-
-    def __init__(self, frames):
-        self.groups = [g for f in frames for g in f.groups]
-
-    def state(self, k, topology):
-        hits = [g.state for g in self.groups
-                if (g.combo.shape.k, g.combo.topology.kind) == (k, topology)]
-        if len(hits) != 1:
-            raise KeyError((k, topology))
-        return hits[0]
 
 
 def _fabric_spec(ks, topologies, sim_len):
@@ -817,19 +836,45 @@ def _fabric_spec(ks, topologies, sim_len):
         sim_len=sim_len, mode="vmap")
 
 
-def _step_profile(run):
+# a count's profile: skip 50 lane steps, record the next 200
+COUNT_WINDOW = (50, 200)
+
+
+def _step_profile(run, skip=0, steps=None):
     """``(run(), by step kind, device events before the first step)``
-    under ``torch.profiler`` (host and card): each device event goes to
-    the step whose span (``core/lanes.py``) starts last before it; a
-    step's window holds its handlers and the next step's pop and read."""
+    under ``torch.profiler`` (host and card), recording lane steps
+    ``skip + 1`` to ``skip + steps`` (to the end with None): each device
+    event goes to the step whose span (``core/lanes.py``) starts last
+    before it; a step's window holds its handlers and the next step's
+    pop and read (but the last recorded step's)."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.core import lanes
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    step, done, on = lanes._step, [0], [False]
+
+    def windowed(*args, **kw):
+        if done[0] == skip:
+            torch.cuda.synchronize()
+            prof.start()
+            on[0] = True
+        out = step(*args, **kw)
+        done[0] += 1
+        if on[0] and steps is not None and done[0] == skip + steps + 1:
+            torch.cuda.synchronize()
+            prof.stop()
+            on[0] = False
+        return out
+    lanes._step = windowed
+    try:
         out = run()
         torch.cuda.synchronize()
+    finally:
+        lanes._step = step
+        if on[0]:
+            prof.stop()
     evs = list(prof.profiler.kineto_results.events())
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     spans = sorted((e.start_ns(), e.name()) for e in evs
@@ -851,11 +896,44 @@ def _step_profile(run):
     return out, by, before
 
 
+def _count(run, phase: str) -> dict:
+    """Steps, kernels, device busy time and host reads a step of ``run``
+    (one lane loop): one run under torch's sync debug mode with lane
+    steps 51-250 under ``torch.profiler`` (:func:`_step_profile`;
+    ``COUNT_WINDOW``), split by step kind.  No busy share: the profiler's
+    own host cost stretches the window's wall time.  Fails unless every
+    step reads the card once."""
+    with _Steps() as steps:
+        (_, by, before), lines = _sync_lines(
+            lambda: _step_profile(run, *COUNT_WINDOW))
+    n = steps.n
+    read_line, reads = lines.most_common(1)[0]
+    others = sum(lines.values()) - reads
+    # one read a step, the last one seeing every lane done
+    if reads != n + 1 or others > SETUP_SYNCS_MAX:
+        raise AssertionError(f"{phase}: host syncs per line {dict(lines)} "
+                             f"for {n} steps")
+    profiled = sum(b["steps"] for b in by.values())
+    busy_us = sum(b["busy_ns"] for b in by.values()) / 1e3 / max(profiled, 1)
+    return {"steps": n, "profiled_steps": profiled,
+            "events_before_steps": before,
+            "by_step_kind": {nm.split(".")[1]: {
+                "steps": b["steps"],
+                "kernels_per_step": b["kernels"] / max(b["steps"], 1),
+                "device_busy_us_per_step":
+                    b["busy_ns"] / 1e3 / max(b["steps"], 1)}
+                for nm, b in by.items()},
+            "device_busy_us_per_step": busy_us,
+            "packed_read": read_line, "reads_per_step": reads / (n + 1),
+            "other_syncs": others}
+
+
 def phase_fabrics():
-    """The four fabrics through the lane loop at the paper tier of
-    ``topology_frontier``, against the JAX reference's frozen digests,
-    with beacon conservation and skew gates, seq runs held against their
-    vmap lanes, and kernels per step split by step kind."""
+    """The fabrics through the lane loop (and seq runs through the
+    single loop) at the paper tier of ``topology_frontier``, against the
+    JAX reference's frozen digests, with beacon conservation and skew
+    gates, seq runs held against their vmap lanes, and kernels per step
+    split by step kind."""
     import torch
     from repro_torch.core import goldens as G
     from repro_torch.core import sweep as SW
@@ -863,91 +941,93 @@ def phase_fabrics():
     from repro_torch.core.sim import SimParams
     t_phase = time.perf_counter()
 
-    # probe: the k=16 hier_tree group at the fallback horizon; its rate a
-    # step predicts the phase at 1e6 (steps: each group's longest lane,
-    # from the frozen digests; a seq event counted as one step)
+    # probe: the k=16 hier_tree group at 2.5e5; its rate a step predicts
+    # the phase at 1e6 (steps: each group's longest lane, from the frozen
+    # digests; a seq event counted as one step), else the other groups
+    # and the seq runs take the cut horizon
     probe = _fabric_spec((16,), ("hier_tree",), FABRIC_PROBE_SIM_LEN) \
         .run(mode="vmap")
     probe_steps = int(np.asarray(probe.groups[0].state[
         "events_processed"]).max())
     s_per_step = probe.groups[0].wall_s / probe_steps
     full = G.FABRICS[1e6]
-    work = sum(max(full[k][t]["events_processed"])
-               for k in G.FABRIC_KS for t in G.FABRIC_TOPOLOGIES) \
+    work = sum(max(full[k][t]["events_processed"]) for k, t in FABRIC_GROUPS) \
         + sum(full[FABRIC_SEQ_K][t]["events_processed"][0]
-              for t in G.FABRIC_TOPOLOGIES)
+              for t in FABRIC_SEQ_TOPOLOGIES)
     predicted_s = s_per_step * work
     spent = time.perf_counter() - t_phase
     sim_len = 1e6 if predicted_s <= FABRIC_BUDGET_S - spent \
-        else FABRIC_PROBE_SIM_LEN
-    if sim_len == FABRIC_PROBE_SIM_LEN:
-        plan = [((16,), [t for t in G.FABRIC_TOPOLOGIES if t != "hier_tree"]),
-                ((32,), G.FABRIC_TOPOLOGIES)]
-        frames = [probe]
-    else:
-        plan = [((16, 32), G.FABRIC_TOPOLOGIES)]
-        frames = []
-    frames += [_fabric_spec(ks, topos, sim_len).run(mode="vmap")
-               for ks, topos in plan]
-    allf = _Frames(frames)
+        else FABRIC_CUT_SIM_LEN
+    runs = [(FABRIC_PROBE_SIM_LEN, probe.groups[0])]    # (sim_len, group)
+    for k in sorted({k for k, _ in FABRIC_GROUPS}):
+        topos = [t for kt, t in FABRIC_GROUPS if kt == k
+                 and (sim_len == 1e6 or (kt, t) != (16, "hier_tree"))]
+        runs += [(sim_len, g) for g in
+                 _fabric_spec((k,), topos, sim_len).run(mode="vmap").groups]
 
-    digest = G.fabric_digest(allf)
-    want = G.FABRICS[sim_len]
     bad = []
-    for k in G.FABRIC_KS:
-        for topo in G.FABRIC_TOPOLOGIES:
-            got_r, want_r = digest[k][topo], want[k][topo]
-            for key, w in want_r.items():
-                ok = np.allclose(got_r[key], w, rtol=1e-5) \
-                    if key == "mgmt_latency" else got_r[key] == w
-                if not ok:
-                    bad.append((k, topo, key, got_r[key], w))
-            st = allf.state(k, topo)
-            tx = np.asarray(st["beacons_tx"]).ravel()
-            rx = np.asarray(st["beacons_rx"]).ravel()
-            drop = np.asarray(st["dropped"]).ravel()
-            peak = np.asarray(st["evq_peak"]).ravel()
-            skew = np.asarray(st["bcn_skew_max"]).ravel()
-            empty = (np.asarray(st["bcn_t"]) >= 1e17) \
-                .reshape(len(tx), -1).all(1)
-            if topo == "ideal":
-                ok = (rx == 0).all() and (skew == 0).all() and empty.all()
-            else:
-                # exact where nothing dropped; an overflowing lane's
-                # missing deliveries are among its dropped events
-                held = (drop == 0) & (rx == (k - 1) * tx) & empty
-                over = (drop > 0) & (peak == G.FABRIC_PARAMS["queue_cap"]) \
-                    & (rx < (k - 1) * tx) & ((k - 1) * tx <= rx + drop)
-                ok = (held | over).all() and (skew > 0).all()
+    for sl, g in runs:
+        k, topo, st = g.combo.shape.k, g.combo.topology.kind, g.state
+        got_r, want_r = G.state_digest(st), G.FABRICS[sl][k][topo]
+        for key, w in want_r.items():
+            ok = np.allclose(got_r[key], w, rtol=1e-5) \
+                if key == "mgmt_latency" else got_r[key] == w
             if not ok:
-                bad.append((k, topo, "transport gates", tx.tolist(),
-                            rx.tolist(), drop.tolist(), skew.tolist(),
-                            empty.tolist()))
+                bad.append((sl, k, topo, key, got_r[key], w))
+        tx = np.asarray(st["beacons_tx"]).ravel()
+        rx = np.asarray(st["beacons_rx"]).ravel()
+        drop = np.asarray(st["dropped"]).ravel()
+        peak = np.asarray(st["evq_peak"]).ravel()
+        skew = np.asarray(st["bcn_skew_max"]).ravel()
+        empty = (np.asarray(st["bcn_t"]) >= 1e17) \
+            .reshape(len(tx), -1).all(1)
+        # exact where nothing dropped; an overflowing lane's missing
+        # deliveries are among its dropped events
+        held = (drop == 0) & (rx == (k - 1) * tx) & empty
+        over = (drop > 0) & (peak == G.FABRIC_PARAMS["queue_cap"]) \
+            & (rx < (k - 1) * tx) & ((k - 1) * tx <= rx + drop)
+        if not ((held | over).all() and (skew > 0).all()):
+            bad.append((sl, k, topo, "transport gates", tx.tolist(),
+                        rx.tolist(), drop.tolist(), skew.tolist(),
+                        empty.tolist()))
     if bad:
         raise AssertionError(f"fabrics: gates failed {bad}")
 
-    # seq: seed 1 of each k=16 fabric, against its vmap lane
+    # seq: seed 1 of each k=16 fabric off ideal, against its vmap lane
+    # where this phase ran the fabric's group at the same horizon, and
+    # against the frozen digest's counters of its lane
     p = SimParams(k=FABRIC_SEQ_K, **G.FABRIC_PARAMS)
     kn = SW.knob_batch(**G.FABRIC_KNOBS)
     wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS[:1], sim_len=sim_len,
                               pair_period=G.FABRIC_PAIR_PERIOD)
+    vmap_at = {(g.combo.shape.k, g.combo.topology.kind): g.state
+               for sl, g in runs if sl == sim_len}
     seq = {}
-    for topo in G.FABRIC_TOPOLOGIES:
+    for topo in FABRIC_SEQ_TOPOLOGIES:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = SW.sweep(p.shape, kn, wl, sim_len, mode="seq", topology=topo)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        lane = {key: v[0, 0] for key, v in allf.state(FABRIC_SEQ_K,
-                                                      topo).items()}
-        same = set(st) == set(lane) and all(
-            np.allclose(st[key][0, 0].cpu().numpy(), lane[key], rtol=1e-5)
-            if key == "mgmt_latency"
-            else np.array_equal(st[key][0, 0].cpu().numpy(), lane[key])
-            for key in lane)
-        if not same:
-            raise AssertionError(f"fabrics: seq {topo} differs from its "
-                                 "vmap lane")
+        if (FABRIC_SEQ_K, topo) in vmap_at:
+            lane = {key: v[0, 0]
+                    for key, v in vmap_at[FABRIC_SEQ_K, topo].items()}
+            if set(st) != set(lane) or not all(
+                    np.allclose(st[key][0, 0].cpu().numpy(), lane[key],
+                                rtol=1e-5) if key == "mgmt_latency"
+                    else np.array_equal(st[key][0, 0].cpu().numpy(),
+                                        lane[key])
+                    for key in lane):
+                raise AssertionError(f"fabrics: seq {topo} differs from "
+                                     "its vmap lane")
+        got = G.state_digest({key: v.cpu().numpy() for key, v in st.items()})
+        for key, w in G.FABRICS[sim_len][FABRIC_SEQ_K][topo].items():
+            if key == "app_done_sha":     # the digest's sha covers 2 lanes
+                continue
+            if not (np.allclose(got[key], w[:1], rtol=1e-5)
+                    if key == "mgmt_latency" else got[key] == w[:1]):
+                raise AssertionError(f"fabrics: seq {topo} {key} "
+                                     f"{got[key]} != {w[:1]}")
         ev = int(st["events_processed"].sum())
         seq[topo] = {"events": ev, "wall_s": wall, "events_per_s": ev / wall}
 
@@ -960,33 +1040,14 @@ def phase_fabrics():
     def count_run():
         return SW.sweep(pc.shape, kn, wl_c, FABRIC_COUNT_SIM_LEN,
                         mode="vmap", topology="hier_tree")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st_c = count_run()
-    torch.cuda.synchronize()
-    wall_c = time.perf_counter() - t0
-    steps_c = int(st_c["events_processed"].max())
-    _, by, before = _step_profile(count_run)
-    _, lines = _sync_lines(count_run)
-    read_line, reads = lines.most_common(1)[0]
-    others = sum(lines.values()) - reads
-    if reads != steps_c + 1 or others > SETUP_SYNCS_MAX:
-        raise AssertionError(f"fabrics: host syncs per line {dict(lines)} "
-                             f"for {steps_c} steps")
-    n_steps = sum(b["steps"] for b in by.values())
-    busy = sum(b["busy_ns"] for b in by.values())
-    split = {n.split(".")[1]: {
-        "steps": b["steps"],
-        "kernels_per_step": b["kernels"] / max(b["steps"], 1),
-        "device_busy_us_per_step": b["busy_ns"] / 1e3 / max(b["steps"], 1)}
-        for n, b in by.items()}
+    count = _count(count_run, "fabrics")
 
     groups = []
-    for g in allf.groups:
+    for sl, g in runs:
         k, topo = g.combo.shape.k, g.combo.topology.kind
         ev = int(np.asarray(g.state["events_processed"]).sum())
-        row = {"k": k, "topology": topo, "lanes": int(np.asarray(
-                   g.state["events_processed"]).size),
+        row = {"k": k, "topology": topo, "sim_len": sl,
+               "lanes": int(np.asarray(g.state["events_processed"]).size),
                "steps": int(np.asarray(g.state["events_processed"]).max()),
                "events": ev, "wall_s": g.wall_s,
                "vmap_events_per_s": ev / g.wall_s,
@@ -996,7 +1057,7 @@ def phase_fabrics():
                .tolist(),
                "bcn_skew_max": np.asarray(g.state["bcn_skew_max"]).ravel()
                .tolist()}
-        if k == FABRIC_SEQ_K:
+        if k == FABRIC_SEQ_K and sl == sim_len and topo in seq:
             row["seq_events_per_s"] = seq[topo]["events_per_s"]
         groups.append(row)
     emit({"phase": "fabrics", "sim_len": sim_len, "mode": "vmap",
@@ -1005,20 +1066,249 @@ def phase_fabrics():
                     "predicted_1e6_s": predicted_s},
           "digests_match": True, "conservation": True, "skew": True,
           "overflowing_groups": [
-              [g.combo.shape.k, g.combo.topology.kind]
-              for g in allf.groups
+              [sl, g.combo.shape.k, g.combo.topology.kind]
+              for sl, g in runs
               if int(np.asarray(g.state["dropped"]).sum()) > 0],
-          "groups": groups, "seq": seq,
-          "count": {"k": 16, "topology": "hier_tree",
-                    "sim_len": FABRIC_COUNT_SIM_LEN, "steps": steps_c,
-                    "wall_s": wall_c, "ms_per_step": wall_c / (steps_c + 1)
-                    * 1e3,
-                    "profiled_steps": n_steps, "events_before_steps": before,
-                    "by_step_kind": split,
-                    "device_busy_share": busy / 1e9 / wall_c,
-                    "packed_read": read_line,
-                    "reads_per_step": reads / (steps_c + 1),
-                    "other_syncs": others},
+          "groups": groups, "seq": seq, "seq_sim_len": sim_len,
+          "count": {"k": 16, "topology": "hier_tree", "queue_impl": "linear",
+                    "batch_pop": 1, "sim_len": FABRIC_COUNT_SIM_LEN,
+                    **count},
+          "wall_s": time.perf_counter() - t_phase})
+    # the linear queue's baselines of phase queues: the probe and the count
+    return {"probe": {"sim_len": FABRIC_PROBE_SIM_LEN, "steps": probe_steps,
+                      "events": int(np.asarray(probe.groups[0].state[
+                          "events_processed"]).sum()),
+                      "wall_s": probe.groups[0].wall_s},
+            "count": dict(count, sim_len=FABRIC_COUNT_SIM_LEN)}
+
+
+# --------------------------------------------------------------------------
+# The event queues and the BEACON_RX batch window
+# --------------------------------------------------------------------------
+
+QUEUE_IMPLS = ("linear", "tree", "calendar")
+QUEUE_BATCH = 64                # topology_frontier's paper-tier window
+QUEUE_H2H_SIM_LEN = 2e4         # the batch_pop-1 head-to-head's horizon
+QUEUE_COUNT_SIM_LEN = FABRIC_COUNT_SIM_LEN   # linear/1's count is fabrics'
+# k=256's horizon: goldens.CUTS' fallback, since both fabrics at 2.5e5
+# would take about 140 s more on the slowest host seen
+QUEUE_CUT_SIM_LEN = 1e5
+
+
+class _Steps:
+    """Counts the event loops' iterations while open: calls of
+    ``lanes._step`` (a lane step) and ``sim._commit`` (an iteration of
+    the single loop)."""
+
+    def __enter__(self):
+        from repro_torch.core import lanes, sim
+        self.n = 0
+        self._saved = [(lanes, "_step", lanes._step),
+                       (sim, "_commit", sim._commit)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted(*args, **kw):
+            self.n += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _queue_group(k, topology, sim_len, queue_impl, batch_pop, mode="vmap"):
+    """One group of ``topology_frontier``'s paper tier (seeds 1 and 2) at
+    ``k`` on one fabric and queue, through ``ExperimentSpec`` (the cut
+    points' queue sizes at k=1 and k=256): ``(state, wall_s, steps)``."""
+    from repro_torch.core import goldens as G
+    from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+    from repro_torch.core.sim import SimParams
+    params = G.cut_params(k) if k in G.CUT_KS else G.FABRIC_PARAMS
+    params = dict(params, queue_impl=queue_impl, batch_pop=batch_pop)
+    spec = ExperimentSpec(
+        shapes=(SimParams(k=k, **params).shape,), topologies=(topology,),
+        knobs=G.FABRIC_KNOBS,
+        workloads=(WorkloadSpec.make("interference", seeds=G.FABRIC_SEEDS,
+                                     pair_periods=(G.FABRIC_PAIR_PERIOD,)),),
+        sim_len=sim_len, mode=mode)
+    with _Steps() as steps:
+        frame = spec.run()
+    return frame.groups[0].state, frame.groups[0].wall_s, steps.n
+
+
+def _queue_row(k, topology, sim_len, queue_impl, batch_pop, run):
+    """The printed record of one run ``(state, wall_s, steps)``: the lane
+    loop's steps, events and events/s."""
+    st, wall, steps = run
+    ev = np.asarray(st["events_processed"])
+    return {"k": k, "topology": topology, "queue_impl": queue_impl,
+            "batch_pop": batch_pop, "sim_len": sim_len,
+            "lanes": int(ev.size), "steps": steps, "events": int(ev.sum()),
+            "wall_s": wall, "events_per_s": int(ev.sum()) / wall}
+
+
+def _queue_gates(st, k, topology):
+    """Beacon conservation on drop-free lanes and an empty ``bcn_t``."""
+    tx = np.asarray(st["beacons_tx"]).ravel()
+    rx = np.asarray(st["beacons_rx"]).ravel()
+    drop = np.asarray(st["dropped"]).ravel()
+    empty = (np.asarray(st["bcn_t"]) >= 1e17).all()
+    if topology == "ideal" or k == 1:
+        return bool((rx == 0).all() and empty)
+    return bool(((drop > 0) | (rx == (k - 1) * tx)).all() and empty)
+
+
+def _queue_count(k, topology, queue_impl, batch_pop):
+    """:func:`_count` of one combo at ``QUEUE_COUNT_SIM_LEN``."""
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimParams
+    p = SimParams(k=k, **dict(G.FABRIC_PARAMS, queue_impl=queue_impl,
+                              batch_pop=batch_pop))
+    wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS,
+                              sim_len=QUEUE_COUNT_SIM_LEN,
+                              pair_period=G.FABRIC_PAIR_PERIOD)
+    kn = SW.knob_batch(**G.FABRIC_KNOBS)
+    return dict(_count(lambda: SW.sweep(
+        p.shape, kn, wl, QUEUE_COUNT_SIM_LEN, mode="vmap",
+        topology=topology), "queues"),
+        sim_len=QUEUE_COUNT_SIM_LEN)
+
+
+def phase_queues(linear):
+    """The tree and calendar queues and the BEACON_RX batch window
+    (``batch_pop``) through the lane loop at ``topology_frontier``'s
+    paper tier: every queue equal to the linear one bit for bit, the
+    frozen reference digests of the tier and of its two cut points (k=1,
+    k=256), a seq run equal to its vmap lane, and each k=16 combo's
+    steps, events/s, kernels, busy time and reads a step.
+    ``linear["probe"]`` is phase ``fabrics``' k=16 ``hier_tree`` linear
+    run at 2.5e5, the baseline of the events/s ratios, and its count of
+    linear/1 (``linear``: ``probe`` and ``count``)."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimParams
+    t_phase = time.perf_counter()
+    rows, bad = [], []
+    queue_keys = {"evq_tree", "evq_cal", "evq_root", "ev_time", "ev_type",
+                  "ev_a"}
+
+    def check(name, got, want):
+        for key, w in want.items():
+            ok = np.allclose(got[key], w, rtol=1e-5) \
+                if key == "mgmt_latency" else got[key] == w
+            if not ok:
+                bad.append((name, key, got[key], w))
+
+    # the head-to-head at k=16 on hier_tree: batch_pop 1 at 2e4 against
+    # the linear queue leaf for leaf (every leaf but the queue's own)
+    k, topo = 16, "hier_tree"
+    base = None
+    for qi in QUEUE_IMPLS:
+        run = _queue_group(k, topo, QUEUE_H2H_SIM_LEN, qi, 1)
+        rows.append(_queue_row(k, topo, QUEUE_H2H_SIM_LEN, qi, 1, run))
+        st = run[0]
+        leaves = {key: v for key, v in st.items() if key not in queue_keys}
+        if base is None:
+            base = leaves
+        elif set(leaves) != set(base) or not all(
+                np.array_equal(leaves[key], base[key]) for key in base):
+            bad.append((qi, 1, "differs from linear/1"))
+    # ... and batch_pop 64 at 2.5e5 against the reference's digests
+    want = G.FABRICS[FABRIC_PROBE_SIM_LEN]
+    states = {}
+    for qi in QUEUE_IMPLS:
+        run = _queue_group(k, topo, FABRIC_PROBE_SIM_LEN, qi, QUEUE_BATCH)
+        st = states[qi] = run[0]
+        rows.append(_queue_row(k, topo, FABRIC_PROBE_SIM_LEN, qi,
+                               QUEUE_BATCH, run))
+        check((k, topo, qi), G.state_digest(st), want[k][topo])
+        if not _queue_gates(st, k, topo):
+            bad.append((k, topo, qi, "transport gates"))
+    # the tree queue at k=32 on two fabrics
+    for topo32 in ("hier_tree", "mesh2d"):
+        run = _queue_group(32, topo32, FABRIC_PROBE_SIM_LEN, "tree",
+                           QUEUE_BATCH)
+        st = run[0]
+        rows.append(_queue_row(32, topo32, FABRIC_PROBE_SIM_LEN, "tree",
+                               QUEUE_BATCH, run))
+        check((32, topo32), G.state_digest(st), want[32][topo32])
+        if not _queue_gates(st, 32, topo32):
+            bad.append((32, topo32, "transport gates"))
+
+    # seq on seed 1 of the k=16 tree/64 combo, against its vmap lane
+    p = SimParams(k=k, **dict(G.FABRIC_PARAMS, queue_impl="tree",
+                              batch_pop=QUEUE_BATCH))
+    wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS[:1],
+                              sim_len=FABRIC_PROBE_SIM_LEN,
+                              pair_period=G.FABRIC_PAIR_PERIOD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Steps() as steps:
+        st = SW.sweep(p.shape, SW.knob_batch(**G.FABRIC_KNOBS), wl,
+                      FABRIC_PROBE_SIM_LEN, mode="seq", topology=topo)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lane = {key: v[0, 0] for key, v in states["tree"].items()}
+    if set(st) != set(lane) or not all(
+            np.allclose(st[key][0, 0].cpu().numpy(), lane[key], rtol=1e-5)
+            if key == "mgmt_latency"
+            else np.array_equal(st[key][0, 0].cpu().numpy(), lane[key])
+            for key in lane):
+        bad.append(("seq", "tree", QUEUE_BATCH, "differs from vmap lane"))
+    ev = int(st["events_processed"].sum())
+    seq = {"k": k, "topology": topo, "queue_impl": "tree",
+           "batch_pop": QUEUE_BATCH, "sim_len": FABRIC_PROBE_SIM_LEN,
+           "seed": G.FABRIC_SEEDS[0], "iterations": steps.n, "events": ev,
+           "wall_s": wall, "events_per_s": ev / wall}
+
+    # kernels, busy time and reads a step of every k=16 combo
+    counts = {f"{qi}/{bp}": linear["count"] if (qi, bp) == ("linear", 1)
+              else _queue_count(k, topo, qi, bp)
+              for bp in (1, QUEUE_BATCH) for qi in QUEUE_IMPLS}
+
+    # the cut points: k=1 at 2.5e5, k=256 at 1e5 (k=1 on its golden's
+    # linear queue: one cluster sends no beacon, so no queue or batch
+    # window changes a bit)
+    cuts = G.CUTS
+    q1 = (G.CUT_QUEUES[1]["queue_impl"], G.CUT_QUEUES[1]["batch_pop"])
+    run = _queue_group(1, "ideal", FABRIC_PROBE_SIM_LEN, *q1)
+    st = run[0]
+    rows.append(_queue_row(1, "ideal", FABRIC_PROBE_SIM_LEN, *q1, run))
+    check((1, "ideal"), G.state_digest(st),
+          cuts[FABRIC_PROBE_SIM_LEN][1]["ideal"])
+    if not _queue_gates(st, 1, "ideal"):
+        bad.append((1, "transport gates"))
+    for topo256 in G.CUT_TOPOLOGIES[256]:
+        run = _queue_group(256, topo256, QUEUE_CUT_SIM_LEN, "tree",
+                           QUEUE_BATCH)
+        st = run[0]
+        rows.append(_queue_row(256, topo256, QUEUE_CUT_SIM_LEN, "tree",
+                               QUEUE_BATCH, run))
+        check((256, topo256), G.state_digest(st),
+              cuts[QUEUE_CUT_SIM_LEN][256][topo256])
+        if not _queue_gates(st, 256, topo256):
+            bad.append((256, topo256, "transport gates"))
+    if bad:
+        raise AssertionError(f"queues: gates failed {bad}")
+    lin = linear["probe"]["events"] / linear["probe"]["wall_s"]
+    for r in rows:
+        if (r["k"], r["topology"], r["sim_len"]) == (
+                k, topo, FABRIC_PROBE_SIM_LEN):
+            r["events_per_s_over_linear_1"] = r["events_per_s"] / lin
+    emit({"phase": "queues", "mode": "vmap", "digests_match": True,
+          "bitwise_across_queues": True, "conservation": True,
+          "seq_equals_vmap": True,
+          "linear_1_baseline": dict(linear["probe"], events_per_s=lin,
+                                    source="phase fabrics' probe"),
+          "runs": rows, "seq": seq, "count": counts,
           "wall_s": time.perf_counter() - t_phase})
 
 
@@ -1437,17 +1727,22 @@ def main() -> int:
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
-    phase_profile()
-    phase_syncs()
+    phase_syncs(*phase_profile())
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
     sweep_launches = phase_sweep()
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
         raise AssertionError("the sweep path launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     FA.launches = SS.launches = HM.launches = 0   # the fabric path starts
-    phase_fabrics()
+    linear = phase_fabrics()
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the fabric path (no kernel of its own) "
+                             "launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
+    FA.launches = SS.launches = HM.launches = 0   # the queue path starts
+    phase_queues(linear)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the queue path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     phase_lm_small()

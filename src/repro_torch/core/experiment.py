@@ -34,8 +34,8 @@ The planner and :func:`spec_from_dict` accept every spec the reference
 accepts (``SPEC_VERSION = 4`` payloads, fault scenarios and trace specs
 kept as their serialized dicts); only ``run()`` refuses what the port
 cannot run yet: fault scenarios (ROADMAP item 8), a trace (item 9), and
-the unported queues and policies (``sim._require_ported``).  Every
-fabric runs, in every mode.
+the unported policies (``sim._require_ported``).  Every fabric and every
+queue runs, in every mode.
 """
 from __future__ import annotations
 

@@ -24,12 +24,17 @@ without JAX (``chip_smoke.py``):
 - the paper tier of ``benchmarks/topology_frontier.py`` on every fabric
   (m=256, n_childs=100, max_apps=64, queue_cap=8192, c_s=8, dn_th=4,
   interference seeds (1, 2) at pair_period 14,000, k in (16, 32), the
-  linear queue) at sim_len 1e6 and at 2.5e5, the card's fallback (34
-  of the 64 applications; every one arrives before 4.5e5, so 5e5 would
-  cut nothing): per (k, fabric) the per-seed
+  linear queue) at sim_len 1e6, at 2.5e5 (34 of the 64 applications;
+  every one arrives before 4.5e5, so 5e5 would cut nothing) and at 1e5,
+  the card's horizons: per (k, fabric) the per-seed
   ``events_processed``, ``beacons_tx``, ``beacons_rx``, ``evq_peak``,
   ``dropped`` and ``mgmt_latency``, and the ``app_done`` sha256
   (:func:`fabric_digest`);
+- the two cut points of that tier (the same widths, knobs, seeds and
+  stimulus): k=1 on the linear queue (queue_cap 8,192) on ``ideal`` at
+  sim_len 2.5e5, and k=256 with the tier's 32,768-slot tree queue and
+  ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5 and at 1e5,
+  the card's fallback (:func:`cut_digest`, keyed as FABRICS);
 - the result of ``launch.serve.serve(cfg)`` with its
   default arguments (64 requests, 4 clusters of 2 groups, dn_th 4, seed
   0): it depends on the control plane only, so it holds for any model
@@ -102,7 +107,7 @@ TABLE5 = {
 FABRIC_KS = (16, 32)
 FABRIC_SEEDS = (1, 2)
 FABRIC_PAIR_PERIOD = 14_000.0
-FABRIC_SIM_LENS = (1e6, 2.5e5)
+FABRIC_SIM_LENS = (1e6, 2.5e5, 1e5)
 FABRIC_PARAMS = dict(m=256, n_childs=100, max_apps=64, queue_cap=8192)
 FABRIC_KNOBS = {"dn_th": 4, "c_s": 8.0}
 FABRIC_TOPOLOGIES = ("ideal", "shared_bus", "hier_tree", "mesh2d")
@@ -273,6 +278,157 @@ FABRICS = {
                                 "61ee03e2501267b1ca1b79726b4d972b"},
         },
     },
+    100000.0: {
+        16: {
+            "ideal": {
+                "events_processed": [1296, 1296],
+                "beacons_tx": [364, 366],
+                "beacons_rx": [0, 0],
+                "evq_peak": [450, 368],
+                "dropped": [0, 0],
+                "mgmt_latency": [490616.0625, 439898.59375],
+                "app_done_sha": "41a430cf180f7ee4979364af059bda66"
+                                "7844d905b9dbf5e9b735628ffd7aa8f5"},
+            "shared_bus": {
+                "events_processed": [6861, 6771],
+                "beacons_tx": [371, 365],
+                "beacons_rx": [5565, 5475],
+                "evq_peak": [753, 586],
+                "dropped": [0, 0],
+                "mgmt_latency": [5172311.0, 4675180.5],
+                "app_done_sha": "d4a894cd7c09f3dcb0a9cbb54e185bc9"
+                                "81339212fd0049c4990c5ce754969d8c"},
+            "hier_tree": {
+                "events_processed": [6831, 6756],
+                "beacons_tx": [369, 364],
+                "beacons_rx": [5535, 5460],
+                "evq_peak": [584, 564],
+                "dropped": [0, 0],
+                "mgmt_latency": [760734.5, 765393.3125],
+                "app_done_sha": "b5a43fe699c8c99cd1cbf498c851fb28"
+                                "27dd37d082f0474cbb78ff0de1a3d638"},
+            "mesh2d": {
+                "events_processed": [6801, 6786],
+                "beacons_tx": [367, 366],
+                "beacons_rx": [5505, 5490],
+                "evq_peak": [518, 473],
+                "dropped": [0, 0],
+                "mgmt_latency": [130075.734375, 132494.75],
+                "app_done_sha": "aa12d8b16dc03d73bc2b6cac40f0f278"
+                                "83eee38211ffd371efc14d73cddb5819"},
+        },
+        32: {
+            "ideal": {
+                "events_processed": [1368, 1368],
+                "beacons_tx": [435, 433],
+                "beacons_rx": [0, 0],
+                "evq_peak": [416, 351],
+                "dropped": [0, 0],
+                "mgmt_latency": [1814720.5, 1460795.25],
+                "app_done_sha": "89994a854503bd53d03debf803fd5c4e"
+                                "1860a2aa043e1b3722fee43bd2c87359"},
+            "shared_bus": {
+                "events_processed": [14977, 14636],
+                "beacons_tx": [439, 428],
+                "beacons_rx": [13609, 13268],
+                "evq_peak": [2478, 2205],
+                "dropped": [0, 0],
+                "mgmt_latency": [66121044.0, 64577916.0],
+                "app_done_sha": "31e222415861494c5abf64389f621e80"
+                                "ac7d8d8654d784aaff3b865ceb5d86c9"},
+            "hier_tree": {
+                "events_processed": [14729, 14791],
+                "beacons_tx": [431, 433],
+                "beacons_rx": [13361, 13423],
+                "evq_peak": [1102, 1126],
+                "dropped": [0, 0],
+                "mgmt_latency": [980916.75, 1064409.5],
+                "app_done_sha": "ed9afbcac03c73d68549a80acf597260"
+                                "d262faa227a0e23fb9cc7512751bdc1d"},
+            "mesh2d": {
+                "events_processed": [14791, 14822],
+                "beacons_tx": [433, 434],
+                "beacons_rx": [13423, 13454],
+                "evq_peak": [811, 754],
+                "dropped": [0, 0],
+                "mgmt_latency": [300633.5625, 299891.625],
+                "app_done_sha": "8fde19351915ce1898296e6a7cc51a58"
+                                "1ebd1794df7c3430c18f0f48d5c34ac8"},
+        },
+    },
+}
+
+CUT_KS = (1, 256)
+CUT_QUEUES = {1: dict(queue_cap=8192, queue_impl="linear", batch_pop=1),
+              256: dict(queue_cap=32768, queue_impl="tree", batch_pop=64)}
+CUT_TOPOLOGIES = {1: ("ideal",), 256: ("hier_tree", "mesh2d")}
+CUT_SIM_LENS = {1: (2.5e5,), 256: (2.5e5, 1e5)}
+# The JAX reference's run of those points on the CPU (~25 s), made by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
+#   import ExperimentSpec, WorkloadSpec; from repro.core.sim import
+#   SimParams; from repro_torch.core import goldens as G; print({sl: {k:
+#   G.cut_digest(ExperimentSpec(shapes=(SimParams(k=k, **G.cut_params(k))
+#   .shape,), topologies=G.CUT_TOPOLOGIES[k], knobs=G.FABRIC_KNOBS,
+#   workloads=(WorkloadSpec.make('interference', seeds=G.FABRIC_SEEDS,
+#   pair_periods=(G.FABRIC_PAIR_PERIOD,)),), sim_len=sl, mode='seq')
+#   .run(), k) for k in G.CUT_KS if sl in G.CUT_SIM_LENS[k]} for sl in
+#   (2.5e5, 1e5)})"
+CUTS = {
+    250000.0: {
+        1: {
+            "ideal": {
+                "events_processed": [3264, 3264],
+                "beacons_tx": [0, 0],
+                "beacons_rx": [0, 0],
+                "evq_peak": [556, 469],
+                "dropped": [0, 0],
+                "mgmt_latency": [17442106.0, 13008173.0],
+                "app_done_sha": "f09689d9064d94c95c7a0ab36f7c50bc"
+                                "013cd568a9c129c673ac144e353bd42f"},
+        },
+        256: {
+            "hier_tree": {
+                "events_processed": [162492, 63552],
+                "beacons_tx": [612, 224],
+                "beacons_rx": [156060, 57120],
+                "evq_peak": [15338, 7154],
+                "dropped": [0, 0],
+                "mgmt_latency": [54156696.0, 29526332.0],
+                "app_done_sha": "4b437c71047b9f5e384d104bc7228502"
+                                "cc826f42ffbcafe1d67f532b42c4df64"},
+            "mesh2d": {
+                "events_processed": [162492, 64062],
+                "beacons_tx": [612, 226],
+                "beacons_rx": [156060, 57630],
+                "evq_peak": [3045, 2557],
+                "dropped": [0, 0],
+                "mgmt_latency": [6653400.0, 3571250.5],
+                "app_done_sha": "e0a446bdca94399e7fcf388587a50305"
+                                "72518abdd14aa35f7f7d7c3e4126abd0"},
+        },
+    },
+    100000.0: {
+        256: {
+            "hier_tree": {
+                "events_processed": [50862, 5982],
+                "beacons_tx": [190, 14],
+                "beacons_rx": [48450, 3570],
+                "evq_peak": [12903, 2184],
+                "dropped": [0, 0],
+                "mgmt_latency": [16850412.0, 3142464.75],
+                "app_done_sha": "11cc8befc7905c7cc0273f9ed0441da9"
+                                "251360ce66c53f993918554274670140"},
+            "mesh2d": {
+                "events_processed": [50862, 5982],
+                "beacons_tx": [190, 14],
+                "beacons_rx": [48450, 3570],
+                "evq_peak": [2454, 1992],
+                "dropped": [0, 0],
+                "mgmt_latency": [2239336.5, 683251.75],
+                "app_done_sha": "b1f26c33726841c8867d14a5cadf31fe"
+                                "892c6bc56efb514ce8033dad44110199"},
+        },
+    },
 }
 
 SERVE = {"finished": 64, "waves": 1, "imbalance": 1.0047190851197014,
@@ -347,22 +503,35 @@ def table5_digest(frame) -> dict:
     return out
 
 
+def state_digest(st) -> dict:
+    """The per-lane counters and the ``app_done`` sha256 of a (B, S, ...)
+    state (numpy leaves), keyed as a FABRICS or CUTS entry."""
+    row = {key: np.asarray(st[key]).ravel().tolist()
+           for key in ("events_processed", "beacons_tx", "beacons_rx",
+                       "evq_peak", "dropped")}
+    row["mgmt_latency"] = [float(x) for x in np.asarray(
+        st["mgmt_latency"], np.float32).ravel()]
+    row["app_done_sha"] = sha256_f32(st["app_done"])
+    return row
+
+
 def fabric_digest(frame) -> dict:
     """The digests of a fabric ResultFrame (the port's or the
     reference's), keyed as one sim_len's entry of FABRICS."""
-    out = {}
-    for k in FABRIC_KS:
-        out[k] = {}
-        for topo in FABRIC_TOPOLOGIES:
-            st = frame.state(k=k, topology=topo)
-            row = {key: np.asarray(st[key]).ravel().tolist()
-                   for key in ("events_processed", "beacons_tx",
-                               "beacons_rx", "evq_peak", "dropped")}
-            row["mgmt_latency"] = [float(x) for x in np.asarray(
-                st["mgmt_latency"], np.float32).ravel()]
-            row["app_done_sha"] = sha256_f32(st["app_done"])
-            out[k][topo] = row
-    return out
+    return {k: {topo: state_digest(frame.state(k=k, topology=topo))
+                for topo in FABRIC_TOPOLOGIES} for k in FABRIC_KS}
+
+
+def cut_params(k: int) -> dict:
+    """The SimParams fields (but k) of the cut point at ``k``."""
+    return dict(FABRIC_PARAMS, **CUT_QUEUES[k])
+
+
+def cut_digest(frame, k: int) -> dict:
+    """The digests of a cut point's ResultFrame, keyed as one (sim_len,
+    k) entry of CUTS."""
+    return {topo: state_digest(frame.state(k=k, topology=topo))
+            for topo in CUT_TOPOLOGIES[k]}
 
 
 def paper_point(sim_len: float = 4e6, device=None) -> dict:

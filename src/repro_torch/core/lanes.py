@@ -13,12 +13,16 @@ bits ``sim.simulate`` ends with on lane l's knobs and workload
 
 One step serves every lane:
 
-1. **Pop.**  ``argmin(ev_time, dim=1)`` (the first minimal slot: the
-   linear queue's tie contract), a gather of each lane's packed record
-   ``(t, slot, typ, a0, a1, a2)``, and one read of the (L, 6) block to
-   the host — the loop's only sync.  A lane whose head is INF is done:
+1. **Pop.**  Each lane's packed record ``(t, slot, typ, a0, a1, a2)``:
+   on the linear queue ``argmin(ev_time, dim=1)`` (the first minimal
+   slot: the tie contract) and gathers, on the tree and calendar queues
+   the (L, 6) ``evq_root``; then one read of the (L, 6) block to the
+   host — the loop's only sync.  A lane whose head is INF is done:
    every update below is masked by the lanes it belongs to, so no later
-   step changes a done lane.
+   step changes a done lane.  With ``batch_pop > 1`` off ``ideal``, on
+   a step where some lane's root is a BEACON_RX, each lane takes
+   ``eventq.batch_take``'s same-timestamp BEACON_RX prefix (L, bp) of
+   its own queue (one pop on the other lanes).
 2. **Dispatch.**  Each event type present in the step runs its handler
    once, over all lanes, under that type's lane mask.  ``app``, ``g``
    and ``pe`` stay device tensors (L,); each state update is a one-hot
@@ -33,11 +37,14 @@ One step serves every lane:
    the middle of a JOIN_EXIT run once for both (their lanes are
    disjoint, and each lane keeps its own order of updates).  Off the
    ``ideal`` fabric a fired beacon gives each lane an (L, k) fan-out of
-   BEACON_RX arrivals, and a BEACON_RX event writes one element of
-   ``bcn_t``, ``view`` and ``view_t`` per lane.
-3. **Commit**, in the reference's order: the pop, then one bulk push
-   per pushing handler (``sim._bulk_push`` along the queue axis), a
-   LOCAL_SPAWN's beacon fan-out before its JOIN_EXITs.
+   BEACON_RX arrivals, and each of a lane's (up to bp) deliveries
+   writes one element of ``bcn_t``, ``view`` and ``view_t``
+   (``sim._handle_beacon_rx_batch``: flat index writes).
+3. **Commit**, in the reference's order: the pops, then the pushes
+   along the queue axis — one ``sim._bulk_push`` a pushing handler on
+   the linear queue, one fused commit of them all on the tree and
+   calendar queues — a LOCAL_SPAWN's beacon fan-out before its
+   JOIN_EXITs.
 
 Done lanes cost a step's work until the last lane ends: the loop runs
 as many steps as the longest lane has events.
@@ -53,8 +60,10 @@ from repro_torch.core.eventq import INF
 from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy
 from repro_torch.core.sim import (EV_ARRIVE, EV_BEACON_RX, EV_JOIN_EXIT,
                                   EV_LOCAL_SPAWN, F32, I32, SimKnobs,
-                                  SimShape, _bulk_push, _Ctx, _init_queue,
-                                  _require_ported, make_state)
+                                  SimShape, _bulk_push, _Ctx,
+                                  _handle_beacon_rx_batch, _init_queue,
+                                  _queue_commit, _require_ported,
+                                  _rx_cohort, make_state)
 from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology
 
 
@@ -69,8 +78,9 @@ class _LaneCtx(_Ctx):
         self.pick_cluster = P.lane_mapping_policy(policy.mapping)
         self.depth = int(np.ceil(np.log2(self.ns))) if self.ns > 1 else 0
         self.lane = torch.arange(arrival_gmns.shape[0], device=device)
+        # each lane's first cell in a flattened (L, k, k) matrix
+        self.lane_cells = self.lane[:, None] * (self.k * self.k)
         self.ar_mpk = torch.arange(self.mpk, device=device)
-        self.ar_slot = torch.arange(self.queue_cap, device=device)
         self.ar_app = torch.arange(self.max_apps, device=device)
         # the barrier GMN of each application (its arrival GMN), per lane
         self.parent_gmns = arrival_gmns.to(torch.int64)
@@ -279,39 +289,39 @@ def _beacon_fanout(st, p, g, t, fire, hot, load):
     return push, t_arr, load
 
 
-def _beacon_rx(st, p, m, t, src, rcv, load):
-    """``sim._handle_beacon_rx`` on the lanes of ``m``: one-hot selects on
-    the (lane, src, rcv) element of bcn_t and the (lane, rcv, src) one of
-    view and view_t.  Lanes outside ``m`` read a clamped element."""
-    src, rcv = torch.where(m, src, 0), torch.where(m, rcv, 0)
-    s_oh, r_oh = p.ar_k == src[:, None], p.ar_k == rcv[:, None]
-    sr = m[:, None, None] & s_oh[:, :, None] & r_oh[:, None, :]
-    rs = m[:, None, None] & r_oh[:, :, None] & s_oh[:, None, :]
-    last = st["bcn_t"][p.lane, src, rcv] == t
-    st["bcn_t"] = torch.where(sr & last[:, None, None], INF, st["bcn_t"])
-    st["view"] = torch.where(rs, load.to(I32)[:, None, None], st["view"])
-    st["view_t"] = torch.where(rs, t[:, None, None], st["view_t"])
-    st["beacons_rx"] += m
-
-
-def _step(st, p, types, live_h, t, slot, typ, a, lengths):
+def _step(st, p, types, live_h, head, lengths):
     """One step's handlers over every lane and its commit (the loop's
-    body after the read of the records)."""
-    t = t[:, 0]
+    body after the read of the (L, 6) records ``head``)."""
+    t = head[:, 0]
     live = t < INF
-    typ = torch.where(live, typ[:, 0], -1)
-    app, g, a2 = a.to(torch.int64).unbind(1)
+    slot = head[:, 1].to(torch.int64)
+    typ = torch.where(live, head[:, 2].to(I32), -1)
+    a0, g, a2 = head[:, 3:].to(torch.int64).unbind(1)
+    # a BEACON_RX's first argument is its source GMN, which may pass
+    # max_apps (k=256 against 64 applications), and a done lane's record
+    # is stale: clamped, neither indexes past the application arrays
+    # (the lanes they do not belong to mask what such a read gives)
+    app = a0.clamp(max=p.max_apps - 1)
     g_oh = p.ar_k == g[:, None]
     st["evq_peak"] = torch.where(
         live, torch.maximum(st["evq_peak"], st["evq_len"]),
         st["evq_peak"])
-    st["events_processed"] += live
+    # the step's pops (L, B) and the records of its deliveries
+    if p.bp > 1 and EV_BEACON_RX in types:
+        slots, ok, pay = _rx_cohort(st, p, t, slot)
+        ok = ok & live[:, None]
+        n_pop = ok.sum(1)
+        rx = pay.unbind(-1)
+    else:
+        slots, ok, n_pop = slot[:, None], live[:, None], live.to(I32)
+        rx = (typ[:, None], a0[:, None], g[:, None], a2[:, None])
+    st["events_processed"] += n_pop
     # each pushing handler's batch (mask, times, type, a0, a1, a2), in
     # the order a lane's own pushes take: a lane has one event type,
     # and a LOCAL_SPAWN's fan-out comes before its JOIN_EXITs
     pushes = []
     if EV_BEACON_RX in types:
-        _beacon_rx(st, p, typ == EV_BEACON_RX, t, app, g, a2)
+        _handle_beacon_rx_batch(st, p, t, ok, *rx)
     if EV_ARRIVE in types:
         m_arr = typ == EV_ARRIVE
         t_spawns, cs = _arrive(st, p, m_arr, t, app, g, g_oh)
@@ -350,13 +360,22 @@ def _step(st, p, types, live_h, t, slot, typ, a, lengths):
         pushes.append(spawn)
     if EV_JOIN_EXIT in types:
         _join_forward(st, p, m_je, t_msg, app, g)
-    # pop, then the pushes (the popped slot is free)
-    st["ev_time"] = torch.where(
-        live[:, None] & (p.ar_slot == slot[:, None]), INF, st["ev_time"])
-    evq = -live.to(I32)
-    for mask, times, typ_new, a0, a1, a2_new in pushes:
-        drop = _bulk_push(st, p, mask, times, typ_new, a0, a1, a2_new)
-        evq = evq + mask.sum(1) - drop
+    # the pops, then the pushes (the popped slots are free): on the linear
+    # queue one bulk push a handler, on the others one fused commit of the
+    # handlers' batches side by side
+    evq = -n_pop
+    if p.queue_impl == "linear":
+        # a masked entry pops the lane's root slot again: a no-op
+        st["ev_time"].scatter_(1, torch.where(ok, slots, slots[:, :1]), INF)
+        for mask, *batch in pushes:
+            evq = evq + mask.sum(1) - _bulk_push(st, p, mask, *batch)
+    else:
+        cols = [torch.cat(col, 1) for col in zip(*(
+            (m, tm, torch.full_like(tm, ty, dtype=I32), x0.to(I32),
+             x1.to(I32), x2.to(I32)) for m, tm, ty, x0, x1, x2 in pushes))]
+        if cols:
+            evq = evq + cols[0].sum(1)
+        evq = evq - _queue_commit(st, p, slots, ok, t, *cols)
     st["evq_len"] += evq
 
 
@@ -378,22 +397,26 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
           for key, v in make_state(p, dev).items()}
     _init_queue(st, p, arrivals, arrival_gmns,
                 torch.tensor(sim_len, dtype=F32, device=dev))
+    linear = p.queue_impl == "linear"
     while True:
-        slot = torch.argmin(st["ev_time"], dim=1)
-        t = st["ev_time"].gather(1, slot[:, None])
-        typ = st["ev_type"].gather(1, slot[:, None])
-        a = _rows(st["ev_a"], p, slot)
+        if linear:
+            slot = torch.argmin(st["ev_time"], dim=1)
+            head = torch.cat([st["ev_time"].gather(1, slot[:, None]),
+                              slot[:, None].to(F32),
+                              st["ev_type"].gather(1, slot[:, None]).to(F32),
+                              _rows(st["ev_a"], p, slot).to(F32)], 1)
+        else:
+            head = st["evq_root"]
         # the step's one device->host read: (t, slot, typ, a0, a1, a2)
-        head = torch.cat([t, slot[:, None].to(F32), typ.to(F32), a.to(F32)],
-                         1).tolist()
-        live_h = [r for r in head if r[0] < INF]
+        live_h = [r for r in head.tolist() if r[0] < INF]
         if not live_h:
             break
         types = {int(r[2]) for r in live_h}
-        # the step's span in a profile (chip_smoke.py phase fabrics):
-        # steps whose every live lane delivers a beacon, and the rest
+        # the step's span in a profile (chip_smoke.py phases fabrics and
+        # queues): steps whose every live lane delivers beacons, and the
+        # rest
         with torch.profiler.record_function(
                 "lanes.step_rx" if types == {EV_BEACON_RX}
                 else "lanes.step"):
-            _step(st, p, types, live_h, t, slot, typ, a, lengths)
+            _step(st, p, types, live_h, head, lengths)
     return st

@@ -6,15 +6,17 @@ mapping (Sec 4.1), status beacons (Sec 4.2) and join barriers (Tab 2).
 
 Ported: the four fabrics of ``core/transport`` (``ideal``,
 ``shared_bus``, ``hier_tree``, ``mesh2d``, with per-receiver BEACON_RX
-deliveries off ``ideal``), the ``linear`` event queue with
-``batch_pop=1``, and ``record_s1``.  Other queues, ``batch_pop > 1``,
-faults and the trace raise ``NotImplementedError`` naming their ROADMAP
-item.
+deliveries off ``ideal``), the three event queues (``linear``, ``tree``,
+``calendar``: ``core/eventq``) with any ``batch_pop``, and
+``record_s1``.  Faults and the trace raise ``NotImplementedError``
+naming their ROADMAP item.
 
 How the loop runs.  The reference is one ``lax.while_loop``; here the
 loop is Python and every state tensor lives on the device.  Each
 iteration makes one device->host read: the packed event record
-``(t, slot, typ, a0, a1, a2)`` of the queue's minimum.  The host uses it
+``(t, slot, typ, a0, a1, a2)`` of the queue's minimum (the linear
+queue's argmin and gathers, or the tree's and calendar's ``evq_root``
+row).  The host uses it
 to stop at ``t >= INF`` and to dispatch on ``typ``; ``app``/``g``/``cnt``
 and ``pe`` then index state tensors as host ints.  Every other value —
 times, loads, views, policy decisions, beacon firing — stays a device
@@ -29,7 +31,10 @@ pushes and the deferred view-row write that the reference's handlers
 return from inside ``lax.switch`` — and the loop applies it after the
 handler, in the reference's order (pop, then one bulk push: a
 beacon's k BEACON_RX rows, masked where it did not fire, before the
-handler's own events).
+handler's own events).  With ``batch_pop > 1`` off the ``ideal`` fabric
+a BEACON_RX root pops the whole same-timestamp BEACON_RX prefix that
+``eventq.batch_take`` selects, delivered at once by
+:func:`_handle_beacon_rx_batch` — bitwise the one-at-a-time order.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import eventq as EQ
 from repro_torch.core import policies as P
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF, QUEUE_IMPLS
@@ -63,8 +69,8 @@ class SimShape:
     queue_cap: int = 2048
     max_apps: int = 512
     record_s1: bool = False      # record stage-1 decision traces (replay)
-    queue_impl: str = "linear"   # only "linear" is ported
-    batch_pop: int = 1           # only 1 is ported
+    queue_impl: str = "linear"   # event queue (core/eventq.QUEUE_IMPLS)
+    batch_pop: int = 1           # same-timestamp BEACON_RX pops per step
 
     def __post_init__(self):
         if self.queue_impl not in QUEUE_IMPLS:
@@ -177,13 +183,6 @@ def _log2_levels(v: int) -> float:
 def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
                     faults=None, trace=None) -> None:
     """Raise for every configuration outside this slice of the port."""
-    if shape.queue_impl != "linear":
-        raise NotImplementedError(
-            f"queue_impl {shape.queue_impl!r} is not ported yet "
-            "(ROADMAP item 5.2); only 'linear' is")
-    if shape.batch_pop != 1:
-        raise NotImplementedError(
-            "batch_pop > 1 is not ported yet (ROADMAP item 5.2)")
     if faults is not None:
         raise NotImplementedError(
             "fault schedules are not ported yet (ROADMAP item 8)")
@@ -235,6 +234,17 @@ class _Ctx:
         self.one_i32 = torch.ones((1,), dtype=I32, device=device)
         self.ones_b = torch.ones((max(self.n_childs, self.ns),),
                                  dtype=torch.bool, device=device)
+        # the event queue: its static tree depth and segment count, the
+        # BEACON_RX batch window (deliveries exist only off ``ideal``) and
+        # the calendar's bucket width, from the tick granularity (c_b
+        # serializes buses, c_s decisions)
+        self.queue_impl = shape.queue_impl
+        self.qdepth = EQ.tree_depth(shape.queue_cap)
+        self.qsegs = EQ.seg_count(shape.queue_cap)
+        self.batch_pop = shape.batch_pop
+        self.bp = shape.batch_pop if self.rx_on else 1
+        self.cal_width = torch.clamp(torch.maximum(knobs.c_b, knobs.c_s),
+                                     min=1.0)
 
 
 def make_state(p, device):
@@ -246,11 +256,17 @@ def make_state(p, device):
     def inf(shape):
         return torch.full(shape, INF, dtype=F32, device=device)
 
-    st = {
+    if p.queue_impl == "tree":
+        # times and payloads live in the tree rows (core/eventq.py)
+        st = EQ.queue_state(Q, device)
+    elif p.queue_impl == "calendar":
+        st = EQ.cal_state(Q, device)
+    else:
         # event queue (slot-recycled)
-        "ev_time": inf((Q,)),
-        "ev_type": z((Q,), I32),
-        "ev_a": z((Q, 3), I32),                # (app, gmn/cluster, pe/cnt)
+        st = {"ev_time": inf((Q,)),
+              "ev_type": z((Q,), I32),
+              "ev_a": z((Q, 3), I32)}          # (app, gmn/cluster, pe/cnt)
+    st |= {
         # infra
         "pe_free": z((k, mpk)),
         "gmn_free": z((k,)),
@@ -312,12 +328,17 @@ def _add1(arr, i, delta):
 def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
     """Insert the masked entries of an event batch, exactly as pushing
     them one by one in order: the j-th masked entry takes the j-th free
-    queue slot (one pass over the queue: cumsum of the free mask plus a
-    stable argsort that brings the pushed entries first).  ``typ`` is one
-    event type or an int32 tensor of one per entry.  Works along the last
-    axis: a leading lane axis (``core/lanes.py``) pushes each lane's
-    batch into its own queue.  Returns the entries dropped for want of a
-    free slot (per lane)."""
+    queue slot.  The linear queue does it in one pass over the queue
+    (cumsum of the free mask plus a stable argsort that brings the pushed
+    entries first); the tree and calendar queues by a pure-push commit
+    (core/eventq.py), with the same slots.  ``typ`` is one event type or
+    an int32 tensor of one per entry.  Works along the last axis: a
+    leading lane axis (``core/lanes.py``) pushes each lane's batch into
+    its own queue.  Returns the entries dropped for want of a free slot
+    (per lane)."""
+    if p.queue_impl != "linear":
+        return _queue_commit(st, p, None, None, None, mask, times, typ, a0,
+                             a1, a2)
     n = times.shape[-1]
     free = st["ev_time"] >= INF
     free_rank = torch.cumsum(free, -1) - 1     # slot's rank among free
@@ -340,6 +361,43 @@ def _bulk_push(st, p, mask, times, typ, a0, a1, a2):
     st["ev_type"] = torch.where(write, ctyp, st["ev_type"])
     st["ev_a"] = torch.where(write[..., None], ca, st["ev_a"])
     drop = torch.clamp(cnt - free.sum(-1, keepdim=True), min=0)[..., 0]
+    st["dropped"] += drop
+    return drop
+
+
+def _queue_commit(st, p, slots, ok, root_t, mask=None, times=None, typ=0,
+                  a0=None, a1=None, a2=None):
+    """One fused commit on the tree or calendar queue, in place: pop
+    ``slots`` where ``ok`` ((..., B); None pops nothing), all at
+    ``root_t``, then push the masked entries (None pushes nothing);
+    refresh the root mirror.  Arrays may carry a lane axis.  Returns the
+    dropped entries."""
+    if slots is None:
+        slots = torch.zeros(times.shape[:-1] + (0,), dtype=torch.int64,
+                            device=times.device)
+        ok = slots.bool()
+    if mask is None:
+        times = torch.zeros(slots.shape[:-1] + (0,), device=slots.device)
+        mask, a0, a1, a2 = times.bool(), times, times, times
+    lanes = times.ndim == 2
+    arr = st["evq_tree" if p.queue_impl == "tree" else "evq_cal"]
+    args = (arr, slots, ok, mask, times, EQ._payload(mask, typ, a0, a1, a2))
+    if not lanes:
+        args = EQ._lanes(*args)
+    if p.queue_impl == "tree":
+        drop = EQ._tree_commit_(*args, p.qdepth, p.qsegs, p.queue_cap)
+        root = arr[..., 1, :]
+    else:
+        width = p.cal_width
+        root_t = torch.zeros_like(width) if root_t is None else root_t
+        if not lanes:
+            root_t, width = root_t[None], width[None]
+        drop = EQ._cal_commit_(*args[:3], root_t, *args[3:], p.queue_cap,
+                               width)
+        root = arr[..., 0, :]
+    # a new tensor, so the record a step read stays as it was
+    st["evq_root"] = root.clone()
+    drop = drop if lanes else drop[0]
     st["dropped"] += drop
     return drop
 
@@ -389,22 +447,18 @@ def _apply_staged(st, p, stg):
                                          st["view_t"][g, g])
 
 
-def _commit(st, p, slot, stg):
-    """Pop the event, then push the record's fan-out and the handler's
-    own events in one batch, in that order (the popped slot is free
-    again), and keep the live-entry count."""
-    st["ev_time"][slot].fill_(INF)
+def _push_cols(p, stg):
+    """A staged record's pushes as one batch ``(mask, times, typ, a0, a1,
+    a2)`` — a beacon fan-out's k masked BEACON_RX rows before the
+    handler's own — and the count of entries it pushes; ``(None, 0)``
+    when it pushes nothing."""
     fan, times = stg["fan"], stg["push_t"]
     n = 0 if times is None else times.shape[0]
     if fan is None:
         if times is None:
-            st["evq_len"] -= 1
-            return
-        drop = _bulk_push(st, p, p.ones_b[:n], times,
-                          stg["push_typ"], stg["push_a0"], stg["push_a1"],
-                          stg["push_a2"])
-        st["evq_len"] += n - 1 - drop
-        return
+            return None, 0
+        return (p.ones_b[:n], times, stg["push_typ"], stg["push_a0"],
+                stg["push_a1"], stg["push_a2"]), n
     cols = [fan["mask"], fan["t"], p.rx_typ,
             torch.full((p.k,), fan["g"], dtype=I32, device=p.device),
             p.ar_k, fan["load"].expand(p.k)]
@@ -413,8 +467,29 @@ def _commit(st, p, slot, stg):
                torch.full((n,), stg["push_typ"], dtype=I32, device=p.device),
                stg["push_a0"], stg["push_a1"], stg["push_a2"]]
         cols = [torch.cat([f, h.to(f.dtype)]) for f, h in zip(cols, own)]
-    drop = _bulk_push(st, p, *cols)
-    st["evq_len"] += fan["mask"].sum() + (n - 1) - drop
+    return cols, fan["mask"].sum() + n
+
+
+def _commit(st, p, pop, stg):
+    """Pop the event(s), then push the record's fan-out and the handler's
+    own events in one batch, in that order (the popped slots are free
+    again), and keep the live-entry count.  ``pop`` is ``(slots, ok, t,
+    n)``: the slots (B,) popped where ``ok`` at time ``t``, ``n`` of them;
+    on the linear queue a single pop is ``(slot, None, None, 1)`` with the
+    slot a host int."""
+    slots, ok, t, n_pop = pop
+    cols, n_push = _push_cols(p, stg)
+    if p.queue_impl != "linear":
+        drop = _queue_commit(st, p, slots, ok, t, *(cols or ()))
+    else:
+        if ok is None:
+            st["ev_time"][slots].fill_(INF)
+        else:
+            # a masked entry pops the root slot again: a no-op
+            st["ev_time"].index_fill_(0, torch.where(ok, slots, slots[0]),
+                                      INF)
+        drop = 0 if cols is None else _bulk_push(st, p, *cols)
+    st["evq_len"] += n_push - n_pop - drop
 
 
 def _maybe_beacon(st, p, g, t):
@@ -495,6 +570,55 @@ def _handle_beacon_rx(st, p, t, src, rcv, load):
     st["view_t"][rcv, src] = t
     st["beacons_rx"] += 1
     return _stage_none(p)
+
+
+def _handle_beacon_rx_batch(st, p, t, ok, typ, src, rcv, load):
+    """Deliver the (..., B) beacons ``ok`` of a same-timestamp batch — on a
+    run (``t`` 0-d) or on lanes (``t`` (L,)), as device tensors — from
+    GMN ``src`` to receiver ``rcv`` with load summary ``load``.  Within a
+    run the pairs (src, rcv) are distinct (a pair's arrivals increase in
+    send order), so the element writes commute and equal the
+    one-at-a-time order (``eventq.batch_take``).  A masked entry rewrites
+    the cell (0, 0) with the value it holds: no beacon goes to its
+    sender, so no delivery writes there."""
+    k = p.k
+    rx = ok & (typ == EV_BEACON_RX)
+    sr = torch.where(rx, src * k + rcv, 0)           # bcn_t[src, rcv]
+    rs = torch.where(rx, rcv * k + src, 0)           # view[rcv, src]
+    if rx.ndim == 2:                                 # each lane's (k, k)
+        sr, rs, t = sr + p.lane_cells, rs + p.lane_cells, t[:, None]
+    bcn = st["bcn_t"].view(-1)
+    cur = bcn[sr]
+    # the in-flight entry clears when its latest tracked arrival lands
+    bcn[sr] = torch.where(rx & (cur == t), INF, cur)
+    view, view_t = st["view"].view(-1), st["view_t"].view(-1)
+    view[rs] = torch.where(rx, load.to(I32), view[rs])
+    view_t[rs] = torch.where(rx, t, view_t[rs])
+    st["beacons_rx"] += rx.sum(-1)
+
+
+def _rx_cohort(st, p, t, slot):
+    """The BEACON_RX batch of a BEACON_RX root at ``(t, slot)`` (0-d or
+    (L,)): ``eventq.batch_take`` over the queue's leaves, and each
+    entry's ``(typ, a0, a1, a2)`` as int64 (..., bp, 4)."""
+    q = p.queue_cap
+    if p.queue_impl == "linear":
+        lt, ltyp = st["ev_time"], st["ev_type"]
+    else:
+        tree = p.queue_impl == "tree"
+        lo = (1 << p.qdepth) if tree else 1
+        leaves = st["evq_tree" if tree else "evq_cal"][..., lo:lo + q, :]
+        lt, ltyp = leaves[..., 0], leaves[..., 2]
+    slots, ok = EQ.batch_take(lt, ltyp, t, slot, EV_BEACON_RX, p.bp)
+    idx = slots.clamp(max=q - 1)
+    if p.queue_impl == "linear":
+        pay = torch.cat([st["ev_type"].gather(-1, idx)[..., None],
+                         st["ev_a"].gather(-2, idx[..., None].expand(
+                             idx.shape + (3,)))], -1).to(torch.int64)
+    else:
+        pay = leaves[..., 2:].gather(-2, idx[..., None].expand(
+            idx.shape + (4,))).to(torch.int64)
+    return slots, ok, pay
 
 
 def _handle_arrive(st, p, t, app, g, _unused, lengths):
@@ -645,22 +769,35 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                                                      parent_gmns),
         EV_BEACON_RX: lambda t, a: _handle_beacon_rx(st, p, t, *a),
     }
+    linear = p.queue_impl == "linear"
     while True:
-        slot = torch.argmin(st["ev_time"]).reshape(1)
-        t = st["ev_time"].index_select(0, slot)
+        if linear:
+            slot = torch.argmin(st["ev_time"]).reshape(1)
+            t = st["ev_time"].index_select(0, slot)
+            head = torch.cat([t, slot.to(F32),
+                              st["ev_type"].index_select(0, slot).to(F32),
+                              st["ev_a"].index_select(0, slot)[0].to(F32)])
+        else:
+            head = st["evq_root"]
         # the loop's one device->host read: (t, slot, typ, a0, a1, a2)
-        head = torch.cat([t, slot.to(F32),
-                          st["ev_type"].index_select(0, slot).to(F32),
-                          st["ev_a"].index_select(0, slot)[0].to(F32)])
         t_h, slot_h, typ, a0, a1, a2 = head.tolist()
         if t_h >= INF:
             break
-        t = t.reshape(())
+        t, typ = head[0], int(typ)
+        # occupancy high-water mark, sampled before the pop
         st["evq_peak"] = torch.maximum(st["evq_peak"], st["evq_len"])
+        if typ == EV_BEACON_RX and p.bp > 1:
+            slots, ok, pay = _rx_cohort(st, p, t, head[1].to(torch.int64))
+            _handle_beacon_rx_batch(st, p, t, ok, *pay.unbind(-1))
+            n_pop = ok.sum()
+            st["events_processed"] += n_pop
+            _commit(st, p, (slots, ok, t, n_pop), _stage_none(p))
+            continue
         st["events_processed"] += 1
-        stg = handlers[int(typ)](t, (int(a0), int(a1), int(a2)))
+        stg = handlers[typ](t, (int(a0), int(a1), int(a2)))
         _apply_staged(st, p, stg)
-        _commit(st, p, int(slot_h), stg)
+        _commit(st, p, (int(slot_h), None, None, 1) if linear
+                else (head[1:2].to(torch.int64), p.ones_b[:1], t, 1), stg)
     return st
 
 

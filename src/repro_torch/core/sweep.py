@@ -127,8 +127,8 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
     mode      "vmap" (one lane-batched loop), "seq" (one run per lane) or
               "auto" (seq on the CPU, vmap on the card); equal results.
     topology  any fabric of ``core/transport`` (a Topology or its kind).
-    queue_impl, batch_pop   overrides of the shape's fields; only the
-              linear queue with batch_pop=1 is ported (ROADMAP item 5.2).
+    queue_impl, batch_pop   overrides of the shape's fields (every
+              queue of ``core/eventq`` and window of ``batch_pop``).
     faults, trace   only None is ported (ROADMAP items 8 and 9).
 
     Returns the final-state dict with every leaf batched to (B, S, ...).

@@ -121,3 +121,22 @@ def test_fabric_goldens_shape():
                 assert ((drop == 0) & (rx == full)
                         | (drop > 0) & (peak == cap) & (rx < full)
                         & (full <= rx + drop)).all(), (sim_len, k, topo)
+
+
+def test_cut_goldens_shape():
+    """The frozen digests of the paper tier's cut points cover k=1 at
+    2.5e5 and k=256 at 2.5e5 and 1e5 on their fabrics; k=1 sends no
+    beacon, every k=256 lane conserves its beacons and drops nothing in
+    its 32,768-slot queue, and both fabrics at k=256 fire and run the
+    same number of events where their beacons agree."""
+    for k in G.CUT_KS:
+        for sim_len in G.CUT_SIM_LENS[k]:
+            assert set(G.CUTS[sim_len][k]) == set(G.CUT_TOPOLOGIES[k])
+    assert set(G.CUTS) == {s for k in G.CUT_KS for s in G.CUT_SIM_LENS[k]}
+    k1 = G.CUTS[2.5e5][1]["ideal"]
+    assert k1["beacons_tx"] == k1["beacons_rx"] == [0, 0]
+    for sim_len in G.CUT_SIM_LENS[256]:
+        for row in G.CUTS[sim_len][256].values():
+            tx, rx = np.array(row["beacons_tx"]), np.array(row["beacons_rx"])
+            assert (rx == 255 * tx).all() and row["dropped"] == [0, 0]
+            assert max(row["evq_peak"]) < G.cut_params(256)["queue_cap"]

@@ -1,8 +1,10 @@
 """The port's paper runners (repro_torch.benchmarks.*) against the
 reference's (benchmarks/*.py) on the CPU at tiny sizes: the same
 arguments give the same results JSON — curves, rows, claim booleans,
-embedded spec and meta block — except wall-clock fields and the
-reference's count of compiled programs (the port compiles none)."""
+embedded spec and meta block — except wall-clock fields, the
+reference's count of compiled programs (the port compiles none) and its
+count of the compiled loop's copy bytes and its XLA:CPU cost anchor
+(``topology_frontier``: the port has no compiled program to count)."""
 import importlib
 import json
 import sys
@@ -19,9 +21,14 @@ from repro_torch.benchmarks import common as port_common  # noqa: E402
 # wall-clock fields and the compile count: measured, not computed
 SKIP = {"us_per_batch", "us_per_decision", "flat_argmin_us_per_batch",
         "sweep_s", "events_per_sec", "us_per_event", "wall_s",
-        "lane_wall_s", "n_compiles"}
+        "lane_wall_s", "n_compiles", "copy_bytes_per_iter", "cold_wall_s",
+        "warm_wall_s", "warm_events_per_sec", "marginal_wall_s",
+        "compile_s"}
 # what the port's payloads add: K1's assignments against its plain version
 PORT_ONLY = {"two_stage_matches_plain"}
+# what only the reference's have: the XLA loop body's copy bytes and the
+# reference's own XLA:CPU cost anchor (topology_frontier)
+REF_ONLY = {"copy_bytes_per_iter", "pr1_reference"}
 
 CASES = {
     "fig2a": {},
@@ -38,9 +45,9 @@ CASES = {
 def _same(got, want, path=""):
     """Recursive equality but for the SKIP keys; lists and floats exact."""
     if isinstance(want, dict):
-        assert set(got) - PORT_ONLY == set(want), path
+        assert set(got) - PORT_ONLY == set(want) - REF_ONLY, path
         for k, v in want.items():
-            if k not in SKIP:
+            if k not in SKIP | REF_ONLY:
                 _same(got[k], v, f"{path}.{k}")
     elif isinstance(want, list):
         assert len(got) == len(want), path
@@ -68,3 +75,43 @@ def test_runner_payload_equals_reference(name, tmp_path, monkeypatch,
     if name == "scheduler_overhead":
         assert all(got["two_stage_matches_plain"].values())
         assert set(got["two_stage_matches_plain"]) == set(got["two_stage"])
+
+
+# topology_frontier's paper_tiny tier cut to m=16 and sim_len 1e5: the
+# tree queue with batch_pop 64, its queue head-to-head, k=1 replicated
+TINY_TREE = dict(m=16, ks=(1, 4, 16), n_childs=16, max_apps=32,
+                 queue_cap={16: 1024}, default_queue_cap=512, c_s=40.0,
+                 dn_th=4, sim_len=1e5, pair_periods=(26_000.0,),
+                 seeds=(0, 1), queue_impl="tree", batch_pop=64,
+                 topologies=("ideal", "hier_tree", "mesh2d"))
+
+
+def test_topology_frontier_payload_equals_reference(tmp_path, monkeypatch,
+                                                    capsys):
+    monkeypatch.setattr(ref_common, "RESULTS_DIR", str(tmp_path))
+    monkeypatch.setattr(port_common, "RESULTS_DIR", str(tmp_path / "torch"))
+    ref = importlib.import_module("benchmarks.topology_frontier")
+    port = importlib.import_module(
+        "repro_torch.benchmarks.topology_frontier")
+    monkeypatch.setitem(ref.GRIDS, "paper_tiny", TINY_TREE)
+    monkeypatch.setitem(port.GRIDS, "paper_tiny", TINY_TREE)
+    monkeypatch.setattr(ref, "BENCH_PATH", str(tmp_path / "bench.json"))
+    monkeypatch.setattr(ref, "_copy_bytes_for", lambda *a, **kw: 0)
+    ref.run(grid="paper_tiny")
+    got = port.run(grid="paper_tiny", device="cpu")
+    want = json.loads((tmp_path / "topology_frontier.json").read_text())
+    written = json.loads((tmp_path / "torch" / "topology_frontier.json")
+                         .read_text())
+    _same(written, want)
+    assert written == json.loads(json.dumps(got, default=float))
+    assert not (tmp_path / "torch" / "bench.json").exists()
+    assert len(got["queue_head_to_head"]) == 6
+    assert all(got[f"claim_{c}"] for c in (
+        "tree_matches_linear_bitwise", "calendar_matches_linear_bitwise",
+        "batched_matches_singleton_bitwise", "ideal_bitwise_vs_run"))
+    lines = capsys.readouterr().out.strip().splitlines()
+    half = len(lines) // 2
+    assert len(lines) == 2 * half
+    assert lines[0].split(",")[0] == lines[half].split(",")[0]
+    assert [ln.split(":")[0] for ln in lines[1:half]] \
+        == [ln.split(":")[0] for ln in lines[half + 1:]]

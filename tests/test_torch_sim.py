@@ -72,7 +72,9 @@ def test_queue_overflow_drops_match_reference():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(queue_impl="tree"), "5.2"), (dict(batch_pop=2), "5.2"),
+    (dict(mapping="suspect_weighted"), "8"),
+    (dict(beacon="heartbeat", topology="hier_tree", queue_impl="calendar",
+          batch_pop=8), "8"),
     (dict(mapping="avoid_suspected"), "8"), (dict(beacon="heartbeat"), "8"),
 ])
 def test_unported_configurations_raise(change, item):

@@ -218,7 +218,9 @@ def test_knob_builders_match_reference_and_validate():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(faults=object()), "8"), (dict(trace=object()), "9"),
-    (dict(queue_impl="tree"), "5.2"), (dict(batch_pop=2), "5.2"),
+    (dict(policy=SimPolicy(mapping="avoid_suspected")), "8"),
+    (dict(policy=SimPolicy(beacon="heartbeat"), queue_impl="tree",
+          batch_pop=2), "8"),
 ])
 def test_unported_configurations_raise(kwargs, item):
     p = SimParams(**SMALL, k=4)
