@@ -73,10 +73,11 @@ any failure ends the run with a non-zero exit:
             max_apps=64, queue_cap=8192, c_s=8, dn_th=4, interference
             seeds 1-2 at pair_period 14,000: 3 groups of 2 lanes;
             ``mesh2d``, and ``hier_tree`` at k=32, run in phase 13 on the
-            tree queue): ``hier_tree`` at k=16 at sim_len 2.5e5 (34 of
-            the 64 applications), then the rest and the seq runs at 1e6
-            — or 1e5, said in the line, when the ``hier_tree`` group's
-            rate would put 1e6 over the phase's 150 s — against the JAX
+            tree queue): ``hier_tree`` at k=16 at sim_len 1e5 (the
+            probe, and the baseline of phases 13 and 14), then the rest
+            and the seq runs at 1e6 — or 1e5, said in the line, when the
+            probe's rate would put 1e6 over the phase's 150 s — against
+            the JAX
             reference's frozen digests (``goldens.FABRICS``), with
             ``beacons_rx == (k-1) * beacons_tx`` and an empty ``bcn_t``
             on every lane whose queue dropped nothing (where the
@@ -98,9 +99,9 @@ any failure ends the run with a non-zero exit:
             loop at the same tier, seeds 1-2: at k=16 on ``hier_tree`` every
             queue with batch_pop 1 at
             sim_len 2e4 equal to the linear queue leaf for leaf (but
-            the queue's own leaves), and with batch_pop 64 at 2.5e5
+            the queue's own leaves), and with batch_pop 64 at 1e5
             equal to ``goldens.FABRICS``; the tree queue with batch_pop
-            64 at k=32 on ``hier_tree`` and ``mesh2d`` equal to
+            64 at k=32 on ``hier_tree`` and ``mesh2d`` at 1e5 equal to
             ``goldens.FABRICS``; the tier's cut points: k=1 at 2.5e5
             (linear queue), and k=256 (32,768 slots, tree/64) on
             ``hier_tree`` and ``mesh2d`` at 1e5, equal to
@@ -108,26 +109,47 @@ any failure ends the run with a non-zero exit:
             an empty ``bcn_t`` on every drop-free lane; seed 1 of the
             k=16 tree/64 run in ``"seq"`` mode equal to its vmap lane;
             steps and events/s of every run (the k=16 ones against phase
-            ``fabrics``' linear run at 2.5e5), and of each k=16 combo at
+            ``fabrics``' linear run at 1e5), and of each k=16 combo at
             sim_len 2e4 (linear/1's from phase 12) the kernels, device
             busy time and host reads a step, split by step kind;
-14. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+14. faults  fault injection and the failure detector through the lane
+            loop at the same tier (k=16, linear queue, 2 lanes a group,
+            sim_len 1e5, the fault times scaled to it; the groups of
+            ``goldens.fault_specs``): ``hier_tree`` under no fault,
+            Poisson link failures, a partition and GMN churn, ``mesh2d``
+            under the partition, and the detector tier under a
+            power-domain outage (``min_search``, ``avoid_suspected``,
+            ``suspect_weighted`` under periodic beacons,
+            ``avoid_suspected`` under heartbeat) against
+            ``goldens.FAULTS``; the no-fault group also against
+            ``goldens.FABRICS`` (and its events/s against phase 12's
+            no-fault probe on the same lanes); ``beacons_rx + msgs_lost
+            == (k-1) * beacons_tx + retries_tx`` on drop-free lanes,
+            every arrived application complete, the partition's outage
+            exactly in ``downtime``; seed 1 of the partition group in
+            ``"seq"`` mode equal to its vmap lane; events/s of each
+            group; at sim_len 2e4 the kernels, device busy time and host
+            reads a step of the no-fault group (steps 51-250, as phase
+            12's linear/1) and of the outage group inside its outage
+            (steps 301-700);
+15. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
             forward on the card (K2, K3) against the same weights on
             the CPU (plain versions);
-15. lm_prefill the full-width 16-layer Jamba in bf16: one
+16. lm_prefill the full-width 16-layer Jamba in bf16: one
             ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
             twice and K3 14 times and give finite logits; then timed
             (tokens/s) and profiled (device time by kernel);
-16. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+17. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
 
-then the ``kernels`` line and, last, the ``{"ok": true, "device": ...}``
-line.  Each main path reads its own launch counts, zeroed just before
-it and read just after: the TLM path (phases 7-8: K1), the sweep
-(phase 11: K1, from ``scheduler_overhead``), the fabrics (phase 12)
-and the queues (phase 13), which launch none of the three kernels, the
-prefill (phase 15: K2, K3) and ``serve()`` (phase 16, whose decode
-steps are plain torch).  The comparison launches of phases 3-5 and 14
+then a line of each phase's seconds, the ``kernels`` line and, last,
+the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
+launch counts, zeroed just before it and read just after: the TLM path
+(phases 7-8: K1), the sweep (phase 11: K1, from
+``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13)
+and the faults (phase 14), which launch none of the three kernels, the
+prefill (phase 16: K2, K3) and ``serve()`` (phase 17, whose decode
+steps are plain torch).  The comparison launches of phases 3-5 and 15
 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
@@ -808,7 +830,9 @@ def phase_sweep() -> int:
 # --------------------------------------------------------------------------
 
 FABRIC_BUDGET_S = 150.0        # the phase's share of TIME_LIMIT_S
-FABRIC_PROBE_SIM_LEN = 2.5e5   # the k=16 hier_tree probe
+# the k=16 hier_tree probe, and the horizon of phase queues' runs and of
+# phase faults: 1e5 keeps the script under TIME_LIMIT_S on slow hosts
+FABRIC_PROBE_SIM_LEN = 1e5
 FABRIC_CUT_SIM_LEN = 1e5       # the other runs where 1e6 does not fit
 FABRIC_COUNT_SIM_LEN = 2e4     # the horizon kernels per step are split at
 # the groups run here (the script's time limit leaves no room for the
@@ -896,16 +920,16 @@ def _step_profile(run, skip=0, steps=None):
     return out, by, before
 
 
-def _count(run, phase: str) -> dict:
+def _count(run, phase: str, window=COUNT_WINDOW) -> dict:
     """Steps, kernels, device busy time and host reads a step of ``run``
-    (one lane loop): one run under torch's sync debug mode with lane
-    steps 51-250 under ``torch.profiler`` (:func:`_step_profile`;
-    ``COUNT_WINDOW``), split by step kind.  No busy share: the profiler's
-    own host cost stretches the window's wall time.  Fails unless every
-    step reads the card once."""
+    (one lane loop): one run under torch's sync debug mode with the lane
+    steps of ``window`` (skip, steps: 51-250 by default) under
+    ``torch.profiler`` (:func:`_step_profile`), split by step kind.  No
+    busy share: the profiler's own host cost stretches the window's wall
+    time.  Fails unless every step reads the card once."""
     with _Steps() as steps:
         (_, by, before), lines = _sync_lines(
-            lambda: _step_profile(run, *COUNT_WINDOW))
+            lambda: _step_profile(run, *window))
     n = steps.n
     read_line, reads = lines.most_common(1)[0]
     others = sum(lines.values()) - reads
@@ -915,7 +939,9 @@ def _count(run, phase: str) -> dict:
                              f"for {n} steps")
     profiled = sum(b["steps"] for b in by.values())
     busy_us = sum(b["busy_ns"] for b in by.values()) / 1e3 / max(profiled, 1)
-    return {"steps": n, "profiled_steps": profiled,
+    kernels = sum(b["kernels"] for b in by.values()) / max(profiled, 1)
+    return {"steps": n, "window": list(window), "profiled_steps": profiled,
+            "kernels_per_step": kernels,
             "events_before_steps": before,
             "by_step_kind": {nm.split(".")[1]: {
                 "steps": b["steps"],
@@ -941,7 +967,7 @@ def phase_fabrics():
     from repro_torch.core.sim import SimParams
     t_phase = time.perf_counter()
 
-    # probe: the k=16 hier_tree group at 2.5e5; its rate a step predicts
+    # probe: the k=16 hier_tree group at 1e5; its rate a step predicts
     # the phase at 1e6 (steps: each group's longest lane, from the frozen
     # digests; a seq event counted as one step), else the other groups
     # and the seq runs take the cut horizon
@@ -1093,6 +1119,7 @@ QUEUE_COUNT_SIM_LEN = FABRIC_COUNT_SIM_LEN   # linear/1's count is fabrics'
 # k=256's horizon: goldens.CUTS' fallback, since both fabrics at 2.5e5
 # would take about 140 s more on the slowest host seen
 QUEUE_CUT_SIM_LEN = 1e5
+QUEUE_K1_SIM_LEN = 2.5e5        # k=1's (its only golden: a few seconds)
 
 
 class _Steps:
@@ -1188,7 +1215,7 @@ def phase_queues(linear):
     k=256), a seq run equal to its vmap lane, and each k=16 combo's
     steps, events/s, kernels, busy time and reads a step.
     ``linear["probe"]`` is phase ``fabrics``' k=16 ``hier_tree`` linear
-    run at 2.5e5, the baseline of the events/s ratios, and its count of
+    run at 1e5, the baseline of the events/s ratios, and its count of
     linear/1 (``linear``: ``probe`` and ``count``)."""
     import torch
     from repro_torch.core import goldens as G
@@ -1221,7 +1248,7 @@ def phase_queues(linear):
         elif set(leaves) != set(base) or not all(
                 np.array_equal(leaves[key], base[key]) for key in base):
             bad.append((qi, 1, "differs from linear/1"))
-    # ... and batch_pop 64 at 2.5e5 against the reference's digests
+    # ... and batch_pop 64 at 1e5 against the reference's digests
     want = G.FABRICS[FABRIC_PROBE_SIM_LEN]
     states = {}
     for qi in QUEUE_IMPLS:
@@ -1279,11 +1306,11 @@ def phase_queues(linear):
     # window changes a bit)
     cuts = G.CUTS
     q1 = (G.CUT_QUEUES[1]["queue_impl"], G.CUT_QUEUES[1]["batch_pop"])
-    run = _queue_group(1, "ideal", FABRIC_PROBE_SIM_LEN, *q1)
+    run = _queue_group(1, "ideal", QUEUE_K1_SIM_LEN, *q1)
     st = run[0]
-    rows.append(_queue_row(1, "ideal", FABRIC_PROBE_SIM_LEN, *q1, run))
+    rows.append(_queue_row(1, "ideal", QUEUE_K1_SIM_LEN, *q1, run))
     check((1, "ideal"), G.state_digest(st),
-          cuts[FABRIC_PROBE_SIM_LEN][1]["ideal"])
+          cuts[QUEUE_K1_SIM_LEN][1]["ideal"])
     if not _queue_gates(st, 1, "ideal"):
         bad.append((1, "transport gates"))
     for topo256 in G.CUT_TOPOLOGIES[256]:
@@ -1309,6 +1336,150 @@ def phase_queues(linear):
           "linear_1_baseline": dict(linear["probe"], events_per_s=lin,
                                     source="phase fabrics' probe"),
           "runs": rows, "seq": seq, "count": counts,
+          "wall_s": time.perf_counter() - t_phase})
+
+
+# --------------------------------------------------------------------------
+# Fault injection and the failure detector
+# --------------------------------------------------------------------------
+
+FAULT_COUNT_SIM_LEN = 2e4       # the horizon kernels per step are split at
+# the no-fault group's window is phase fabrics' (steps 51-250); the
+# outage group's lies inside its outage (0.3-0.8 of the horizon)
+FAULT_OUTAGE_WINDOW = (300, 400)
+FAULT_SEQ_KEY = "hier_tree/min_search/threshold/partition"
+FAULT_NONE_KEY = "hier_tree/min_search/threshold/none"
+
+
+def phase_faults(linear):
+    """Fault injection and the failure detector through the lane loop at
+    ``topology_frontier``'s paper tier (``goldens.fault_specs``): every
+    group against the JAX reference's frozen digests
+    (``goldens.FAULTS``), the no-fault group also against
+    ``goldens.FABRICS`` and, for its cost, against phase ``fabrics``'
+    no-fault probe on the same lanes (``linear``), conservation with
+    losses and retries, completion, the partition's downtime, a seq run
+    equal to its vmap lane, and kernels, busy time and reads a step."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.policies import SimPolicy
+    from repro_torch.core.sim import SimParams
+    t_phase = time.perf_counter()
+    sim_len = G.FAULT_SIM_LEN
+    frames = [spec.run() for spec in G.fault_specs(
+        ExperimentSpec, WorkloadSpec, SimParams, FaultSpec, mode="vmap")]
+    groups = {G.fault_key(g.coords()): g for fr in frames
+              for g in fr.groups}
+    bad = []
+    got = G.fault_digests(frames)
+    if set(got) != set(G.FAULTS):
+        bad.append(("groups", sorted(got), sorted(G.FAULTS)))
+    for key, want in G.FAULTS.items():
+        for name, w in want.items():
+            if got.get(key, {}).get(name) != w:
+                bad.append((key, name, got.get(key, {}).get(name), w))
+    # the fault-aware program with no event is the no-fault one
+    none = G.state_digest(groups[FAULT_NONE_KEY].state)
+    for name, w in G.FABRICS[sim_len][G.FAULT_K]["hier_tree"].items():
+        ok = np.allclose(none[name], w, rtol=1e-5) \
+            if name == "mgmt_latency" else none[name] == w
+        if not ok:
+            bad.append(("none against FABRICS", name, none[name], w))
+    k = G.FAULT_K
+    cut = 2 * (k // 2) * (k - k // 2)      # the partition's directed links
+    rows = []
+    for key, g in groups.items():
+        st = {name: np.asarray(v) for name, v in g.state.items()}
+        tx, rx, lost, rtr, drop = (st[n].ravel() for n in (
+            "beacons_tx", "beacons_rx", "msgs_lost", "retries_tx",
+            "dropped"))
+        if not ((drop > 0) | (rx + lost == (k - 1) * tx + rtr)).all():
+            bad.append((key, "conservation", tx.tolist(), rx.tolist(),
+                        lost.tolist(), rtr.tolist()))
+        arrived = st["app_arrive"] < 1e17
+        if not (st["app_done"][arrived] < 1e17).all():
+            bad.append((key, "an arrived application never completed"))
+        if g.fault_label == "partition" and not (
+                st["downtime"] == np.float32(cut * 0.3 * sim_len)).all():
+            bad.append((key, "downtime", st["downtime"].tolist()))
+        ev = st["events_processed"]
+        rows.append({"group": key, "lanes": int(ev.size),
+                     "steps": int(ev.max()), "events": int(ev.sum()),
+                     "wall_s": g.wall_s,
+                     "events_per_s": int(ev.sum()) / g.wall_s,
+                     "msgs_lost": lost.tolist(), "retries_tx": rtr.tolist(),
+                     "reroutes": st["reroutes"].ravel().tolist(),
+                     "susp_onsets": st["susp_onsets"].reshape(
+                         ev.size, -1).sum(1).tolist(),
+                     "susp_false_pos": st["susp_false_pos"].ravel()
+                     .tolist()})
+
+    # seq: seed 1 of the partition group through the single loop
+    g = groups[FAULT_SEQ_KEY]
+    p = SimParams(k=k, **G.FABRIC_PARAMS)
+    wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS[:1], sim_len=sim_len,
+                              pair_period=G.FABRIC_PAIR_PERIOD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = SW.sweep(g.combo.shape, SW.knob_batch(**G.FABRIC_KNOBS), wl,
+                  sim_len, mode="seq", topology=g.combo.topology,
+                  policy=g.combo.policy, faults=g.fault)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lane = {key: v[0, 0] for key, v in g.state.items()}
+    if set(st) != set(lane) or not all(
+            np.allclose(st[key][0, 0].cpu().numpy(), lane[key], rtol=1e-5)
+            if key == "mgmt_latency"
+            else np.array_equal(st[key][0, 0].cpu().numpy(), lane[key])
+            for key in lane):
+        bad.append(("seq", FAULT_SEQ_KEY, "differs from its vmap lane"))
+    if bad:
+        raise AssertionError(f"faults: gates failed {bad}")
+    ev = int(st["events_processed"].sum())
+    seq = {"group": FAULT_SEQ_KEY, "seed": G.FABRIC_SEEDS[0],
+           "sim_len": sim_len, "events": ev, "wall_s": wall,
+           "events_per_s": ev / wall}
+
+    # kernels, busy time and reads a step at a short horizon: the
+    # no-fault group (against phase fabrics' linear/1 count), and the
+    # detector tier's outage group inside its outage
+    pc = SimParams(k=k, **G.FABRIC_PARAMS)
+    wl_c = W.interference_batch(pc, seeds=G.FABRIC_SEEDS,
+                                sim_len=FAULT_COUNT_SIM_LEN,
+                                pair_period=G.FABRIC_PAIR_PERIOD)
+    sl = FAULT_COUNT_SIM_LEN
+    counts = {
+        "none": _count(lambda: SW.sweep(
+            pc.shape, SW.knob_batch(**G.FABRIC_KNOBS), wl_c, sl,
+            mode="vmap", topology="hier_tree", faults=FaultSpec.none()),
+            "faults"),
+        "gmn_outage/avoid_suspected/periodic": _count(lambda: SW.sweep(
+            pc.shape, SW.knob_batch(**G.DETECTOR_KNOBS), wl_c, sl,
+            mode="vmap", topology="hier_tree",
+            policy=SimPolicy("avoid_suspected", "periodic"),
+            faults=FaultSpec.gmn_outage(t_down=0.3 * sl, t_heal=0.8 * sl)),
+            "faults", FAULT_OUTAGE_WINDOW)}
+    base = linear["probe"]
+    none_row = next(r for r in rows if r["group"] == FAULT_NONE_KEY)
+    emit({"phase": "faults", "sim_len": sim_len, "mode": "vmap",
+          "k": k, "queue": "linear/1", "digests_match": True,
+          "none_equals_fabrics": True, "conservation": True,
+          "complete": True, "downtime": True, "seq_equals_vmap": True,
+          "groups": rows, "seq": seq,
+          "none_against_no_fault": {
+              "no_fault_events_per_s": base["events"] / base["wall_s"],
+              "no_fault_steps": base["steps"],
+              "fault_aware_events_per_s": none_row["events_per_s"],
+              "fault_aware_steps": none_row["steps"],
+              "ratio": none_row["events_per_s"]
+              / (base["events"] / base["wall_s"]),
+              "source": "phase fabrics' probe"},
+          "count": {"sim_len": sl, **counts,
+                    "no_fault_linear_1": linear["count"]},
           "wall_s": time.perf_counter() - t_phase})
 
 
@@ -1715,39 +1886,57 @@ def main() -> int:
     from repro_torch.kernels import hier_minsearch as HM
     from repro_torch.kernels import selective_scan as SS
 
-    phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k3 = phase_k3()
-    rate = phase_golden()
+    t_script, seconds = time.perf_counter(), {}
+
+    def timed(phase, *args):
+        """Run one phase, keeping its seconds for the summary line."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.removeprefix("phase_")] = \
+            time.perf_counter() - t0
+        return out
+
+    timed(phase_device)
+    timed(phase_build)
+    k1 = timed(phase_k1)
+    k2 = timed(phase_k2)
+    k3 = timed(phase_k3)
+    rate = timed(phase_golden)
     FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
-    phase_paper(rate)
-    phase_mapper()
+    timed(phase_paper, rate)
+    timed(phase_mapper)
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
-    phase_syncs(*phase_profile())
+    timed(phase_syncs, *timed(phase_profile))
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
-    sweep_launches = phase_sweep()
+    sweep_launches = timed(phase_sweep)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
         raise AssertionError("the sweep path launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     FA.launches = SS.launches = HM.launches = 0   # the fabric path starts
-    linear = phase_fabrics()
+    linear = timed(phase_fabrics)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the fabric path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     FA.launches = SS.launches = HM.launches = 0   # the queue path starts
-    phase_queues(linear)
+    timed(phase_queues, linear)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the queue path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
-    phase_lm_small()
-    prefill = phase_lm_prefill()
-    phase_lm_serve()
+    FA.launches = SS.launches = HM.launches = 0   # the fault path starts
+    timed(phase_faults, linear)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the fault path (no kernel of its own) "
+                             "launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
+    timed(phase_lm_small)
+    prefill = timed(phase_lm_prefill)
+    timed(phase_lm_serve)
+    emit({"phase_seconds": seconds,
+          "script_s": time.perf_counter() - t_script})
     rows = [(HM, tlm_launches + sweep_launches, k1),
             (FA, prefill["flash_attention"], k2),
             (SS, prefill["selective_scan"], k3)]

@@ -36,8 +36,11 @@ Grid tiers (the reference's):
   paper       the paper's scale: m=256, k in {1, 16, 32, 256} across
               ideal/hier_tree/mesh2d on the tree queue, batch_pop=64.
 
-Three departures from the reference:
+Four departures from the reference:
 
+- **No ``claim_one_program_per_group``.**  It counts the XLA programs
+  the reference compiles against its planner's count; the port compiles
+  none, so there is nothing to claim.
 - **No ``copy_bytes_per_iter``.**  The reference counts the loop body's
   buffer copies in its compiled XLA program (``_copy_bytes_for``); the
   port's loop is eager torch, with no program to count (ROADMAP items
@@ -241,7 +244,6 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
         == int(st0["beacons_tx"]))
 
     n_compiles = sum(f.compiles for f in frames)
-    expected = sum(f.expected_programs for f in frames)
     payload = {
         "grid": grid,
         "rows": rows,
@@ -253,7 +255,6 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
                        "(vs k=1) and communication (vs k=m) overhead of "
                        "run-time management (Sec 5.4, Table 5)",
         "n_compiles": n_compiles,
-        "claim_one_program_per_group": n_compiles <= expected,
         "claim_ideal_bitwise_vs_run": ideal_bitwise,
         "claim_clustered_lowest_total_mgmt_latency": bool(clustered_wins),
         "claim_skew_heterogeneous_nonideal": bool(all(skew_hetero.values())),

@@ -6,10 +6,10 @@ report becomes a broadcast is decided by the selected beacon policy
 (``core/policies.host_beacon_due``): ``threshold`` — the paper's rule,
 broadcast when the load drifted >= dn_th from the last broadcast value;
 ``periodic`` — every T_b time units; ``hybrid`` — threshold with a T_b
-deadline.  The event loop implements the same policies in the tick
-domain (``core/sim._maybe_beacon``); this host numpy twin serves
-host-side analysis.  The ``heartbeat`` plane needs the fault machinery
-(ROADMAP item 8) and raises ``NotImplementedError``.
+deadline; ``heartbeat`` — periodic's rule (in the wall-clock domain the
+timer plane is the caller's clock).  The event loop implements the same
+policies in the tick domain (``core/sim._maybe_beacon``); this host
+numpy twin serves host-side analysis.
 """
 from __future__ import annotations
 
@@ -38,10 +38,7 @@ class BeaconState:
     @classmethod
     def create(cls, k: int, dn_th: int, *, policy: str = "threshold",
                T_b: float = float("inf")):
-        if policy == "heartbeat":
-            raise NotImplementedError(f"beacon policy 'heartbeat' "
-                                      f"{P._FAULTS_ITEM}")
-        if policy not in P.BEACON_POLICIES:
+        if policy not in P.ALL_BEACON_POLICIES:
             raise ValueError(f"unknown beacon policy {policy!r}; "
                              f"choose from {P.ALL_BEACON_POLICIES}")
         return cls(k=k, dn_th=dn_th, policy=policy, T_b=T_b,

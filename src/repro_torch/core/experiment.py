@@ -30,12 +30,20 @@ runs through :mod:`repro_torch.core.sweep`'s engines:
 program, so ``ResultFrame.compiles`` is 0; every payload key keeps the
 reference's name, so a results JSON has the reference's schema.
 
+The **faults axis** rides beside the workload axis: ``faults=(None,
+FaultSpec.poisson_links(seed=0), ...)`` crosses every static combo with
+each fault scenario (the port's :class:`~repro_torch.core.faults.FaultSpec`
+or a reference FaultSpec serialized as a dict).  One schedule is built
+per (scenario, k), padded to the axis' common length as in the
+reference, and every lane of a group meets it; each scenario becomes a
+``fault`` coordinate and the ``msgs_lost`` / ``reroutes`` / ``downtime``
+and detector columns (zero-filled for ``None`` groups).
+
 The planner and :func:`spec_from_dict` accept every spec the reference
-accepts (``SPEC_VERSION = 4`` payloads, fault scenarios and trace specs
-kept as their serialized dicts); only ``run()`` refuses what the port
-cannot run yet: fault scenarios (ROADMAP item 8), a trace (item 9), and
-the unported policies (``sim._require_ported``).  Every fabric and every
-queue runs, in every mode.
+accepts (``SPEC_VERSION = 4`` payloads; a trace spec kept as its
+serialized dict); only ``run()`` refuses what the port cannot run yet: a
+trace (ROADMAP item 9) and ``pmap`` over several cards (item 12).  Every
+fabric, queue, policy and fault scenario runs, in every mode.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import faults as FLT
 from repro_torch.core import metrics as M
 from repro_torch.core import sweep as SW
 from repro_torch.core import workloads as W
@@ -271,8 +280,9 @@ class ExperimentSpec:
                    (``{"dn_th": (1, 2, 4), "c_s": (8.0,)}``).
                    None -> one config from ``base``.
       workloads    WorkloadSpec tuple — the scenario/seed axis.
-      faults       fault-scenario axis: ``None`` and/or serialized
-                   reference FaultSpecs (dicts); default (None,).
+      faults       fault-scenario axis: ``None`` (the no-fault program)
+                   and/or FaultSpecs (or their serialized dicts),
+                   crossed with every group; default (None,).
 
       trace        None, or a serialized reference TraceSpec (a dict).
 
@@ -356,14 +366,14 @@ class ExperimentSpec:
             raise ValueError("need at least one WorkloadSpec")
 
         flts = self.faults
-        if flts is None or isinstance(flts, dict):
+        if flts is None or isinstance(flts, (dict, FLT.FaultSpec)):
             flts = (flts,)
-        flts = tuple(flts)
+        flts = tuple(FLT.FaultSpec.from_dict(f) if isinstance(f, dict)
+                     else f for f in flts)
         for f in flts:
-            if f is not None and not isinstance(f, dict):
-                raise TypeError(f"faults entries must be None or a "
-                                f"serialized FaultSpec (dict), got "
-                                f"{type(f).__name__}")
+            if f is not None and not isinstance(f, FLT.FaultSpec):
+                raise TypeError(f"faults entries must be None or FaultSpec "
+                                f"(or its dict), got {type(f).__name__}")
         if not flts:
             raise ValueError("faults needs at least one entry "
                              "(use (None,) for no faults)")
@@ -399,9 +409,6 @@ class ExperimentSpec:
     def run(self, mode: str | None = None, device=None) -> "ResultFrame":
         """Run every group on ``device`` (default: the CUDA card)."""
         plan = self.plan()
-        if any(f is not None for f in self.faults):
-            raise NotImplementedError("fault scenarios are not ported yet "
-                                      "(ROADMAP item 8)")
         for combo in plan.combos:
             _require_ported(combo.shape, combo.policy, combo.topology,
                             trace=self.trace)
@@ -424,22 +431,41 @@ class ExperimentSpec:
                     for x, dt in zip(wl, (F32, I32, F32))))
             return wl_cache[key]
 
+        f_cache = {}
+
+        def scheds(k):
+            # one build per (fault entry, k), padded to the axis' common
+            # length (the reference's one program per group)
+            if k not in f_cache:
+                built_ = [None if f is None else f.build(k, self.sim_len)
+                          for f in self.faults]
+                cap = max((s.capacity for s in built_ if s is not None),
+                          default=0)
+                f_cache[k] = [None if s is None
+                              else FLT.pad_to(s, cap).to(dev)
+                              for s in built_]
+            return f_cache[k]
+
         t0 = time.time()
         groups = []
         for combo in plan.combos:
             for wi in range(len(self.workloads)):
                 lanes, (arr, gmns, lens) = built(combo, wi)
-                tg = time.time()
-                if resolved == "vmap":
-                    st = {key: _np(v) for key, v in SW._sweep_vmap(
-                        combo.shape, self.knobs, arr, gmns, lens,
-                        self.sim_len, combo.policy, combo.topology).items()}
-                    lane_walls = None
-                else:
-                    st, lane_walls = _exec_seq(combo, self.knobs, arr, gmns,
-                                               lens, self.sim_len)
-                groups.append(_GroupResult(combo, wi, lanes, st, _np(lens),
-                                           time.time() - tg, lane_walls))
+                for f, fs in zip(self.faults, scheds(combo.shape.k)):
+                    tg = time.time()
+                    if resolved == "vmap":
+                        st = {key: _np(v) for key, v in SW._sweep_vmap(
+                            combo.shape, self.knobs, arr, gmns, lens,
+                            self.sim_len, combo.policy, combo.topology,
+                            fs).items()}
+                        lane_walls = None
+                    else:
+                        st, lane_walls = _exec_seq(combo, self.knobs, arr,
+                                                   gmns, lens, self.sim_len,
+                                                   fs)
+                    groups.append(_GroupResult(combo, wi, lanes, st,
+                                               _np(lens), time.time() - tg,
+                                               lane_walls, f))
         wall = time.time() - t0
         n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
         return ResultFrame(self, plan, requested, resolved, groups, wall,
@@ -462,7 +488,8 @@ class ExperimentSpec:
             "knobs": {f: _np(getattr(self.knobs, f)).tolist()
                       for f in KNOB_FIELDS},
             "workloads": [w.to_dict() for w in self.workloads],
-            "faults": list(self.faults),
+            "faults": [None if f is None else f.to_dict()
+                       for f in self.faults],
             "trace": self.trace,
             "sim_len": float(self.sim_len),
             "mode": self.mode,
@@ -527,7 +554,7 @@ def _sync(device) -> None:
 
 
 def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
-              sim_len):
+              sim_len, faults=None):
     """One ``sim.simulate`` run per lane (``sweep``'s seq mode), with
     per-lane walls (each ends in ``torch.cuda.synchronize()`` on the
     card); numpy leaves (B, S, ...)."""
@@ -539,7 +566,7 @@ def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
             tl = time.time()
             out = simulate(combo.shape, SimKnobs(*(v[i] for v in kn)),
                            arr[j], gmns[j], lens[j], sim_len, combo.policy,
-                           combo.topology)
+                           combo.topology, faults)
             _sync(arr.device)
             lane_walls.append(time.time() - tl)
             outs.append({key: _np(v) for key, v in out.items()})
@@ -554,7 +581,8 @@ def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
 
 def _opt_leaf(st: dict, name: str, dtype) -> np.ndarray:
     """A (B, S) scalar state leaf, or zeros of the right shape when the
-    run did not record it (the port records no fault counters yet)."""
+    group's program did not record it (no-fault groups lack the fault
+    counters)."""
     v = st.get(name)
     if v is None:
         v = np.zeros(np.asarray(st["dropped"]).shape)
@@ -563,7 +591,7 @@ def _opt_leaf(st: dict, name: str, dtype) -> np.ndarray:
 
 def _sum_pairs(st: dict, name: str) -> np.ndarray:
     """Per-lane totals of a (B, S, k, k) detector matrix; zeros when the
-    run did not record it."""
+    group ran the no-fault program."""
     v = st.get(name)
     if v is None:
         return np.zeros(np.asarray(st["dropped"]).shape, np.int64)
@@ -580,11 +608,16 @@ class _GroupResult:
     lengths: np.ndarray                 # (S, A, n)
     wall_s: float
     lane_wall_s: list | None            # B*S entries (seq mode) or None
+    fault: object = None                # FaultSpec or None (no-fault)
+
+    @property
+    def fault_label(self) -> str:
+        return self.fault.label if self.fault is not None else "none"
 
     def coords(self) -> dict:
-        """The group's static coordinates; its fault scenario is always
-        "none" (``run()`` refuses the others, ROADMAP item 8)."""
-        return dict(self.combo.coords(), fault="none")
+        """The group's static coordinates and its fault scenario's
+        label."""
+        return dict(self.combo.coords(), fault=self.fault_label)
 
 
 class ResultFrame:
@@ -592,8 +625,9 @@ class ResultFrame:
     point, flat aligned columns for every coordinate and metric.
 
     Point order is group-major (plan order), then workload-spec order,
-    then knob-config-major / lane-minor — each group's ``(B, S)`` state
-    leaves flattened C-style, matching ``sweep``'s axis contract.
+    then fault-scenario order, then knob-config-major / lane-minor —
+    each group's ``(B, S)`` state leaves flattened C-style, matching
+    ``sweep``'s axis contract.
     ``compiles`` is 0: the port's loops are eager torch and compile no
     program (the reference counts its XLA programs here).
     """

@@ -35,6 +35,13 @@ without JAX (``chip_smoke.py``):
   sim_len 2.5e5, and k=256 with the tier's 32,768-slot tree queue and
   ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5 and at 1e5,
   the card's fallback (:func:`cut_digest`, keyed as FABRICS);
+- the fault groups of the card's phase ``faults`` (:func:`fault_specs`:
+  the tier above at k=16 on the linear queue, sim_len 1e5, under no
+  fault, Poisson link failures, a partition and GMN churn on
+  ``hier_tree``, the partition on ``mesh2d``, and the detector tier
+  under a manager outage): per group the per-seed counters, the
+  fault and detector counters and the ``app_done`` sha256
+  (:func:`fault_digests`);
 - the result of ``launch.serve.serve(cfg)`` with its
   default arguments (64 requests, 4 clusters of 2 groups, dn_th 4, seed
   0): it depends on the control plane only, so it holds for any model
@@ -430,6 +437,199 @@ CUTS = {
         },
     },
 }
+
+FAULT_K = 16
+FAULT_SIM_LEN = 1e5
+# the detector tier's knobs (fault_frontier's): a raised c_b makes the
+# messages to dead managers a first-order cost
+DETECTOR_KNOBS = dict(FABRIC_KNOBS, T_b=2000.0, susp_mult=8.0,
+                      retry_after=250.0, c_b=80.0)
+# The JAX reference's run of fault_specs() on the CPU, made by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
+#   import ExperimentSpec, WorkloadSpec; from repro.core.faults import
+#   FaultSpec; from repro.core.sim import SimParams; from repro_torch.core
+#   import goldens as G; print(G.fault_digests([s.run() for s in
+#   G.fault_specs(ExperimentSpec, WorkloadSpec, SimParams, FaultSpec)]))"
+FAULTS = {
+    "hier_tree/min_search/threshold/none": {
+        "events_processed": [6831, 6756],
+        "beacons_tx": [369, 364],
+        "beacons_rx": [5535, 5460],
+        "msgs_lost": [0, 0],
+        "reroutes": [0, 0],
+        "retries_tx": [0, 0],
+        "susp_false_pos": [2022, 2126],
+        "downtime": [0.0, 0.0],
+        "susp_onsets": [2022, 2126],
+        "app_done_sha": "b5a43fe699c8c99cd1cbf498c851fb28"
+                        "27dd37d082f0474cbb78ff0de1a3d638"},
+    "hier_tree/min_search/threshold/poisson_links": {
+        "events_processed": [6646, 6648],
+        "beacons_tx": [367, 365],
+        "beacons_rx": [5224, 5226],
+        "msgs_lost": [281, 249],
+        "reroutes": [40, 46],
+        "retries_tx": [0, 0],
+        "susp_false_pos": [2191, 2105],
+        "downtime": [1080000.0, 1080000.0],
+        "susp_onsets": [2214, 2132],
+        "app_done_sha": "24bb9781c472f6e745e07fc20c01bb82"
+                        "76c709be42a892ad0d601ec68ff04caf"},
+    "hier_tree/min_search/threshold/partition": {
+        "events_processed": [6104, 5934],
+        "beacons_tx": [368, 362],
+        "beacons_rx": [4552, 4382],
+        "msgs_lost": [968, 1048],
+        "reroutes": [191, 188],
+        "retries_tx": [0, 0],
+        "susp_false_pos": [1707, 1577],
+        "downtime": [3840000.0, 3840000.0],
+        "susp_onsets": [1771, 1633],
+        "app_done_sha": "2bf99d9f6cf5d7189c7e946fd9a81984"
+                        "dad5a531c0ca5f79bcd71f59ce729496"},
+    "hier_tree/min_search/threshold/gmn_churn": {
+        "events_processed": [6373, 6367],
+        "beacons_tx": [358, 354],
+        "beacons_rx": [5072, 5066],
+        "msgs_lost": [298, 244],
+        "reroutes": [43, 12],
+        "retries_tx": [0, 0],
+        "susp_false_pos": [1905, 1990],
+        "downtime": [60000.0, 60000.0],
+        "susp_onsets": [1905, 2019],
+        "app_done_sha": "aa57d5a6ecc6b42b6860b1d73e55a0de"
+                        "07e5937bab67b754dcb05c67ec3a18ba"},
+    "mesh2d/min_search/threshold/partition": {
+        "events_processed": [6018, 5880],
+        "beacons_tx": [366, 360],
+        "beacons_rx": [4466, 4328],
+        "msgs_lost": [1024, 1072],
+        "reroutes": [204, 199],
+        "retries_tx": [0, 0],
+        "susp_false_pos": [1646, 1644],
+        "downtime": [3840000.0, 3840000.0],
+        "susp_onsets": [1718, 1716],
+        "app_done_sha": "e6a3c3cb3b2ca9d573e6ec1576a35f5f"
+                        "a485c3fada99899c65a35864016b98f5"},
+    "hier_tree/min_search/periodic/gmn_outage": {
+        "events_processed": [5302, 5332],
+        "beacons_tx": [266, 268],
+        "beacons_rx": [3646, 3700],
+        "msgs_lost": [884, 796],
+        "reroutes": [351, 70],
+        "retries_tx": [540, 476],
+        "susp_false_pos": [164, 328],
+        "downtime": [400000.0, 400000.0],
+        "susp_onsets": [228, 400],
+        "app_done_sha": "513d3ecb349dd842d56434ff0676ad06"
+                        "182cc3c407f7ad9a8bb580c00353b8f4"},
+    "hier_tree/avoid_suspected/periodic/gmn_outage": {
+        "events_processed": [4612, 5257],
+        "beacons_tx": [220, 263],
+        "beacons_rx": [2996, 3649],
+        "msgs_lost": [700, 756],
+        "reroutes": [293, 58],
+        "retries_tx": [396, 460],
+        "susp_false_pos": [183, 268],
+        "downtime": [400000.0, 400000.0],
+        "susp_onsets": [247, 340],
+        "app_done_sha": "a922d4dc20037aa5a3eb76ea16940284"
+                        "1b86803fa98bf6d76a8361890f8fd0bf"},
+    "hier_tree/suspect_weighted/periodic/gmn_outage": {
+        "events_processed": [4672, 4807],
+        "beacons_tx": [224, 233],
+        "beacons_rx": [3056, 3247],
+        "msgs_lost": [708, 708],
+        "reroutes": [290, 84],
+        "retries_tx": [404, 460],
+        "susp_false_pos": [185, 199],
+        "downtime": [400000.0, 400000.0],
+        "susp_onsets": [249, 279],
+        "app_done_sha": "89cd42e608561db5d1590cfd20e90d5d"
+                        "9e50f0210e1662703ef1df14f920b835"},
+    "hier_tree/avoid_suspected/heartbeat/gmn_outage": {
+        "events_processed": [6431, 6506],
+        "beacons_tx": [289, 294],
+        "beacons_rx": [4007, 4122],
+        "msgs_lost": [748, 724],
+        "reroutes": [274, 54],
+        "retries_tx": [420, 436],
+        "susp_false_pos": [77, 77],
+        "downtime": [400000.0, 400000.0],
+        "susp_onsets": [141, 141],
+        "app_done_sha": "184f3ab08f09663ca0dab33a9ec8fcf7"
+                        "f3ea95d4937688436e348fd08551468c"},
+}
+
+
+def fault_specs(ExperimentSpec, WorkloadSpec, SimParams, FaultSpec,
+                sim_len: float = FAULT_SIM_LEN, mode: str = "seq"):
+    """The fault groups of the card's phase, as ExperimentSpecs of the
+    package whose classes are passed (the reference's or the port's):
+    the tier of FABRICS at k=16, 2 lanes a group, with the fault times
+    scaled to ``sim_len`` as ``benchmarks/fault_frontier.py`` scales
+    them (partition 0.3-0.6, outage 0.3-0.8; the Poisson and churn rates
+    of its ``tiny`` grid).
+
+    - main tier, ``min_search``/``threshold``: ``hier_tree`` under no
+      fault, Poisson link failures, a partition and GMN churn, and
+      ``mesh2d`` under the partition;
+    - detector tier on ``hier_tree`` with DETECTOR_KNOBS under a
+      power-domain outage: ``min_search``, ``avoid_suspected`` and
+      ``suspect_weighted`` under ``periodic`` beacons, and
+      ``avoid_suspected`` under ``heartbeat``."""
+    base = SimParams(k=FAULT_K, **FABRIC_PARAMS)
+    wl = (WorkloadSpec.make("interference", seeds=FABRIC_SEEDS,
+                            pair_periods=(FABRIC_PAIR_PERIOD,)),)
+    part = FaultSpec.partition(t_down=0.3 * sim_len, t_heal=0.6 * sim_len)
+    main = (FaultSpec.none(),
+            FaultSpec.poisson_links(rate=4e-4, repair=2e4, seed=0),
+            part, FaultSpec.gmn_churn(rate=4e-5, repair=3e4, seed=0))
+    outage = FaultSpec.gmn_outage(t_down=0.3 * sim_len,
+                                  t_heal=0.8 * sim_len)
+    kw = dict(base=base, workloads=wl, sim_len=sim_len, mode=mode)
+    return [
+        ExperimentSpec(topologies=("hier_tree",), knobs=FABRIC_KNOBS,
+                       faults=main, **kw),
+        ExperimentSpec(topologies=("mesh2d",), knobs=FABRIC_KNOBS,
+                       faults=(part,), **kw),
+        ExperimentSpec(topologies=("hier_tree",), knobs=DETECTOR_KNOBS,
+                       policies=(("min_search", "periodic"),
+                                 ("avoid_suspected", "periodic"),
+                                 ("suspect_weighted", "periodic"),
+                                 ("avoid_suspected", "heartbeat")),
+                       faults=(outage,), **kw)]
+
+
+def fault_key(coords: dict) -> str:
+    """A fault group's key in FAULTS: fabric/mapping/beacon/fault."""
+    return "/".join(str(coords[c]) for c in
+                    ("topology", "mapping", "beacon", "fault"))
+
+
+def fault_state_digest(st) -> dict:
+    """The per-lane fault counters and the ``app_done`` sha256 of a
+    fault-aware (B, S, ...) state (numpy leaves), keyed as a FAULTS
+    entry."""
+    row = {key: np.asarray(st[key]).ravel().tolist()
+           for key in ("events_processed", "beacons_tx", "beacons_rx",
+                       "msgs_lost", "reroutes", "retries_tx",
+                       "susp_false_pos")}
+    row["downtime"] = [float(x) for x in np.asarray(
+        st["downtime"], np.float32).ravel()]
+    ons = np.asarray(st["susp_onsets"])
+    row["susp_onsets"] = ons.reshape(ons.shape[:-2] + (-1,)).sum(-1) \
+        .ravel().tolist()
+    row["app_done_sha"] = sha256_f32(st["app_done"])
+    return row
+
+
+def fault_digests(frames) -> dict:
+    """The digests of the fault_specs() ResultFrames (the port's or the
+    reference's), keyed as FAULTS."""
+    return {fault_key(dict(g.combo.coords(), fault=g.fault_label)):
+            fault_state_digest(g.state) for fr in frames for g in fr.groups}
+
 
 SERVE = {"finished": 64, "waves": 1, "imbalance": 1.0047190851197014,
          "beacons_tx": 20}

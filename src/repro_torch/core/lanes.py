@@ -46,6 +46,19 @@ One step serves every lane:
    calendar queues — a LOCAL_SPAWN's beacon fan-out before its
    JOIN_EXITs.
 
+Faults.  Every lane of a call shares one fault schedule (as the
+reference's vmap does) but meets it at its own times, so each lane has
+its own ``link_up`` (L, k, k) and ``gmn_alive`` (L, k), flipped by the
+fault events under their lane masks, and its own failure-detector
+refresh at its own ``t`` in every step (after the step's deliveries,
+before its handlers).  The takeover GMN, the detour penalties and the
+lost deliveries are masked device ops; the host keeps a mirror of every
+lane's masks from the records it reads, and skips those ops in steps
+where no lane has a dead GMN (takeovers) or a down link or dead GMN
+(penalties, losses) — where the reference computes exact no-ops.  The
+GMN_HEAL announcement and the heartbeat plane's HEARTBEAT events join
+the step's one beacon check.
+
 Done lanes cost a step's work until the last lane ends: the loop runs
 as many steps as the longest lane has events.
 """
@@ -54,28 +67,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import faults as FLT
 from repro_torch.core import policies as P
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF
 from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy
-from repro_torch.core.sim import (EV_ARRIVE, EV_BEACON_RX, EV_JOIN_EXIT,
-                                  EV_LOCAL_SPAWN, F32, I32, SimKnobs,
-                                  SimShape, _bulk_push, _Ctx,
-                                  _handle_beacon_rx_batch, _init_queue,
-                                  _queue_commit, _require_ported,
+from repro_torch.core.sim import (EV_ARRIVE, EV_BEACON_RX, EV_GMN_FAIL,
+                                  EV_GMN_HEAL, EV_HEARTBEAT, EV_JOIN_EXIT,
+                                  EV_LINK_DOWN, EV_LINK_UP, EV_LOCAL_SPAWN,
+                                  F32, I32, SimKnobs, SimShape, _bulk_push,
+                                  _Ctx, _detect, _handle_beacon_rx_batch,
+                                  _init_queue, _queue_commit,
+                                  _refresh_masks, _require_ported,
                                   _rx_cohort, make_state)
 from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology
 
 
 class _LaneCtx(_Ctx):
     """``sim._Ctx`` over (L,) knob tensors, with the lane form of the
-    mapping rule, each lane's barrier GMNs and the index ranges that the
-    one-hot selects compare against."""
+    mapping rule, each lane's barrier GMNs, the index ranges that the
+    one-hot selects compare against and under faults the host's mirror
+    of each lane's masks."""
 
     def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
-                 topology: Topology, device, arrival_gmns):
-        super().__init__(shape, knobs, policy, topology, device)
+                 topology: Topology, device, arrival_gmns,
+                 sim_len: float, faults_on: bool = False):
+        super().__init__(shape, knobs, policy, topology, device, faults_on)
         self.pick_cluster = P.lane_mapping_policy(policy.mapping)
+        # the horizon on the card, and as the host compares it (the
+        # reference's f32)
+        self.sim_len = torch.tensor(sim_len, dtype=F32, device=device)
+        self.sim_len_h = float(np.float32(sim_len))
         self.depth = int(np.ceil(np.log2(self.ns))) if self.ns > 1 else 0
         self.lane = torch.arange(arrival_gmns.shape[0], device=device)
         # each lane's first cell in a flattened (L, k, k) matrix
@@ -84,6 +106,18 @@ class _LaneCtx(_Ctx):
         self.ar_app = torch.arange(self.max_apps, device=device)
         # the barrier GMN of each application (its arrival GMN), per lane
         self.parent_gmns = arrival_gmns.to(torch.int64)
+        if faults_on:
+            n = arrival_gmns.shape[0]
+            # each lane's masks on the host, whether some lane has a dead
+            # GMN or a down link (what the skips read), and the lanes
+            # that retry lost deliveries
+            self.up_h = np.ones((n, self.k, self.k), bool)
+            self.alive_h = np.ones((n, self.k), bool)
+            self.any_dead = self.any_down = False
+            self.retry_lane = self.retry_after > 0
+            self.susp_thr = self.susp_thr.view(-1, 1, 1)   # per lane
+            self.sus_prev = torch.zeros((n, self.k, self.k),
+                                        dtype=torch.bool, device=device)
 
 
 def _rows(x, p, idx):
@@ -91,28 +125,143 @@ def _rows(x, p, idx):
     return x[p.lane, idx]
 
 
+def _cell(x, p, i, j):
+    """``x[l, i[l], j[l]]`` of an (L, k, k) matrix for every lane l."""
+    return x.reshape(-1)[p.lane * (p.k * p.k) + i * p.k + j]
+
+
+# --------------------------------------------------------------------------
+# Faults per lane (device tensors; the host's mirror only picks what runs)
+# --------------------------------------------------------------------------
+
+def _takeover(st, p, g):
+    """``sim._takeover`` per lane: each lane's ring successor of ``g``
+    that is alive in that lane (``g`` itself where alive)."""
+    ring = (g[:, None] + p.ar_k) % p.k
+    alive = (st["gmn_alive"].gather(1, ring) > 0).to(torch.int32)
+    return ring.gather(1, alive.argmax(1, keepdim=True))[:, 0]
+
+
+def _rehome(st, p, m, g, t):
+    """``sim._rehome`` on the lanes of ``m``: a message to a dead GMN
+    moves to its takeover through one redirect hop.  Returns the GMN
+    that takes it and when, per lane."""
+    if not (p.faults_on and p.any_dead):
+        return g, t
+    g2 = _takeover(st, p, g)
+    moved = m & (g2 != g)
+    t_eff, st["gbus_free"], st["lbus_free"], lat = T.unicast(
+        p.topology, g, g2, t, moved, gbus=st["gbus_free"],
+        lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+    st["reroutes"] += moved
+    st["mgmt_msgs"] += moved
+    st["mgmt_latency"] += lat
+    return g2, t_eff
+
+
+def _dlv(st, p, g):
+    """(L, k): the receivers a beacon from each lane's ``g`` reaches
+    there now."""
+    return p.not_own[g] & (_rows(st["link_up"], p, g) > 0) \
+        & (st["gmn_alive"] > 0)
+
+
+def _fault_events(st, p, types, t, typ, a0, a1):
+    """The step's LINK_DOWN/UP and GMN_FAIL/HEAL events under their lane
+    masks.  Returns the lanes whose heal announces a rejoin (or None)."""
+    announce = None
+    if EV_LINK_DOWN in types or EV_LINK_UP in types:
+        i, j = a0.clamp(max=p.k - 1), a1.clamp(max=p.k - 1)
+        up = _cell(st["link_up"], p, i, j) > 0
+        cell = (p.ar_k[:, None] == i[:, None, None]) \
+            & (p.ar_k == j[:, None, None])
+        if EV_LINK_DOWN in types:
+            m = typ == EV_LINK_DOWN
+            st["link_down_t"] = torch.where(
+                cell & (m & up)[:, None, None], t[:, None, None],
+                st["link_down_t"])
+            st["link_up"] = torch.where(cell & m[:, None, None], 0.0,
+                                        st["link_up"])
+        if EV_LINK_UP in types:
+            m = typ == EV_LINK_UP
+            st["downtime"] += torch.where(
+                m & ~up, t - _cell(st["link_down_t"], p, i, j), 0.0)
+            st["link_up"] = torch.where(cell & m[:, None, None], 1.0,
+                                        st["link_up"])
+    if EV_GMN_FAIL in types or EV_GMN_HEAL in types:
+        g = a0.clamp(max=p.k - 1)
+        hot = p.ar_k == g[:, None]
+        alive = _rows(st["gmn_alive"], p, g) > 0
+        if EV_GMN_FAIL in types:
+            m = typ == EV_GMN_FAIL
+            st["gmn_down_t"] = torch.where(hot & (m & alive)[:, None],
+                                           t[:, None], st["gmn_down_t"])
+            st["gmn_alive"] = torch.where(hot & m[:, None], 0.0,
+                                          st["gmn_alive"])
+        if EV_GMN_HEAL in types:
+            announce = (typ == EV_GMN_HEAL) & ~alive
+            st["downtime"] += torch.where(
+                announce, t - _rows(st["gmn_down_t"], p, g), 0.0)
+            st["gmn_alive"] = torch.where(hot & (typ == EV_GMN_HEAL)[:, None],
+                                          1.0, st["gmn_alive"])
+            st["det_floor"] = torch.where(hot & announce[:, None],
+                                          t[:, None], st["det_floor"])
+    return announce
+
+
+def _mirror(st, p, rows) -> None:
+    """Keep the host's mirror of each lane's masks after a step's fault
+    events (read from the records), and the detector's masks."""
+    for lane, r in enumerate(rows):
+        typ = int(r[2]) if r[0] < INF else -1
+        if typ in (EV_LINK_DOWN, EV_LINK_UP):
+            p.up_h[lane, int(r[3]), int(r[4])] = typ == EV_LINK_UP
+        elif typ in (EV_GMN_FAIL, EV_GMN_HEAL):
+            p.alive_h[lane, int(r[3])] = typ == EV_GMN_HEAL
+            p.floored |= typ == EV_GMN_HEAL
+    p.any_dead = not p.alive_h.all()
+    p.any_down = not p.up_h.all()
+    _refresh_masks(st, p)
+
+
+# --------------------------------------------------------------------------
+# The management handlers
+# --------------------------------------------------------------------------
+
 def _arrive(st, p, m, t, app, g, g_oh):
     """``sim._handle_arrive`` on the lanes of ``m``, with its staged
     view-row write; returns the LOCAL_SPAWN times and clusters (L, ns)."""
+    g2, t_eff = _rehome(st, p, m, g, t)
+    if g2 is not g:
+        g, g_oh = g2, p.ar_k == g2[:, None]
     hot = m[:, None] & g_oh
-    t_cpu = torch.maximum(t, _rows(st["gmn_free"], p, g))
+    t_cpu = torch.maximum(t_eff, _rows(st["gmn_free"], p, g))
     t_tree = t_cpu + 2.0 * p.depth * p.sel_global
     st["gmn_free"] = torch.where(hot, t_tree[:, None], st["gmn_free"])
     own = _rows(st["loads"], p, g).sum(-1).to(I32)
     view = torch.where(g_oh, own[:, None], _rows(st["view"], p, g))
-    age = torch.clamp(t[:, None] - _rows(st["view_t"], p, g), min=0.0)
+    age = torch.clamp(t_eff[:, None] - _rows(st["view_t"], p, g), min=0.0)
     age = torch.where(g_oh, 0.0, age)
+    up_row = _rows(st["link_up"], p, g) \
+        if p.faults_on and p.any_down else None
     gbus, lbus = st["gbus_free"], st["lbus_free"]
     rr0 = rr = _rows(st["rr_ptr"], p, g)
-    cs, t_arrs, lats, remotes, views = [], [], [], [], []
+    cs, t_arrs, lats, remotes, views, detours = [], [], [], [], [], []
     for i in range(p.ns):
         views.append(view)
-        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
+        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b,
+                           susp_mult=p.susp_mult)
         view = torch.where(p.ar_k == c[:, None], view + p.cnts[i], view)
         is_remote = c != g
         t_arr, gbus, lbus, lat = T.unicast(
             p.topology, g, c, t_tree, is_remote, gbus=gbus, lbus=lbus,
             c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+        if up_row is not None:
+            up = up_row.gather(1, c[:, None])[:, 0]
+            pen = T.link_penalty(p.topology, up, is_remote, c_b=p.c_b,
+                                 c_hop=p.c_hop)
+            t_arr, lat = t_arr + pen, lat + pen
+            detours.append(is_remote & (up == 0))
         rr = rr + 1
         cs.append(c)
         t_arrs.append(t_arr)
@@ -122,9 +271,11 @@ def _arrive(st, p, m, t, app, g, g_oh):
     st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
     if lbus is not st["lbus_free"]:           # a fabric with local hops
         st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
+    if detours:
+        st["reroutes"] += torch.where(m, torch.stack(detours, 1).sum(1), 0)
     st["mgmt_msgs"] += torch.where(m, torch.stack(remotes, 1).sum(1), 0)
     st["mgmt_latency"] += torch.where(m, torch.stack(lats, 1).sum(1), 0.0)
-    st["mgmt_proc"] += torch.where(m, t_tree - t, 0.0)
+    st["mgmt_proc"] += torch.where(m, t_tree - t_eff, 0.0)
     hot_a = m[:, None] & (p.ar_app == app[:, None])
     st["app_remaining"] = torch.where(hot_a, p.n_childs, st["app_remaining"])
     st["app_arrive"] = torch.where(hot_a, t[:, None], st["app_arrive"])
@@ -133,6 +284,8 @@ def _arrive(st, p, m, t, app, g, g_oh):
     if p.record_s1:
         rec = {"dec_view": torch.stack(views, 1).to(I32), "dec_age": age,
                "dec_choice": cs.to(I32), "dec_rr0": rr0, "dec_t": t}
+        if p.faults_on:
+            rec["dec_gmn"] = g.to(I32)
         for key, v in rec.items():
             on = hot_a.reshape(hot_a.shape + (1,) * (v.ndim - 1))
             st[key] = torch.where(on, v[:, None], st[key])
@@ -209,12 +362,23 @@ def _join_local(st, p, m, t, g, g_oh, pe):
 
 def _join_forward(st, p, m, t_msg, app, g):
     """The rest of ``sim._handle_join_exit``: forward to the barrier GMN
-    and the barrier decrement."""
+    (its takeover under faults; a down link detours) and the barrier
+    decrement."""
     pg = _rows(p.parent_gmns, p, app)
+    if p.faults_on and p.any_dead:
+        pg2 = _takeover(st, p, pg)
+        st["reroutes"] += m & (pg2 != pg)
+        pg = pg2
     remote = pg != g
     t_fwd, gbus, lbus, lat = T.forward(
         p.topology, g, pg, t_msg, remote, gbus=st["gbus_free"],
         lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+    if p.faults_on and p.any_down:
+        up = _cell(st["link_up"], p, g, pg)
+        pen = T.link_penalty(p.topology, up, remote, c_b=p.c_b,
+                             c_hop=p.c_hop)
+        t_fwd, lat = t_fwd + pen, lat + pen
+        st["reroutes"] += m & remote & (up == 0)
     st["gbus_free"] = torch.where(m, gbus, st["gbus_free"])
     if lbus is not st["lbus_free"]:           # a fabric with local hops
         st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
@@ -232,43 +396,77 @@ def _join_forward(st, p, m, t_msg, app, g):
                                  st["app_done"])
 
 
-def _beacon(st, p, m, g, g_oh, t):
-    """``sim._maybe_beacon`` on the lanes of ``m`` (k > 1), each at its
-    own ``t``.  Returns the fan-out of a non-ideal fabric — the (L, k)
-    push mask and arrival times and the (L,) load — or None on
-    ``ideal``."""
+# --------------------------------------------------------------------------
+# Beacons
+# --------------------------------------------------------------------------
+
+def _beacon(st, p, m, g, t, forced=None):
+    """``sim._maybe_beacon`` on the lanes of ``m`` (k > 1), each from its
+    own ``g`` at its own ``t``; where ``forced`` (L,) is set the beacon
+    fires unconditionally (a healed GMN's announcement), elsewhere by the
+    beacon rule; a dead GMN sends nothing.  Returns the step's pushes:
+    the (L, k) BEACON_RX fan-out of a non-ideal fabric and the (L, k)
+    retries of lost deliveries under faults, as push batches."""
+    g_oh = p.ar_k == g[:, None]
     load = _rows(st["loads"], p, g).sum(-1)
     delta = torch.abs(load - _rows(st["last_bcast"], p, g))
-    fire = m & p.beacon_due(delta, t, _rows(st["last_bcast_t"], p, g),
-                            dn_th=p.dn_th, T_b=p.T_b)
+    due = p.beacon_due(delta, t, _rows(st["last_bcast_t"], p, g),
+                       dn_th=p.dn_th, T_b=p.T_b)
+    if forced is not None:
+        due = due | forced
+    fire = m & due
+    lossy = p.faults_on and (p.any_dead or p.any_down)
+    if p.faults_on and p.any_dead:
+        fire = fire & (_rows(st["gmn_alive"], p, g) > 0)
     hot = fire[:, None] & g_oh
     load = load.to(I32)
+    rcv = p.not_own[g]                             # (L, k) receivers
+    dlv = _dlv(st, p, g) if lossy else rcv
+    if lossy:
+        lost = fire[:, None] & rcv & ~dlv
+        st["msgs_lost"] += lost.sum(1)
     if p.rx_on:
-        return _beacon_fanout(st, p, g, t, fire, hot, load)
-    t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
-    st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
-    # column g of every receiver's view
-    st["view"] = torch.where(hot[:, None, :], load[:, None, None],
-                             st["view"])
-    st["view_t"] = torch.where(hot[:, None, :], t_tx[:, None, None],
-                               st["view_t"])
-    st["last_bcast"] = torch.where(hot, load[:, None], st["last_bcast"])
-    st["last_bcast_t"] = torch.where(hot, t_tx[:, None], st["last_bcast_t"])
-    fire_i = fire.to(I32)
-    st["beacons_tx"] += fire_i
-    st["mgmt_msgs"] += fire_i * (p.k - 1)
-    st["mgmt_latency"] += torch.where(fire, float(p.k - 1) * (t_tx - t), 0.0)
-    return None
+        push, t_r = _beacon_fanout(st, p, g, t, fire, hot, load, dlv)
+        pushes = [(push, t_r, EV_BEACON_RX, g[:, None].expand_as(t_r),
+                   p.ar_k.expand_as(t_r), load[:, None].expand_as(t_r))]
+    else:
+        t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
+        st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
+        # column g of every receiver's view (the own entry always lands)
+        col = hot[:, None, :]
+        if lossy:
+            col = col & (dlv | ~rcv)[:, :, None]
+        st["view"] = torch.where(col, load[:, None, None], st["view"])
+        st["view_t"] = torch.where(col, t_tx[:, None, None], st["view_t"])
+        st["last_bcast"] = torch.where(hot, load[:, None], st["last_bcast"])
+        st["last_bcast_t"] = torch.where(hot, t_tx[:, None],
+                                         st["last_bcast_t"])
+        fire_i = fire.to(I32)
+        st["beacons_tx"] += fire_i
+        st["mgmt_msgs"] += fire_i * (p.k - 1)
+        n_dlv = (rcv & dlv).sum(1).to(F32) if lossy else float(p.k - 1)
+        st["mgmt_latency"] += torch.where(fire, n_dlv * (t_tx - t), 0.0)
+        t_r, pushes = t_tx[:, None], []
+    if lossy and p.retry_on:
+        # one bounded re-beacon per lost delivery, source encoded g + k
+        rtr = lost & p.retry_lane[:, None]
+        st["retries_tx"] += rtr.sum(1)
+        t_rtr = (t_r + p.retry_after[:, None]).expand(rtr.shape)
+        pushes.append((rtr, t_rtr, EV_BEACON_RX,
+                       (g + p.k)[:, None].expand_as(rtr),
+                       p.ar_k.expand_as(rtr), load[:, None].expand_as(rtr)))
+    return pushes
 
 
-def _beacon_fanout(st, p, g, t, fire, hot, load):
+def _beacon_fanout(st, p, g, t, fire, hot, load, dlv):
     """``sim._beacon_fanout`` per lane: the fabric's (L, k) arrival times,
-    the sender's in-flight row and own view cell, and the accounting."""
+    the sender's in-flight row and own view cell, and the accounting
+    over the deliveries ``dlv``.  Returns the BEACON_RX push mask and
+    the arrival times."""
     t_tx, t_arr, st["gbus_free"], st["lbus_free"] = T.beacon_tx(
         p.topology, g, t, fire, gbus=st["gbus_free"], lbus=st["lbus_free"],
         c_b=p.c_b, c_hop=p.c_hop, hops=p.hops, k=p.k)
-    rcv = p.not_own[g]                             # (L, k) receivers
-    push = fire[:, None] & rcv
+    push = fire[:, None] & dlv
     # row g of bcn_t, and the cell (g, g) of view and view_t
     row = hot[:, :, None] & push[:, None, :]
     st["bcn_t"] = torch.where(row, t_arr[:, None, :], st["bcn_t"])
@@ -281,26 +479,28 @@ def _beacon_fanout(st, p, g, t, fire, hot, load):
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
     st["mgmt_latency"] += torch.where(push, t_arr - t[:, None], 0.0).sum(1)
-    spread = torch.clamp(torch.where(rcv, t_arr, -INF).amax(1)
-                         - torch.where(rcv, t_arr, INF).amin(1), min=0.0)
+    spread = torch.clamp(torch.where(dlv, t_arr, -INF).amax(1)
+                         - torch.where(dlv, t_arr, INF).amin(1), min=0.0)
     spread = torch.where(fire, spread, 0.0)
     st["bcn_skew_sum"] += spread
     st["bcn_skew_max"] = torch.maximum(st["bcn_skew_max"], spread)
-    return push, t_arr, load
+    return push, t_arr
 
 
-def _step(st, p, types, live_h, head, lengths):
+def _step(st, p, types, rows, head, lengths):
     """One step's handlers over every lane and its commit (the loop's
-    body after the read of the (L, 6) records ``head``)."""
+    body after the read of the (L, 6) records ``head``, ``rows`` on the
+    host)."""
     t = head[:, 0]
     live = t < INF
     slot = head[:, 1].to(torch.int64)
     typ = torch.where(live, head[:, 2].to(I32), -1)
     a0, g, a2 = head[:, 3:].to(torch.int64).unbind(1)
-    # a BEACON_RX's first argument is its source GMN, which may pass
-    # max_apps (k=256 against 64 applications), and a done lane's record
-    # is stale: clamped, neither indexes past the application arrays
-    # (the lanes they do not belong to mask what such a read gives)
+    # a BEACON_RX's first argument is its source GMN (plus k for a
+    # retry), which may pass max_apps (k=256 against 64 applications),
+    # and a done lane's record is stale: clamped, neither indexes past
+    # the application arrays (the lanes they do not belong to mask what
+    # such a read gives)
     app = a0.clamp(max=p.max_apps - 1)
     g_oh = p.ar_k == g[:, None]
     st["evq_peak"] = torch.where(
@@ -318,46 +518,70 @@ def _step(st, p, types, live_h, head, lengths):
     st["events_processed"] += n_pop
     # each pushing handler's batch (mask, times, type, a0, a1, a2), in
     # the order a lane's own pushes take: a lane has one event type,
-    # and a LOCAL_SPAWN's fan-out comes before its JOIN_EXITs
+    # and a beacon's rows come before its handler's own
     pushes = []
     if EV_BEACON_RX in types:
-        _handle_beacon_rx_batch(st, p, t, ok, *rx)
+        # a retry (source + k) can be among the deliveries only where
+        # some lane retries, and with batch_pop 1 only where a root is
+        # one
+        retries = p.faults_on and p.retry_on and (p.bp > 1 or any(
+            r[0] < INF and int(r[2]) == EV_BEACON_RX and r[3] >= p.k
+            for r in rows))
+        _handle_beacon_rx_batch(st, p, t, ok, *rx, retries=retries)
+    if p.faults_on and any(r[0] < p.sim_len_h for r in rows):
+        # each lane's detector at its own t, frozen from sim_len on (and
+        # on a done lane, whose t is INF)
+        _detect(st, p, t, None if all(r[0] < p.sim_len_h for r in rows)
+                else t < p.sim_len)
     if EV_ARRIVE in types:
         m_arr = typ == EV_ARRIVE
         t_spawns, cs = _arrive(st, p, m_arr, t, app, g, g_oh)
         pushes.append((m_arr[:, None].expand_as(cs), t_spawns,
                        EV_LOCAL_SPAWN, app[:, None].expand_as(cs), cs,
                        p.cnts.expand_as(cs)))
-    beacon_m, beacon_t, spawn = [], [], None
+    # the step's beacon senders: (lanes, GMN, time) of each kind
+    senders, spawn, forced = [], None, None
     if EV_LOCAL_SPAWN in types:
         m_sp = typ == EV_LOCAL_SPAWN
-        n_steps = max(int(r[5]) for r in live_h
-                      if int(r[2]) == EV_LOCAL_SPAWN)
-        t_gmn, finish, pes, act = _spawn(st, p, m_sp, t, app, g, g_oh,
-                                         a2, n_steps, lengths)
+        n_steps = max(int(r[5]) for r in rows
+                      if r[0] < INF and int(r[2]) == EV_LOCAL_SPAWN)
+        g_sp, t_sp = _rehome(st, p, m_sp, g, t)
+        t_gmn, finish, pes, act = _spawn(
+            st, p, m_sp, t_sp, app, g_sp,
+            g_oh if g_sp is g else p.ar_k == g_sp[:, None], a2, n_steps,
+            lengths)
         spawn = (act, finish, EV_JOIN_EXIT, app[:, None].expand_as(pes),
-                 g[:, None].expand_as(pes), pes)
-        beacon_m.append(m_sp)
-        beacon_t.append(t_gmn)
+                 g_sp[:, None].expand_as(pes), pes)
+        senders.append((m_sp, g_sp, t_gmn))
     if EV_JOIN_EXIT in types:
         m_je = typ == EV_JOIN_EXIT
         t_msg = _join_local(st, p, m_je, t, g, g_oh, a2)
-        beacon_m.append(m_je)
-        beacon_t.append(t_msg)
-    if beacon_m and p.k > 1:
-        if len(beacon_m) == 1:
-            fan = _beacon(st, p, beacon_m[0], g, g_oh, beacon_t[0])
-        else:
-            fan = _beacon(st, p, beacon_m[0] | beacon_m[1], g, g_oh,
-                          torch.where(beacon_m[0], *beacon_t))
-        if fan is not None:
-            push, t_arr, load = fan
-            pushes.append((push, t_arr, EV_BEACON_RX,
-                           g[:, None].expand_as(t_arr),
-                           p.ar_k.expand_as(t_arr),
-                           load[:, None].expand_as(t_arr)))
+        senders.append((m_je, g, t_msg))
+    if p.faults_on and types & _FAULT_TYPES:
+        announce = _fault_events(st, p, types, t, typ, a0, g)
+        if announce is not None:
+            forced = announce
+            senders.append((announce, a0, t))
+    if EV_HEARTBEAT in types:
+        m_hb = typ == EV_HEARTBEAT
+        senders.append((m_hb, a0, t))
+    if senders and p.k > 1:
+        # one beacon check for the (disjoint) lanes of every sender; the
+        # other lanes keep their record's in-range a1 as the GMN
+        m_b, g_b, t_b = senders[0]
+        if len(senders) > 1 or g_b is not g:
+            g_b = torch.where(m_b, g_b, g)
+        for m_i, g_i, t_i in senders[1:]:
+            m_b, g_b, t_b = (m_b | m_i, torch.where(m_i, g_i, g_b),
+                             torch.where(m_i, t_i, t_b))
+        pushes += _beacon(st, p, m_b, g_b, t_b, forced)
     if spawn is not None:
         pushes.append(spawn)
+    if EV_HEARTBEAT in types:
+        nxt = t + p.T_b
+        zero = torch.zeros_like(a0)[:, None]
+        pushes.append(((m_hb & (nxt < p.sim_len))[:, None], nxt[:, None],
+                       EV_HEARTBEAT, a0[:, None], zero, zero))
     if EV_JOIN_EXIT in types:
         _join_forward(st, p, m_je, t_msg, app, g)
     # the pops, then the pushes (the popped slots are free): on the linear
@@ -377,26 +601,37 @@ def _step(st, p, types, live_h, head, lengths):
             evq = evq + cols[0].sum(1)
         evq = evq - _queue_commit(st, p, slots, ok, t, *cols)
     st["evq_len"] += evq
+    if p.faults_on and types & _FAULT_TYPES:
+        _mirror(st, p, rows)
+
+
+_FAULT_TYPES = {EV_LINK_DOWN, EV_LINK_UP, EV_GMN_FAIL, EV_GMN_HEAL}
 
 
 def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                    lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
-                   topology: Topology = DEFAULT_TOPOLOGY):
+                   topology: Topology = DEFAULT_TOPOLOGY, faults=None):
     """L runs in one loop on ``arrivals.device``: knobs with (L,) leaves,
     arrivals (L, A) f32, arrival_gmns (L, A) i32, lengths (L, A, n_childs)
-    f32 tensors.  Returns the final state dict, every leaf (L, ...)."""
-    _require_ported(shape, policy, topology)
+    f32 tensors; ``faults`` None, a FaultSpec or a FaultSchedule that
+    every lane meets.  Returns the final state dict, every leaf
+    (L, ...)."""
+    _require_ported(shape, policy, topology, faults)
     if arrivals.ndim != 2 or lengths.ndim != 3 \
             or knobs.dn_th.shape != arrivals.shape[:1]:
         raise ValueError("simulate_lanes needs knobs (L,), arrivals (L, A), "
                          "arrival_gmns (L, A) and lengths (L, A, n)")
     dev = arrivals.device
-    p = _LaneCtx(shape, knobs, policy, topology, dev, arrival_gmns)
+    faults = FLT.as_schedule(faults, shape.k, float(sim_len))
+    p = _LaneCtx(shape, knobs, policy, topology, dev, arrival_gmns,
+                 float(sim_len), faults_on=faults is not None)
     n_lanes = arrivals.shape[0]
     st = {key: v.repeat((n_lanes,) + (1,) * v.ndim)
           for key, v in make_state(p, dev).items()}
-    _init_queue(st, p, arrivals, arrival_gmns,
-                torch.tensor(sim_len, dtype=F32, device=dev))
+    _init_queue(st, p, arrivals, arrival_gmns, p.sim_len,
+                None if faults is None else faults.to(dev))
+    if p.faults_on:
+        _refresh_masks(st, p)
     linear = p.queue_impl == "linear"
     while True:
         if linear:
@@ -408,15 +643,15 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         else:
             head = st["evq_root"]
         # the step's one device->host read: (t, slot, typ, a0, a1, a2)
-        live_h = [r for r in head.tolist() if r[0] < INF]
-        if not live_h:
+        rows = head.tolist()
+        types = {int(r[2]) for r in rows if r[0] < INF}
+        if not types:
             break
-        types = {int(r[2]) for r in live_h}
-        # the step's span in a profile (chip_smoke.py phases fabrics and
-        # queues): steps whose every live lane delivers beacons, and the
-        # rest
+        # the step's span in a profile (chip_smoke.py phases fabrics,
+        # queues and faults): steps whose every live lane delivers
+        # beacons, and the rest
         with torch.profiler.record_function(
                 "lanes.step_rx" if types == {EV_BEACON_RX}
                 else "lanes.step"):
-            _step(st, p, types, live_h, head, lengths)
+            _step(st, p, types, rows, head, lengths)
     return st

@@ -10,12 +10,13 @@ Two forms of every policy, as in the reference:
 - a **host** numpy form (``host_pick`` / ``host_stage2`` /
   ``host_beacon_due``), a copy of the reference's wall-clock adapters.
 
-Ported rules: the mapping rules ``min_search``, ``round_robin``,
-``hashed_random`` and ``staleness_weighted`` and the beacon rules
-``threshold``, ``periodic`` and ``hybrid``.  The failure-detector
-policies (``avoid_suspected``, ``suspect_weighted``) and the
-``heartbeat`` beacon plane need the fault machinery, which is ROADMAP
-item 8; asking for them raises ``NotImplementedError``.
+Every rule of the reference is here: the mapping rules ``min_search``,
+``round_robin``, ``hashed_random``, ``staleness_weighted`` and the
+failure-detector rules ``avoid_suspected`` and ``suspect_weighted``
+(a peer is *suspected* when its summary is older than
+``susp_mult * T_b``), and the beacon rules ``threshold``, ``periodic``,
+``hybrid`` and ``heartbeat`` (periodic's due-rule; the timer events that
+make it fire while a manager idles live in ``core/sim``).
 """
 from __future__ import annotations
 
@@ -33,9 +34,6 @@ SUSPECT_POLICIES = ("avoid_suspected", "suspect_weighted")
 
 SUSPECT_VIEW = 1 << 30
 SUSPECT_PENALTY = float(1 << 20)
-
-_FAULTS_ITEM = ("needs the fault/failure-detector paths, which are not "
-                "ported yet (ROADMAP item 8)")
 
 
 @dataclass(frozen=True)
@@ -65,7 +63,8 @@ def policy_grid(mappings=MAPPING_POLICIES, beacons=BEACON_POLICIES):
 # ==========================================================================
 # Tensor mapping policies
 #
-#   fn(view, age, g, rr, app, i, *, k, T_b) -> cluster (0-d int64 tensor)
+#   fn(view, age, g, rr, app, i, *, k, T_b, susp_mult) -> cluster
+#                                                  (0-d int64 tensor)
 #   view (k,) int   per-cluster load summaries, own entry exact
 #   age  (k,) f32   ticks since each summary was received (own entry 0)
 #   g        int    the deciding GMN (a host int: the event loop reads it
@@ -73,7 +72,16 @@ def policy_grid(mappings=MAPPING_POLICIES, beacons=BEACON_POLICIES):
 #   rr       0-d    the GMN's persistent decision counter
 #   app, i   int    application id / decision index within the fork
 #   T_b      0-d    f32 beacon period
+#   susp_mult 0-d   f32 failure-detector multiplier, read by the
+#                   SUSPECT_POLICIES only: peer c is suspected when
+#                   age[c] > susp_mult * T_b (the own entry, age 0, never)
 # ==========================================================================
+
+def _suspect_row(age, T_b, susp_mult):
+    """The failure-detector predicate in the reference's f32
+    arithmetic: age > susp_mult * T_b."""
+    return age > susp_mult * T_b
+
 
 def _own_first_argmin(score, g, k):
     """``perm[argmin(score[perm])]`` with ``perm = (arange(k) + g) % k``:
@@ -82,23 +90,42 @@ def _own_first_argmin(score, g, k):
     return (torch.argmin(torch.roll(score, -g)) + g) % k
 
 
-def _map_min_search(view, age, g, rr, app, i, *, k, T_b):
+def _map_min_search(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     return _own_first_argmin(view, g, k)
 
 
-def _map_round_robin(view, age, g, rr, app, i, *, k, T_b):
+def _map_round_robin(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     return ((g + rr) % k).to(torch.int64)
 
 
-def _map_hashed_random(view, age, g, rr, app, i, *, k, T_b):
+def _map_hashed_random(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     h = _hash_u32(int(app), int(i), int(g))
     return torch.full((), h % k, dtype=torch.int64, device=view.device)
 
 
-def _map_staleness_weighted(view, age, g, rr, app, i, *, k, T_b):
+def _map_staleness_weighted(view, age, g, rr, app, i, *, k, T_b,
+                            susp_mult=None):
     # score = view + age / T_b, in f32 like the reference
     score = view.to(torch.float32) \
         + age / torch.clamp(T_b, min=1.0)
+    return _own_first_argmin(score, g, k)
+
+
+def _map_avoid_suspected(view, age, g, rr, app, i, *, k, T_b, susp_mult):
+    # min_search with the suspected peers tombstoned; when every peer is
+    # suspected the decision falls back to the own cluster
+    sus = _suspect_row(age, T_b, susp_mult)
+    pick = _own_first_argmin(torch.where(sus, SUSPECT_VIEW, view), g, k)
+    own = torch.arange(k, device=view.device) == g
+    return torch.where((sus | own).all(), g, pick)
+
+
+def _map_suspect_weighted(view, age, g, rr, app, i, *, k, T_b, susp_mult):
+    # staleness_weighted plus a large penalty on suspected peers, in the
+    # reference's f32 order: (view + age / T_b) + penalty
+    sus = _suspect_row(age, T_b, susp_mult)
+    score = view.to(torch.float32) + age / torch.clamp(T_b, min=1.0) \
+        + torch.where(sus, SUSPECT_PENALTY, 0.0)
     return _own_first_argmin(score, g, k)
 
 
@@ -107,12 +134,12 @@ _MAPPING = {
     "round_robin": _map_round_robin,
     "hashed_random": _map_hashed_random,
     "staleness_weighted": _map_staleness_weighted,
+    "avoid_suspected": _map_avoid_suspected,
+    "suspect_weighted": _map_suspect_weighted,
 }
 
 
 def mapping_policy(name: str):
-    if name in SUSPECT_POLICIES:
-        raise NotImplementedError(f"mapping policy {name!r} {_FAULTS_ITEM}")
     try:
         return _MAPPING[name]
     except KeyError:
@@ -124,9 +151,9 @@ def mapping_policy(name: str):
 # Lane forms of the mapping policies (``core/lanes.py``): one decision in
 # each of L runs at once,
 #
-#   fn(view, age, g, rr, app, i, *, k, T_b) -> cluster (L,) int64
+#   fn(view, age, g, rr, app, i, *, k, T_b, susp_mult) -> cluster (L,)
 #   view (L, k) int, age (L, k) f32, g/rr/app (L,) tensors, i int,
-#   T_b (L,) f32
+#   T_b and susp_mult (L,) f32
 #
 # Each lane's result has the bits of the single-run rule above on that
 # lane's inputs.
@@ -139,21 +166,37 @@ def _lane_own_first_argmin(score, g, k):
     return (torch.argmin(score.gather(1, perm), dim=1) + g) % k
 
 
-def _lane_min_search(view, age, g, rr, app, i, *, k, T_b):
+def _lane_min_search(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     return _lane_own_first_argmin(view, g, k)
 
 
-def _lane_round_robin(view, age, g, rr, app, i, *, k, T_b):
+def _lane_round_robin(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     return ((g + rr) % k).to(torch.int64)
 
 
-def _lane_hashed_random(view, age, g, rr, app, i, *, k, T_b):
+def _lane_hashed_random(view, age, g, rr, app, i, *, k, T_b, susp_mult=None):
     return _hash_u32(app, i, g) % k
 
 
-def _lane_staleness_weighted(view, age, g, rr, app, i, *, k, T_b):
+def _lane_staleness_weighted(view, age, g, rr, app, i, *, k, T_b,
+                             susp_mult=None):
     score = view.to(torch.float32) \
         + age / torch.clamp(T_b, min=1.0)[:, None]
+    return _lane_own_first_argmin(score, g, k)
+
+
+def _lane_avoid_suspected(view, age, g, rr, app, i, *, k, T_b, susp_mult):
+    sus = _suspect_row(age, T_b[:, None], susp_mult[:, None])
+    pick = _lane_own_first_argmin(torch.where(sus, SUSPECT_VIEW, view), g, k)
+    own = torch.arange(k, device=view.device) == g[:, None]
+    return torch.where((sus | own).all(1), g, pick)
+
+
+def _lane_suspect_weighted(view, age, g, rr, app, i, *, k, T_b, susp_mult):
+    sus = _suspect_row(age, T_b[:, None], susp_mult[:, None])
+    score = view.to(torch.float32) \
+        + age / torch.clamp(T_b, min=1.0)[:, None] \
+        + torch.where(sus, SUSPECT_PENALTY, 0.0)
     return _lane_own_first_argmin(score, g, k)
 
 
@@ -162,6 +205,8 @@ _LANE_MAPPING = {
     "round_robin": _lane_round_robin,
     "hashed_random": _lane_hashed_random,
     "staleness_weighted": _lane_staleness_weighted,
+    "avoid_suspected": _lane_avoid_suspected,
+    "suspect_weighted": _lane_suspect_weighted,
 }
 
 
@@ -191,12 +236,13 @@ _BEACON = {
     "threshold": _bc_threshold,
     "periodic": _bc_periodic,
     "hybrid": _bc_hybrid,
+    # heartbeat shares periodic's due-rule; its timer events are in
+    # core/sim
+    "heartbeat": _bc_periodic,
 }
 
 
 def beacon_policy(name: str):
-    if name == "heartbeat":
-        raise NotImplementedError(f"beacon policy 'heartbeat' {_FAULTS_ITEM}")
     try:
         return _BEACON[name]
     except KeyError:

@@ -7,9 +7,14 @@ mapping (Sec 4.1), status beacons (Sec 4.2) and join barriers (Tab 2).
 Ported: the four fabrics of ``core/transport`` (``ideal``,
 ``shared_bus``, ``hier_tree``, ``mesh2d``, with per-receiver BEACON_RX
 deliveries off ``ideal``), the three event queues (``linear``, ``tree``,
-``calendar``: ``core/eventq``) with any ``batch_pop``, and
-``record_s1``.  Faults and the trace raise ``NotImplementedError``
-naming their ROADMAP item.
+``calendar``: ``core/eventq``) with any ``batch_pop``, ``record_s1``,
+every mapping and beacon policy (the timer-driven ``heartbeat`` plane:
+one self-rescheduling HEARTBEAT event per GMN), and fault injection
+(``core/faults``): the fault-aware program that runs when a schedule is
+passed — link and GMN masks, lost best-effort beacons with bounded
+retries, reliable messages that detour or re-home, and the failure
+detector refreshed at every pop.  The trace raises
+``NotImplementedError`` naming its ROADMAP item.
 
 How the loop runs.  The reference is one ``lax.while_loop``; here the
 loop is Python and every state tensor lives on the device.  Each
@@ -35,6 +40,16 @@ handler's own events).  With ``batch_pop > 1`` off the ``ideal`` fabric
 a BEACON_RX root pops the whole same-timestamp BEACON_RX prefix that
 ``eventq.batch_take`` selects, delivered at once by
 :func:`_handle_beacon_rx_batch` — bitwise the one-at-a-time order.
+
+Faults.  The link and GMN masks change only at fault events, which the
+host dispatches with their arguments, so the host keeps a numpy mirror
+of both (``_Ctx.up_h``, ``_Ctx.alive_h``).  It decides with them what
+the reference computes on traced masks with exact no-ops where nothing
+is down: the takeover GMN (a host int, like the GMN it replaces), and
+whether a beacon, a task-start or a forward meets a down link or a
+dead receiver at all — only then do the masked device ops run.  The
+failure detector is a device computation at every pop before
+``sim_len``, and frozen (skipped) after it.
 """
 from __future__ import annotations
 
@@ -45,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import eventq as EQ
+from repro_torch.core import faults as FLT
 from repro_torch.core import policies as P
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF, QUEUE_IMPLS
@@ -56,6 +72,13 @@ EV_ARRIVE = 0
 EV_LOCAL_SPAWN = 1
 EV_JOIN_EXIT = 2
 EV_BEACON_RX = 3
+# fault events, EV_LINK_DOWN + faults.F_* (compiled in with a schedule)
+EV_LINK_DOWN = 4
+EV_LINK_UP = 5
+EV_GMN_FAIL = 6
+EV_GMN_HEAL = 7
+# the heartbeat plane's timer event (beacon policy "heartbeat")
+EV_HEARTBEAT = 8
 
 F32, I32 = torch.float32, torch.int32
 
@@ -103,8 +126,10 @@ class SimKnobs(NamedTuple):
     dn_th: torch.Tensor          # i32, beacon drift threshold
     T_b: torch.Tensor            # f32, beacon period/deadline
     c_hop: torch.Tensor          # f32, per-hop mesh latency (mesh2d)
-    susp_mult: torch.Tensor      # f32, failure-detector multiplier (unused)
-    retry_after: torch.Tensor    # f32, re-beacon delay (unused)
+    susp_mult: torch.Tensor      # f32, failure-detector multiplier: a peer
+                                 #      is suspected past susp_mult * T_b
+    retry_after: torch.Tensor    # f32, re-beacon delay of a lost delivery
+                                 #      (0 = retries off)
 
     @classmethod
     def make(cls, c_b=8.0, c_s=8.0, c_join=8.0, dn_th=4, T_b=1000.0,
@@ -183,31 +208,39 @@ def _log2_levels(v: int) -> float:
 def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
                     faults=None, trace=None) -> None:
     """Raise for every configuration outside this slice of the port."""
-    if faults is not None:
-        raise NotImplementedError(
-            "fault schedules are not ported yet (ROADMAP item 8)")
     if trace is not None:
         raise NotImplementedError(
             "in-loop tracing is not ported yet (ROADMAP item 9)")
+    if faults is not None and not isinstance(
+            faults, (FLT.FaultSpec, FLT.FaultSchedule)):
+        raise TypeError(f"faults must be None, a FaultSpec or a "
+                        f"FaultSchedule, got {type(faults).__name__}")
     P.mapping_policy(policy.mapping)
     P.beacon_policy(policy.beacon)
 
 
 class _Ctx:
     """Static shape ints, policy, topology and the knob tensors on the
-    run's device, plus the few constant tensors the handlers reuse."""
+    run's device, plus the few constant tensors the handlers reuse, and
+    under faults the host's mirror of the link and GMN masks."""
 
     def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
-                 topology: Topology, device):
+                 topology: Topology, device, faults_on: bool = False):
         self.m, self.k, self.mpk = shape.m, shape.k, shape.mpk
         self.n_childs = shape.n_childs
         self.queue_cap, self.max_apps = shape.queue_cap, shape.max_apps
         self.ns = shape.ns
         self.policy, self.topology = policy, topology
         self.device = device
+        self.faults_on = faults_on
+        self.hb_on = policy.beacon == "heartbeat"
+        # a retry row can be pushed only where retry_after > 0: known
+        # before the loop (one read of the knob, only under faults)
+        self.retry_on = faults_on and bool((knobs.retry_after > 0).any())
         knobs = knobs.to(device)
         self.c_b, self.c_s, self.c_join = knobs.c_b, knobs.c_s, knobs.c_join
         self.dn_th, self.T_b, self.c_hop = knobs.dn_th, knobs.T_b, knobs.c_hop
+        self.susp_mult, self.retry_after = knobs.susp_mult, knobs.retry_after
         self.record_s1 = shape.record_s1
         # the mesh's hop table, in f32 (the reference's astype before
         # the product with c_hop)
@@ -217,8 +250,17 @@ class _Ctx:
         self.shared = topology.kind == "shared_bus"
         self.ar_k = torch.arange(shape.k, device=device)
         self.not_own = self.ar_k[None, :] != self.ar_k[:, None]
+        self.ar_k32 = self.ar_k.to(I32)
         self.rx_typ = torch.full((shape.k,), EV_BEACON_RX, dtype=I32,
                                  device=device)
+        self.true = torch.ones((), dtype=torch.bool, device=device)
+        if faults_on:
+            # the detector's horizon, and the host's mirror of the masks
+            # (and of whether a heal has moved a detector epoch yet)
+            self.susp_thr = self.susp_mult * self.T_b
+            self.up_h = np.ones((shape.k, shape.k), bool)
+            self.alive_h = np.ones((shape.k,), bool)
+            self.floored = False
         # f32 tensor times the static float, as the reference's traced
         # ``knobs.c_s * _log2_levels(k)``
         self.sel_global = knobs.c_s * _log2_levels(shape.k)
@@ -302,6 +344,32 @@ def make_state(p, device):
         "evq_len": z((), I32),
         "evq_peak": z((), I32),
     }
+    if p.faults_on:
+        st |= {
+            # the fault fabric: directed link mask and GMN liveness (1 =
+            # up / alive), each outage's start, and the availability
+            # counters (lost best-effort deliveries, detours and re-homed
+            # work, completed outage ticks)
+            "link_up": torch.ones((k, k), dtype=F32, device=device),
+            "gmn_alive": torch.ones((k,), dtype=F32, device=device),
+            "link_down_t": z((k, k)),
+            "gmn_down_t": z((k,)),
+            "msgs_lost": z((), I32),
+            "reroutes": z((), I32),
+            "downtime": z(()),
+            # the failure detector: suspect[g, c] == 1 while GMN g's view
+            # of peer c is older than susp_mult * T_b, its onsets and
+            # clears per pair, onsets against a fine peer, and each
+            # suspector's epoch (a healed manager restarts its timers)
+            "suspect": z((k, k)),
+            "susp_onsets": z((k, k), I32),
+            "susp_clears": z((k, k), I32),
+            "susp_false_pos": z((), I32),
+            "det_floor": z((k,)),
+            # bounded re-beacons: beacons_rx + msgs_lost ==
+            # (k - 1) * beacons_tx + retries_tx
+            "retries_tx": z((), I32),
+        }
     if p.record_s1:
         # stage-1 decision trace (serving/replay.py): the view each
         # decision saw, the shared age vector, the choices, the
@@ -311,6 +379,9 @@ def make_state(p, device):
                "dec_choice": z((A, p.ns), I32),
                "dec_rr0": z((A,), I32),
                "dec_t": inf((A,))}
+        if p.faults_on:
+            # the deciding GMN after a takeover (for replay)
+            st["dec_gmn"] = z((A,), I32)
     return st
 
 
@@ -402,29 +473,53 @@ def _queue_commit(st, p, slots, ok, root_t, mask=None, times=None, typ=0,
     return drop
 
 
-def _init_queue(st, p, arrivals, arrival_gmns, sim_len):
-    """Push every arrival before ``sim_len`` (one ARRIVE per application)
-    and start the occupancy telemetry; arrays may carry a lane axis."""
+def _init_queue(st, p, arrivals, arrival_gmns, sim_len, faults=None):
+    """Push every arrival before ``sim_len`` (one ARRIVE per application),
+    then the fault schedule's events before it grouped by kind (LINK_DOWN,
+    LINK_UP, GMN_FAIL, GMN_HEAL: the reference's slot order), then under
+    the heartbeat plane each GMN's first HEARTBEAT at T_b; start the
+    occupancy telemetry.  Arrays may carry a lane axis; every lane shares
+    the schedule."""
     live = arrivals < sim_len
     apps = torch.arange(arrivals.shape[-1], device=arrivals.device)
     _bulk_push(st, p, live, arrivals, EV_ARRIVE, apps.expand_as(arrivals),
                arrival_gmns, torch.zeros_like(arrival_gmns))
-    st["evq_len"] = (live.sum(-1) - st["dropped"]).to(I32)
+    seeded = live.sum(-1)
+    lead = arrivals.shape[:-1]
+    if faults is not None and faults.capacity:
+        f_live = faults.times < sim_len
+        shape = lead + f_live.shape
+        times, a0, a1 = (v.expand(shape) for v in (faults.times, faults.a0,
+                                                   faults.a1))
+        zeros = torch.zeros_like(a0)
+        for kind in range(4):
+            _bulk_push(st, p, (f_live & (faults.kinds == kind)).expand(shape),
+                       times, EV_LINK_DOWN + kind, a0, a1, zeros)
+        seeded = seeded + f_live.sum()
+    if p.hb_on and p.k > 1:
+        hb_t = p.T_b[..., None].expand(lead + (p.k,))
+        hb_live = hb_t < sim_len
+        zeros = torch.zeros(hb_t.shape, dtype=I32, device=hb_t.device)
+        _bulk_push(st, p, hb_live, hb_t, EV_HEARTBEAT,
+                   p.ar_k32.expand(hb_t.shape), zeros, zeros)
+        seeded = seeded + hb_live.sum(-1)
+    st["evq_len"] = (seeded - st["dropped"]).to(I32)
     st["evq_peak"] = st["evq_len"].clone()
 
 
 def _staged(p, h_t, h_typ, h_a0, h_a1, h_a2, vrow_i=None, vrow=None,
-            fan=None):
-    """One handler's staged record: its event pushes (all of them taken;
-    the reference pads to a fixed width with masked-off rows, which
-    change no slot assignment), the deferred view-row write of
-    _handle_arrive, and the beacon fan-out of a non-ideal fabric
-    (:func:`_beacon_fanout`; None when no beacon check ran): k masked
-    BEACON_RX pushes that come before the handler's own, and the sender's
-    bcn_t row and own view cell."""
+            fan=None, h_mask=None):
+    """One handler's staged record: its event pushes (all of them taken,
+    or those of ``h_mask``; the reference pads to a fixed width with
+    masked-off rows, which change no slot assignment), the deferred
+    view-row write of _handle_arrive, and the beacon record of
+    :func:`_send_beacon` (None when no beacon went out): off ``ideal``
+    k masked BEACON_RX pushes and the sender's bcn_t row and own view
+    cell, and under faults k masked retry pushes, all before the
+    handler's own."""
     return {"push_t": h_t, "push_typ": h_typ, "push_a0": h_a0,
-            "push_a1": h_a1, "push_a2": h_a2, "vrow_i": vrow_i,
-            "vrow": vrow, "fan": fan}
+            "push_a1": h_a1, "push_a2": h_a2, "push_mask": h_mask,
+            "vrow_i": vrow_i, "vrow": vrow, "fan": fan}
 
 
 def _stage_none(p, fan=None):
@@ -434,12 +529,12 @@ def _stage_none(p, fan=None):
 
 def _apply_staged(st, p, stg):
     """Apply a staged record's deferred matrix writes: the view row of
-    an ARRIVE, and where a beacon fired, the sender's in-flight row and
-    its own view cell."""
+    an ARRIVE, and where a beacon fired off ``ideal``, the sender's
+    in-flight row and its own view cell."""
     if stg["vrow_i"] is not None:
         st["view"][stg["vrow_i"]] = stg["vrow"]
     fan = stg["fan"]
-    if fan is not None:
+    if fan is not None and "brow" in fan:
         g, on = fan["g"], fan["on"]
         st["bcn_t"][g] = fan["brow"]
         st["view"][g, g] = torch.where(on, fan["load"], st["view"][g, g])
@@ -449,34 +544,43 @@ def _apply_staged(st, p, stg):
 
 def _push_cols(p, stg):
     """A staged record's pushes as one batch ``(mask, times, typ, a0, a1,
-    a2)`` — a beacon fan-out's k masked BEACON_RX rows before the
-    handler's own — and the count of entries it pushes; ``(None, 0)``
-    when it pushes nothing."""
+    a2)`` — a beacon's k masked BEACON_RX rows, then its k masked retry
+    rows (source encoded as ``g + k``), then the handler's own — and the
+    count of entries it pushes; ``(None, 0)`` when it pushes nothing."""
     fan, times = stg["fan"], stg["push_t"]
-    n = 0 if times is None else times.shape[0]
-    if fan is None:
-        if times is None:
-            return None, 0
-        return (p.ones_b[:n], times, stg["push_typ"], stg["push_a0"],
-                stg["push_a1"], stg["push_a2"]), n
-    cols = [fan["mask"], fan["t"], p.rx_typ,
-            torch.full((p.k,), fan["g"], dtype=I32, device=p.device),
-            p.ar_k, fan["load"].expand(p.k)]
+    segs, n = [], 0
+    if fan is not None:
+        load = fan["load"].expand(p.k)
+        for mk, tk, src in (("mask", "t", fan["g"]),
+                            ("rmask", "rt", fan["g"] + p.k)):
+            if mk in fan:
+                segs.append((fan[mk], fan[tk], p.rx_typ,
+                             torch.full((p.k,), src, dtype=I32,
+                                        device=p.device), p.ar_k32, load))
+                n = n + fan[mk].sum()
     if times is not None:
-        own = [p.ones_b[:n], times,
-               torch.full((n,), stg["push_typ"], dtype=I32, device=p.device),
-               stg["push_a0"], stg["push_a1"], stg["push_a2"]]
-        cols = [torch.cat([f, h.to(f.dtype)]) for f, h in zip(cols, own)]
-    return cols, fan["mask"].sum() + n
+        h = times.shape[0]
+        mask = stg["push_mask"]
+        typ = stg["push_typ"]
+        if segs:
+            typ = torch.full((h,), typ, dtype=I32, device=p.device)
+        segs.append((p.ones_b[:h] if mask is None else mask, times, typ,
+                     stg["push_a0"], stg["push_a1"], stg["push_a2"]))
+        n = n + (h if mask is None else mask.sum())
+    if not segs:
+        return None, 0
+    if len(segs) == 1:
+        return segs[0], n
+    return [torch.cat(col) for col in zip(*segs)], n
 
 
 def _commit(st, p, pop, stg):
-    """Pop the event(s), then push the record's fan-out and the handler's
-    own events in one batch, in that order (the popped slots are free
-    again), and keep the live-entry count.  ``pop`` is ``(slots, ok, t,
-    n)``: the slots (B,) popped where ``ok`` at time ``t``, ``n`` of them;
-    on the linear queue a single pop is ``(slot, None, None, 1)`` with the
-    slot a host int."""
+    """Pop the event(s), then push the record's beacon rows and the
+    handler's own events in one batch, in that order (the popped slots
+    are free again), and keep the live-entry count.  ``pop`` is ``(slots,
+    ok, t, n)``: the slots (B,) popped where ``ok`` at time ``t``, ``n``
+    of them; on the linear queue a single pop is ``(slot, None, None,
+    1)`` with the slot a host int."""
     slots, ok, t, n_pop = pop
     cols, n_push = _push_cols(p, stg)
     if p.queue_impl != "linear":
@@ -492,39 +596,138 @@ def _commit(st, p, pop, stg):
     st["evq_len"] += n_push - n_pop - drop
 
 
+# --------------------------------------------------------------------------
+# Faults on the host's mirror of the masks (host ints in, host ints out)
+# --------------------------------------------------------------------------
+
+def _takeover(p, g: int) -> int:
+    """Hot-spare migration: work addressed to a dead GMN goes to its ring
+    successor, the first live GMN among g+1, g+2, ... (mod k); a live
+    GMN keeps its own (g itself if every GMN were dead)."""
+    for off in range(p.k):
+        s = (g + off) % p.k
+        if p.alive_h[s]:
+            return s
+    return g
+
+
+def _lost_row(p, g: int):
+    """The receivers a beacon from ``g`` cannot reach now — its (g, i)
+    link down or i dead — as a host bool (k,) row, or None when it
+    reaches every one."""
+    lost = ~(p.up_h[g] & p.alive_h)
+    lost[g] = False
+    return lost if lost.any() else None
+
+
+def _down_from(p, g: int) -> bool:
+    """Whether any link from ``g`` to another GMN is down."""
+    down = ~p.up_h[g]
+    down[g] = False
+    return bool(down.any())
+
+
+def _dlv(st, p, g):
+    """The (k,) device mask of the receivers a beacon from ``g`` reaches
+    now (the receivers behind an up link that are alive)."""
+    return p.not_own[g] & (st["link_up"][g] > 0) & (st["gmn_alive"] > 0)
+
+
+def _refresh_masks(st, p):
+    """The detector's device masks, after a fault event changed the
+    fabric (a run's or, with a leading axis, each lane's): the suspector
+    rows that run (alive, peers only), and the ground truth of a fine
+    peer (alive, its beacon direction up) — None while the host's mirror
+    has every link up and every GMN alive, where it is all true."""
+    alive = st["gmn_alive"] > 0
+    p.det_mask = p.not_own & alive[..., :, None]
+    p.truth_ok = None if p.up_h.all() and p.alive_h.all() else \
+        alive[..., None, :] & (st["link_up"].transpose(-1, -2) > 0)
+
+
+def _detect(st, p, t, upd=None):
+    """The failure detector's refresh at a pop before ``sim_len``: GMN g
+    suspects peer c once its receipt of c is older than susp_mult * T_b
+    (floored at g's detector epoch, which only a heal moves; a dead GMN
+    runs no detector), with per-pair onsets and clears and the onsets
+    against a fine peer.  ``p.sus_prev`` is ``suspect`` as a bool.  On
+    lanes ``t`` is (L,); with ``upd`` only those lanes refresh."""
+    if t.ndim:
+        t = t.view(-1, 1, 1)
+    seen = st["view_t"]
+    if p.floored:
+        seen = torch.maximum(seen, st["det_floor"][..., None])
+    sus = torch.gt(t - seen, p.susp_thr).logical_and_(p.det_mask)
+    prev = p.sus_prev
+    if upd is not None:
+        sus = torch.where(upd[:, None, None], sus, prev)
+    onset = sus > prev
+    st["susp_onsets"] += onset
+    st["susp_clears"] += prev > sus
+    if p.truth_ok is not None:
+        onset = onset & p.truth_ok
+    st["susp_false_pos"] += onset.sum((-2, -1))
+    st["suspect"] = sus.to(F32)
+    p.sus_prev = sus
+
+
+# --------------------------------------------------------------------------
+# Beacons
+# --------------------------------------------------------------------------
+
 def _maybe_beacon(st, p, g, t):
     """Status broadcast check (Sec 4.2): the selected BeaconPolicy, and
-    the k > 1 gate (a single cluster never broadcasts).  Returns the
-    fan-out record of a non-ideal fabric (None on ``ideal``, whose
-    delivery is atomic)."""
-    if p.k == 1:
+    the k > 1 gate (a single cluster never broadcasts); a dead GMN
+    transmits nothing.  Returns the beacon record (:func:`_send_beacon`)."""
+    if p.k == 1 or (p.faults_on and not p.alive_h[g]):
         return None
     load_g = st["loads"][g].sum()
     delta = torch.abs(load_g - st["last_bcast"][g])
     due = p.beacon_due(delta, t, st["last_bcast_t"][g], dn_th=p.dn_th,
                        T_b=p.T_b)
+    return _send_beacon(st, p, g, t, due, load_g)
+
+
+def _send_beacon(st, p, g, t, fire, load_g):
+    """A beacon from live ``g`` where the device bool ``fire`` holds,
+    over the run's fabric; returns its record for the commit (None when
+    it pushes nothing)."""
     if p.rx_on:
-        return _beacon_fanout(st, p, g, t, due, load_g)
-    _fire_beacon(st, p, g, t, due, load_g)
-    return None
+        return _beacon_fanout(st, p, g, t, fire, load_g)
+    return _fire_beacon(st, p, g, t, fire, load_g)
 
 
 def _fire_beacon(st, p, g, t, fire, load_g):
-    """Transmit a status beacon from ``g`` when ``fire`` holds.  Ideal
-    fabric: serialize on the global bus and update every receiver's view
-    atomically at the grant."""
+    """Ideal fabric: serialize on the global bus and update every
+    receiver's view atomically at the grant.  Under faults a receiver
+    behind a down link or dead keeps its view and the delivery is lost,
+    retried once ``retry_after`` after the grant (a retry-rows record)."""
     t_tx = torch.maximum(t, st["gbus_free"]) + p.c_b
     st["gbus_free"] = torch.where(fire, t_tx, st["gbus_free"])
-    st["view"][:, g] = torch.where(fire, load_g.to(I32), st["view"][:, g])
-    st["view_t"][:, g] = torch.where(fire, t_tx, st["view_t"][:, g])
-    st["last_bcast"][g] = torch.where(fire, load_g.to(I32),
-                                      st["last_bcast"][g])
-    st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
+    load = load_g.to(I32)
+    lost = _lost_row(p, g) if p.faults_on else None
+    n_lost, ok, fan = 0, fire, None
     fire_i = fire.to(I32)
+    if lost is not None:
+        # the sender's own entry is local bookkeeping and always lands
+        dlv = _dlv(st, p, g)
+        ok = fire & (dlv | ~p.not_own[g])
+        n_lost = int(lost.sum())
+        st["msgs_lost"] += fire_i * n_lost
+        if p.retry_on:
+            st["retries_tx"] += fire_i * n_lost
+            fan = {"g": g, "load": load,
+                   "rmask": fire & p.not_own[g] & ~dlv,
+                   "rt": (t_tx + p.retry_after).expand(p.k)}
+    st["view"][:, g] = torch.where(ok, load, st["view"][:, g])
+    st["view_t"][:, g] = torch.where(ok, t_tx, st["view_t"][:, g])
+    st["last_bcast"][g] = torch.where(fire, load, st["last_bcast"][g])
+    st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
-    st["mgmt_latency"] += torch.where(fire, float(p.k - 1) * (t_tx - t),
-                                      0.0)
+    st["mgmt_latency"] += torch.where(
+        fire, float(p.k - 1 - n_lost) * (t_tx - t), 0.0)
+    return fan
 
 
 def _beacon_fanout(st, p, g, t, fire, load_g):
@@ -532,15 +735,19 @@ def _beacon_fanout(st, p, g, t, fire, load_g):
     device tensor: where it is false every update below writes the value
     it read, and the k fan-out rows are masked off and take no slot).
     The fabric gives each receiver its arrival time; the k BEACON_RX
-    pushes and the bcn_t/own-view writes return in the fan-out record.
-    Arrivals from one source to one receiver increase in send order, so
-    ``bcn_t`` keeps the latest pending arrival per pair and drains on
-    the last one."""
+    pushes and the bcn_t/own-view writes return in the record.  Arrivals
+    from one source to one receiver increase in send order, so ``bcn_t``
+    keeps the latest pending arrival per pair and drains on the last
+    one.  Under faults a delivery behind a down link or to a dead
+    receiver is lost at injection and retried once ``retry_after`` after
+    its would-be arrival."""
     t_tx, t_arr, st["gbus_free"], st["lbus_free"] = T.beacon_tx(
         p.topology, g, t, fire, gbus=st["gbus_free"], lbus=st["lbus_free"],
         c_b=p.c_b, c_hop=p.c_hop, hops=p.hops, k=p.k)
     rcv = p.not_own[g]                           # receiver mask
-    push = fire & rcv
+    lost = _lost_row(p, g) if p.faults_on else None
+    dlv = rcv if lost is None else _dlv(st, p, g)
+    push = fire & dlv
     load = load_g.to(I32)
     st["last_bcast"][g] = torch.where(fire, load, st["last_bcast"][g])
     st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
@@ -548,31 +755,47 @@ def _beacon_fanout(st, p, g, t, fire, load_g):
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
     st["mgmt_latency"] += torch.where(push, t_arr - t, 0.0).sum()
-    # delivery skew: the latest minus the earliest receiver's arrival
-    spread = torch.clamp(torch.where(rcv, t_arr, -INF).max()
-                         - torch.where(rcv, t_arr, INF).min(), min=0.0)
+    # delivery skew: the latest minus the earliest delivered arrival
+    spread = torch.clamp(torch.where(dlv, t_arr, -INF).max()
+                         - torch.where(dlv, t_arr, INF).min(), min=0.0)
     spread = torch.where(fire, spread, 0.0)
     st["bcn_skew_sum"] += spread
     st["bcn_skew_max"] = torch.maximum(st["bcn_skew_max"], spread)
-    return {"mask": push, "t": t_arr, "g": g, "load": load, "on": fire,
-            "t_tx": t_tx,
-            "brow": torch.where(push, t_arr, st["bcn_t"][g])}
+    fan = {"mask": push, "t": t_arr, "g": g, "load": load, "on": fire,
+           "t_tx": t_tx, "brow": torch.where(push, t_arr, st["bcn_t"][g])}
+    if lost is not None:
+        n_lost = int(lost.sum())
+        st["msgs_lost"] += fire_i * n_lost
+        if p.retry_on:
+            st["retries_tx"] += fire_i * n_lost
+            fan["rmask"] = fire & rcv & ~dlv
+            fan["rt"] = t_arr + p.retry_after
+    return fan
 
 
 def _handle_beacon_rx(st, p, t, src, rcv, load):
     """The beacon from GMN ``src`` reaches receiver ``rcv`` carrying load
     summary ``load`` (host ints from the event record).  Every delivery
     applies; the in-flight entry clears only when its latest tracked
-    arrival lands."""
-    cur = st["bcn_t"][src, rcv]
-    st["bcn_t"][src, rcv] = torch.where(cur == t, INF, cur)
+    arrival lands.  A retry (``src >= k``, faults only) rides no
+    in-flight entry and meets the masks again: still blocked, it is a
+    final loss."""
+    if src >= p.k:
+        src -= p.k
+        if not (p.up_h[src, rcv] and p.alive_h[rcv]):
+            st["msgs_lost"] += 1
+            return _stage_none(p)
+    else:
+        cur = st["bcn_t"][src, rcv]
+        st["bcn_t"][src, rcv] = torch.where(cur == t, INF, cur)
     st["view"][rcv, src].fill_(load)
     st["view_t"][rcv, src] = t
     st["beacons_rx"] += 1
     return _stage_none(p)
 
 
-def _handle_beacon_rx_batch(st, p, t, ok, typ, src, rcv, load):
+def _handle_beacon_rx_batch(st, p, t, ok, typ, src, rcv, load,
+                            retries=False):
     """Deliver the (..., B) beacons ``ok`` of a same-timestamp batch — on a
     run (``t`` 0-d) or on lanes (``t`` (L,)), as device tensors — from
     GMN ``src`` to receiver ``rcv`` with load summary ``load``.  Within a
@@ -580,21 +803,40 @@ def _handle_beacon_rx_batch(st, p, t, ok, typ, src, rcv, load):
     send order), so the element writes commute and equal the
     one-at-a-time order (``eventq.batch_take``).  A masked entry rewrites
     the cell (0, 0) with the value it holds: no beacon goes to its
-    sender, so no delivery writes there."""
+    sender, so no delivery writes there.  With ``retries`` (a retry may
+    be among them: faults, retry_after > 0) a retry (source ``src + k``)
+    is delivered only if its link and receiver are up now, and never
+    touches ``bcn_t``."""
     k = p.k
     rx = ok & (typ == EV_BEACON_RX)
-    sr = torch.where(rx, src * k + rcv, 0)           # bcn_t[src, rcv]
-    rs = torch.where(rx, rcv * k + src, 0)           # view[rcv, src]
-    if rx.ndim == 2:                                 # each lane's (k, k)
+    lanes = rx.ndim == 2
+    first = dlv = rx
+    if retries:
+        retry = src >= k
+        src = torch.where(retry, src - k, src)
+        src0, rcv0 = torch.where(rx, src, 0), torch.where(rx, rcv, 0)
+        if lanes:
+            up = st["link_up"].view(-1)[p.lane_cells + src0 * k + rcv0]
+            alive = st["gmn_alive"].gather(1, rcv0)
+        else:
+            up = st["link_up"].view(-1)[src0 * k + rcv0]
+            alive = st["gmn_alive"][rcv0]
+        still = (up > 0) & (alive > 0)
+        first = rx & ~retry
+        dlv = first | (rx & still)
+        st["msgs_lost"] += (rx & retry & ~still).sum(-1)
+    sr = torch.where(first, src * k + rcv, 0)        # bcn_t[src, rcv]
+    rs = torch.where(dlv, rcv * k + src, 0)          # view[rcv, src]
+    if lanes:                                        # each lane's (k, k)
         sr, rs, t = sr + p.lane_cells, rs + p.lane_cells, t[:, None]
     bcn = st["bcn_t"].view(-1)
     cur = bcn[sr]
     # the in-flight entry clears when its latest tracked arrival lands
-    bcn[sr] = torch.where(rx & (cur == t), INF, cur)
+    bcn[sr] = torch.where(first & (cur == t), INF, cur)
     view, view_t = st["view"].view(-1), st["view_t"].view(-1)
-    view[rs] = torch.where(rx, load.to(I32), view[rs])
-    view_t[rs] = torch.where(rx, t, view_t[rs])
-    st["beacons_rx"] += rx.sum(-1)
+    view[rs] = torch.where(dlv, load.to(I32), view[rs])
+    view_t[rs] = torch.where(dlv, t, view_t[rs])
+    st["beacons_rx"] += dlv.sum(-1)
 
 
 def _rx_cohort(st, p, t, slot):
@@ -621,11 +863,35 @@ def _rx_cohort(st, p, t, slot):
     return slots, ok, pay
 
 
+# --------------------------------------------------------------------------
+# The management handlers
+# --------------------------------------------------------------------------
+
+def _rehome(st, p, g0: int, t):
+    """A message addressed to GMN ``g0``: under faults it re-homes to the
+    takeover GMN through one redirect hop (counted as a reroute).
+    Returns ``(g, t_eff)``, the GMN that takes it and when."""
+    if not p.faults_on:
+        return g0, t
+    g = _takeover(p, g0)
+    if g == g0:
+        return g0, t
+    t_eff, st["gbus_free"], st["lbus_free"], lat = T.unicast(
+        p.topology, g0, g, t, True, gbus=st["gbus_free"],
+        lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+    st["reroutes"] += 1
+    st["mgmt_msgs"] += 1
+    st["mgmt_latency"] += lat
+    return g, t_eff
+
+
 def _handle_arrive(st, p, t, app, g, _unused, lengths):
-    """Stage 1: expand the fork tree at GMN g, fan out LOCAL_SPAWN msgs."""
+    """Stage 1: expand the fork tree at GMN g, fan out LOCAL_SPAWN msgs.
+    Under faults a stimulus to a dead GMN re-homes first, and a
+    task-start over a down link detours (``link_penalty``)."""
     n, ns = p.n_childs, p.ns
     depth = int(np.ceil(np.log2(ns))) if ns > 1 else 0
-    t_eff = t
+    g, t_eff = _rehome(st, p, g, t)
     # GMN compute: 2 stage-1 decisions per fork-tree level (Eqn 3)
     t_cpu = torch.maximum(t_eff, st["gmn_free"][g])
     t_tree = t_cpu + 2.0 * depth * p.sel_global
@@ -633,20 +899,29 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
     # own cluster count is exact; remote ones come from beacons
     own_view = T._set1(st["view"][g], g, st["loads"][g].sum())
     age = T._set1(torch.clamp(t_eff - st["view_t"][g], min=0.0), g, 0.0)
+    up_row = st["link_up"][g] if p.faults_on and _down_from(p, g) else None
 
     view, gbus, lbus = own_view, st["gbus_free"], st["lbus_free"]
     rr = st["rr_ptr"][g]
     rr0 = rr.clone() if p.record_s1 else None     # rr_ptr[g] is written below
-    cs, t_arrs, lats, remotes, views = [], [], [], [], []
+    cs, t_arrs, lats, remotes, views, detours = [], [], [], [], [], []
     for i in range(ns):
         views.append(view)
-        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b)
+        c = p.pick_cluster(view, age, g, rr, app, i, k=p.k, T_b=p.T_b,
+                           susp_mult=p.susp_mult)
         # optimistic local bookkeeping of the task-start just sent
         view = _add1(view, c, p.cnts[i])
         is_remote = c != g
         t_arr, gbus, lbus, lat = T.unicast(
             p.topology, g, c, t_tree, is_remote, gbus=gbus, lbus=lbus,
             c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+        if up_row is not None:
+            # a reliable task-start over a down (g, c) link detours
+            up = _take(up_row, c)
+            pen = T.link_penalty(p.topology, up, is_remote, c_b=p.c_b,
+                                 c_hop=p.c_hop)
+            t_arr, lat = t_arr + pen, lat + pen
+            detours.append(is_remote & (up == 0))
         rr = rr + 1
         cs.append(c)
         t_arrs.append(t_arr)
@@ -654,6 +929,8 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
         remotes.append(is_remote)
     st["rr_ptr"][g] = rr
     st["gbus_free"], st["lbus_free"] = gbus, lbus
+    if detours:
+        st["reroutes"] += torch.stack(detours).sum()
     st["mgmt_msgs"] += torch.stack(remotes).sum()
     st["mgmt_latency"] += torch.stack(lats).sum()
     st["mgmt_proc"] += t_tree - t_eff
@@ -668,6 +945,8 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
         st["dec_choice"][app] = cs
         st["dec_rr0"][app] = rr0
         st["dec_t"][app] = t
+        if p.faults_on:
+            st["dec_gmn"][app].fill_(g)
     return _staged(p, torch.stack(t_arrs), EV_LOCAL_SPAWN,
                    torch.full((ns,), app, dtype=I32, device=p.device),
                    cs, p.cnts, vrow_i=g, vrow=view)
@@ -678,8 +957,9 @@ def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
     each task-start rides the cluster's local bus (the one bus under
     ``shared_bus``).  The reference scans a static n_max >= cnt steps
     whose tail is masked off (exact no-ops); the count is a host int
-    here, so the loop takes cnt steps."""
-    t_eff = t
+    here, so the loop takes cnt steps.  Under faults a group sent to a
+    dead GMN re-homes (tasks and management) first."""
+    g, t_eff = _rehome(st, p, g, t)
     pe_free, loads = st["pe_free"][g], st["loads"][g]    # row views
     t_cpu = torch.maximum(t_eff, st["gmn_free"][g])
     bus = st["gbus_free"] if p.shared else st["lbus_free"][g]
@@ -716,8 +996,9 @@ def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
 def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
     """A child finished: join-exit message over its cluster's local bus
     (the one bus under ``shared_bus``), load decrement, beacon check,
-    forward to the barrier GMN (the application's arrival GMN) and
-    barrier decrement."""
+    forward to the barrier GMN (the application's arrival GMN, or its
+    takeover under faults; a down link detours) and barrier
+    decrement."""
     if p.shared:
         t_msg = torch.maximum(t, st["gbus_free"]) + p.c_b
         st["gbus_free"] = t_msg
@@ -730,10 +1011,19 @@ def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
     # the beacon's bus grant comes before the forward's
     fan = _maybe_beacon(st, p, g, t_msg)
     pg = int(parent_gmns[app])
+    if p.faults_on:
+        # the barrier re-homes with its manager
+        pg0, pg = pg, _takeover(p, pg)
+        if pg != pg0:
+            st["reroutes"] += 1
     remote = pg != g
     t_fwd, st["gbus_free"], st["lbus_free"], lat = T.forward(
         p.topology, g, pg, t_msg, remote, gbus=st["gbus_free"],
         lbus=st["lbus_free"], c_b=p.c_b, c_hop=p.c_hop, hops=p.hops)
+    if p.faults_on and remote and not p.up_h[g, pg]:
+        pen = T.detour_cost(p.topology, c_b=p.c_b, c_hop=p.c_hop)
+        t_fwd, lat = t_fwd + pen, lat + pen
+        st["reroutes"] += 1
     st["mgmt_msgs"] += int(remote)
     st["mgmt_latency"] += lat
     t_bar = torch.maximum(t_fwd, st["gmn_free"][pg]) + p.c_join
@@ -745,21 +1035,96 @@ def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
     return _stage_none(p, fan)
 
 
+# --------------------------------------------------------------------------
+# Fault and heartbeat handlers (host ints from the event record)
+# --------------------------------------------------------------------------
+
+def _handle_link_down(st, p, t, i, j):
+    """LINK_DOWN(i, j): the directed link drops; a DOWN on a down link
+    keeps the first outage's start."""
+    if p.up_h[i, j]:
+        st["link_down_t"][i, j] = t
+        st["link_up"][i, j].fill_(0.0)
+        p.up_h[i, j] = False
+        _refresh_masks(st, p)
+    return _stage_none(p)
+
+
+def _handle_link_up(st, p, t, i, j):
+    """LINK_UP(i, j): the link heals; its outage lands in ``downtime``."""
+    if not p.up_h[i, j]:
+        st["downtime"] += t - st["link_down_t"][i, j]
+        st["link_up"][i, j].fill_(1.0)
+        p.up_h[i, j] = True
+        _refresh_masks(st, p)
+    return _stage_none(p)
+
+
+def _handle_gmn_fail(st, p, t, g):
+    """GMN_FAIL(g): manager g dies.  Its queued work re-homes when it
+    pops (:func:`_takeover`), so the queue needs no surgery."""
+    if p.alive_h[g]:
+        st["gmn_down_t"][g] = t
+        st["gmn_alive"][g].fill_(0.0)
+        p.alive_h[g] = False
+        _refresh_masks(st, p)
+    return _stage_none(p)
+
+
+def _handle_gmn_heal(st, p, t, g):
+    """GMN_HEAL(g): manager g recovers — its outage lands in
+    ``downtime``, its detector restarts at ``t`` — and announces its
+    rejoin with an unconditional beacon."""
+    if p.alive_h[g]:
+        return _stage_none(p)
+    st["downtime"] += t - st["gmn_down_t"][g]
+    st["gmn_alive"][g].fill_(1.0)
+    p.alive_h[g] = True
+    st["det_floor"][g] = t
+    p.floored = True
+    _refresh_masks(st, p)
+    if p.k == 1:
+        return _stage_none(p)
+    return _stage_none(p, _send_beacon(st, p, g, t, p.true,
+                                       st["loads"][g].sum()))
+
+
+def _handle_heartbeat(st, p, t, g, sim_len):
+    """HEARTBEAT(g): the timer-driven broadcast under periodic's
+    due-rule (a dead GMN sends nothing), then the next HEARTBEAT at
+    t + T_b while that stays before ``sim_len``."""
+    fan = None
+    if not (p.faults_on and not p.alive_h[g]):
+        load_g = st["loads"][g].sum()
+        due = p.beacon_due(torch.abs(load_g - st["last_bcast"][g]), t,
+                           st["last_bcast_t"][g], dn_th=p.dn_th, T_b=p.T_b)
+        fan = _send_beacon(st, p, g, t, due, load_g)
+    nxt = (t + p.T_b).reshape(1)
+    zero = torch.zeros((1,), dtype=I32, device=p.device)
+    return _staged(p, nxt, EV_HEARTBEAT, zero + g, zero, zero, fan=fan,
+                   h_mask=nxt < sim_len)
+
+
 def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
              lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
              topology: Topology = DEFAULT_TOPOLOGY, faults=None, trace=None):
     """The event loop on ``arrivals.device``: arrivals (A,) f32,
-    arrival_gmns (A,) i32, lengths (A, n_childs) f32 tensors.  Returns
-    the final state dict."""
+    arrival_gmns (A,) i32, lengths (A, n_childs) f32 tensors; ``faults``
+    None (the no-fault program), a FaultSpec or a FaultSchedule.
+    Returns the final state dict."""
     _require_ported(shape, policy, topology, faults, trace)
     dev = arrivals.device
-    p = _Ctx(shape, knobs, policy, topology, dev)
+    faults = FLT.as_schedule(faults, shape.k, float(sim_len))
+    p = _Ctx(shape, knobs, policy, topology, dev,
+             faults_on=faults is not None)
     st = make_state(p, dev)
     # the barrier GMN of each application, read by the host dispatch
     parent_gmns = arrival_gmns.cpu().numpy()
+    sim_len_h = float(np.float32(sim_len))        # the reference's f32
     sim_len = torch.tensor(sim_len, dtype=F32, device=dev)
 
-    _init_queue(st, p, arrivals, arrival_gmns, sim_len)
+    _init_queue(st, p, arrivals, arrival_gmns, sim_len,
+                None if faults is None else faults.to(dev))
 
     handlers = {
         EV_ARRIVE: lambda t, a: _handle_arrive(st, p, t, *a, lengths),
@@ -768,7 +1133,16 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         EV_JOIN_EXIT: lambda t, a: _handle_join_exit(st, p, t, *a, lengths,
                                                      parent_gmns),
         EV_BEACON_RX: lambda t, a: _handle_beacon_rx(st, p, t, *a),
+        EV_LINK_DOWN: lambda t, a: _handle_link_down(st, p, t, *a[:2]),
+        EV_LINK_UP: lambda t, a: _handle_link_up(st, p, t, *a[:2]),
+        EV_GMN_FAIL: lambda t, a: _handle_gmn_fail(st, p, t, a[0]),
+        EV_GMN_HEAL: lambda t, a: _handle_gmn_heal(st, p, t, a[0]),
+        EV_HEARTBEAT: lambda t, a: _handle_heartbeat(st, p, t, a[0],
+                                                     sim_len),
     }
+    if p.faults_on:
+        _refresh_masks(st, p)
+        p.sus_prev = st["suspect"] > 0
     linear = p.queue_impl == "linear"
     while True:
         if linear:
@@ -784,17 +1158,27 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         if t_h >= INF:
             break
         t, typ = head[0], int(typ)
+        # the failure detector refreshes after the pop's beacon
+        # deliveries and before its handler; frozen from sim_len on
+        detect = p.faults_on and t_h < sim_len_h
         # occupancy high-water mark, sampled before the pop
         st["evq_peak"] = torch.maximum(st["evq_peak"], st["evq_len"])
         if typ == EV_BEACON_RX and p.bp > 1:
             slots, ok, pay = _rx_cohort(st, p, t, head[1].to(torch.int64))
-            _handle_beacon_rx_batch(st, p, t, ok, *pay.unbind(-1))
+            _handle_beacon_rx_batch(st, p, t, ok, *pay.unbind(-1),
+                                    retries=p.retry_on)
+            if detect:
+                _detect(st, p, t)
             n_pop = ok.sum()
             st["events_processed"] += n_pop
             _commit(st, p, (slots, ok, t, n_pop), _stage_none(p))
             continue
         st["events_processed"] += 1
+        if detect and typ != EV_BEACON_RX:
+            _detect(st, p, t)
         stg = handlers[typ](t, (int(a0), int(a1), int(a2)))
+        if detect and typ == EV_BEACON_RX:
+            _detect(st, p, t)
         _apply_staged(st, p, stg)
         _commit(st, p, (int(slot_h), None, None, 1) if linear
                 else (head[1:2].to(torch.int64), p.ones_b[:1], t, 1), stg)
@@ -805,8 +1189,9 @@ def run(p: SimParams, arrivals, arrival_gmns, lengths, sim_len: float = 1e7,
         faults=None, trace=None, device=None):
     """arrivals (A,) f32 times (INF = unused); arrival_gmns (A,) i32;
     lengths (A, n_childs) f32 child task lengths (numpy arrays or
-    tensors).  Runs on ``device`` (default: the CUDA card) and returns
-    the final state dict of tensors there."""
+    tensors); ``faults`` an optional FaultSpec or FaultSchedule
+    (``core/faults``).  Runs on ``device`` (default: the CUDA card) and
+    returns the final state dict of tensors there."""
     dev = resolve_device(device)
     return simulate(p.shape, p.knobs,
                     torch.as_tensor(arrivals, dtype=F32).to(dev),

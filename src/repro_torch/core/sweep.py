@@ -38,6 +38,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core.faults import as_schedule
 from repro_torch.core.lanes import simulate_lanes
 # batched metrics live in repro_torch.core.metrics, re-exported here as
 # in the reference
@@ -129,7 +130,9 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
     topology  any fabric of ``core/transport`` (a Topology or its kind).
     queue_impl, batch_pop   overrides of the shape's fields (every
               queue of ``core/eventq`` and window of ``batch_pop``).
-    faults, trace   only None is ported (ROADMAP items 8 and 9).
+    faults    None, or a FaultSpec or FaultSchedule (``core/faults``)
+              that every lane meets.
+    trace     only None is ported (ROADMAP item 9).
 
     Returns the final-state dict with every leaf batched to (B, S, ...).
     """
@@ -149,6 +152,7 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
         shape = dataclasses.replace(shape, batch_pop=batch_pop)
     _require_ported(shape, policy, topology, faults, trace)
     dev = resolve_device(device)
+    faults = as_schedule(faults, shape.k, float(sim_len))
     arrivals, gmns, lengths = (torch.as_tensor(np.asarray(x), dtype=dt)
                                .to(dev) for x, dt in zip(workload,
                                                          (F32, I32, F32)))
@@ -161,18 +165,19 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
     mode = resolve_mode(mode, dev)
     if mode == "vmap":
         return _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len,
-                           policy, topology)
+                           policy, topology, faults)
     b, s = knobs.dn_th.shape[0], arrivals.shape[0]
     knobs = knobs.to(dev)
-    outs = [simulate(shape, SimKnobs(*(v[i] for v in knobs)), arrivals[j],
-                     gmns[j], lengths[j], sim_len, policy, topology)
+    outs = [simulate(shape, SimKnobs(*(v[i] for v in knobs)),
+                     arrivals[j], gmns[j], lengths[j], sim_len, policy,
+                     topology, faults)
             for i in range(b) for j in range(s)]
     return {key: torch.stack([o[key] for o in outs])
             .reshape((b, s) + outs[0][key].shape) for key in outs[0]}
 
 
 def _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len, policy,
-                topology) -> dict:
+                topology, faults=None) -> dict:
     """All B x S lanes in one lane-batched loop on ``arrivals.device``
     (lane i*S + j: knob i, workload j); leaves (B, S, ...)."""
     b, s = knobs.dn_th.shape[0], arrivals.shape[0]
@@ -180,7 +185,7 @@ def _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len, policy,
     st = simulate_lanes(
         shape, SimKnobs(*(v.repeat_interleave(s) for v in knobs)),
         arrivals.repeat(b, 1), gmns.repeat(b, 1), lengths.repeat(b, 1, 1),
-        sim_len, policy, topology)
+        sim_len, policy, topology, faults)
     return {key: v.reshape((b, s) + v.shape[1:]) for key, v in st.items()}
 
 

@@ -193,15 +193,20 @@ def forward(topo: Topology, src, dst, t_ready, is_remote, *, gbus, lbus,
                    c_b=c_b, c_hop=c_hop, hops=hops)
 
 
+def detour_cost(topo: Topology, *, c_b, c_hop):
+    """What a reliable message pays to get around a down link: a two-hop
+    detour on ``mesh2d`` (``2 * c_hop``), a retransmit grant pair
+    elsewhere (``2 * c_b``)."""
+    return 2.0 * (c_hop if topo.kind == "mesh2d" else c_b)
+
+
 def link_penalty(topo: Topology, up, is_remote, *, c_b, c_hop):
-    """Extra latency a reliable message pays when its (src, dst) link is
-    down (``up == 0``): a two-hop detour on ``mesh2d`` (``2 * c_hop``),
-    a retransmit grant pair elsewhere (``2 * c_b``); exactly 0.0 when the
-    link is up or the message is local.  The fault paths that add it to
-    arrival times are ROADMAP item 8."""
-    base = 2.0 * (c_hop if topo.kind == "mesh2d" else c_b)
+    """Extra latency a reliable message (task-start group, join-exit
+    forward) pays when its (src, dst) link is down (``up == 0``):
+    :func:`detour_cost`, and exactly 0.0 when the link is up or the
+    message is local."""
     hit = torch.logical_and(torch.as_tensor(is_remote), up == 0)
-    return torch.where(hit, base, 0.0)
+    return torch.where(hit, detour_cost(topo, c_b=c_b, c_hop=c_hop), 0.0)
 
 
 def beacon_tx(topo: Topology, g, t, fire, *, gbus, lbus, c_b, c_hop, hops,

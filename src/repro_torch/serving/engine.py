@@ -12,9 +12,11 @@ decisions and the beacon trigger are the port's policy host adapters
 delays of ``core/transport.host_beacon_delays``.
 
 Faults (worker-group kills, failed links and managers) are handled as in
-the reference.  Not ported yet: the suspicion-driven mapping policies and
-the heartbeat beacon (ROADMAP item 8), and the Perfetto export of the
-trace (ROADMAP item 9); asking for them raises ``NotImplementedError``.
+the reference, and every mapping and beacon policy runs, the
+failure-detector ones included (:meth:`ClusterScheduler.suspects` is
+the wall-clock twin of the event loop's ``suspect`` row).  Not ported
+yet: the Perfetto export of the trace (ROADMAP item 9), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,22 +58,22 @@ class ClusterScheduler:
     def __init__(self, cluster_id: int, k: int, n_groups: int, dn_th: int,
                  *, mapping: str = "min_search", beacon: str = "threshold",
                  T_b: float = float("inf"), susp_mult: float = 3.0):
-        if mapping in P.SUSPECT_POLICIES:
-            raise NotImplementedError(f"mapping policy {mapping!r} "
-                                      f"{P._FAULTS_ITEM}")
-        if beacon == "heartbeat":
-            raise NotImplementedError(f"beacon policy 'heartbeat' "
-                                      f"{P._FAULTS_ITEM}")
         if mapping not in P.MAPPING_POLICIES:
             raise ValueError(f"unknown mapping policy {mapping!r}; "
                              f"choose from {P.MAPPING_POLICIES}")
-        if beacon not in P.BEACON_POLICIES:
+        if beacon not in P.ALL_BEACON_POLICIES:
             raise ValueError(f"unknown beacon policy {beacon!r}; "
                              f"choose from {P.ALL_BEACON_POLICIES}")
         if mapping == "staleness_weighted" and not np.isfinite(T_b):
             raise ValueError("staleness_weighted needs a finite T_b: with "
                              "T_b=inf the age penalty is zero and the "
                              "policy degenerates to min_search")
+        if mapping in P.SUSPECT_POLICIES \
+                and not np.isfinite(float(susp_mult) * float(T_b)):
+            raise ValueError(f"{mapping} needs a finite susp_mult * T_b "
+                             "suspicion deadline: with an infinite one no "
+                             "peer is ever suspected and the policy "
+                             "degenerates to its detector-off form")
         self.cid = cluster_id
         self.k = k
         self.n_groups = n_groups
@@ -123,6 +125,15 @@ class ClusterScheduler:
     def kill_group(self, g: int):
         self.alive[g] = False
         self.local[g] = 0.0
+
+    # -- failure detector ----------------------------------------------------
+    def suspects(self, now: float = 0.0) -> np.ndarray:
+        """(k,) bool: the peers whose last beacon is older than
+        susp_mult * T_b (the own entry never), in the event loop's f32
+        arithmetic."""
+        age = (now - self.remote_t).astype(np.float32)
+        age[self.cid] = 0.0
+        return age > np.float32(self.susp_mult) * np.float32(self.T_b)
 
     # -- stage 1: cluster choice ---------------------------------------------
     def pick_cluster(self, now: float = 0.0, salt: int = 0) -> int:

@@ -16,9 +16,10 @@ choice:
     report = replay_decisions(trace, p)      # report.mismatches == []
 
 :func:`replay_trace` drives a whole :class:`FleetSim` from a recorded
-run's arrivals, one request per application.  The fault-aware decider
-(``dec_gmn``, ROADMAP item 8) is not recorded yet: the deciding GMN is
-the arrival GMN.
+run's arrivals, one request per application.  Under faults the deciding
+GMN can differ from the arrival GMN (a dead manager's work re-homes to
+its takeover): fault-aware runs record the effective decider in
+``dec_gmn``, and the trace takes it from there.
 """
 from __future__ import annotations
 
@@ -64,7 +65,9 @@ def _host(x) -> np.ndarray:
 
 def decision_trace(state, arrival_gmns) -> list[Decision]:
     """The recorded stage-1 decisions of a ``record_s1=True`` final state,
-    in application order (completed ARRIVEs only)."""
+    in application order (completed ARRIVEs only); the deciding GMN is
+    ``dec_gmn`` where the run recorded it (faults), else the arrival
+    GMN."""
     if "dec_choice" not in state:
         raise ValueError("state has no decision trace; run the simulator "
                          "with record_s1=True (SimParams/SimShape)")
@@ -74,7 +77,7 @@ def decision_trace(state, arrival_gmns) -> list[Decision]:
     choices = _host(state["dec_choice"])
     rr0 = _host(state["dec_rr0"])
     ts = _host(state["dec_t"])
-    gmns = _host(arrival_gmns)
+    gmns = _host(state["dec_gmn"] if "dec_gmn" in state else arrival_gmns)
     out = []
     for app in np.nonzero(arr < 1e17)[0]:
         for i in range(choices.shape[1]):
@@ -105,15 +108,18 @@ def replay_decisions(trace, p) -> ReplayReport:
     ClusterScheduler and compare choices.  ``p`` is the SimParams the
     trace was recorded under (its ``mapping``, ``dn_th`` and ``T_b``).
 
-    Two configurations go through the host adapter ``host_pick``
+    Three configurations go through the host adapter ``host_pick``
     directly, as in the reference: ``hashed_random``, which salts with
     the decision index within the fork (a scheduler makes one decision
-    per request), and ``staleness_weighted`` with T_b=inf, which the
-    scheduler refuses."""
+    per request), ``staleness_weighted`` with T_b=inf, and a suspicion
+    policy with an infinite susp_mult * T_b, which the scheduler
+    refuses."""
     report = ReplayReport(n_decisions=len(trace))
     susp_mult = float(getattr(p, "susp_mult", 3.0))
     direct = p.mapping == "hashed_random" or (
-        p.mapping == "staleness_weighted" and not np.isfinite(p.T_b))
+        p.mapping == "staleness_weighted" and not np.isfinite(p.T_b)) or (
+        p.mapping in P.SUSPECT_POLICIES
+        and not np.isfinite(susp_mult * float(p.T_b)))
     for dec in trace:
         if direct:
             got = P.host_pick(p.mapping, dec.view, dec.age, own=dec.gmn,

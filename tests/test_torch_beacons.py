@@ -59,7 +59,12 @@ def test_random_updates_match_reference(policy, seed):
 
 
 def test_unknown_and_unported_policies():
+    """Unknown policies are refused; heartbeat (ported now) runs as the
+    reference's, on periodic's rule."""
     with pytest.raises(ValueError, match="unknown beacon policy"):
         B.BeaconState.create(4, 2, policy="sometimes")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        B.BeaconState.create(4, 2, policy="heartbeat")
+    rng = np.random.default_rng(3)
+    updates = [(int(rng.integers(0, 4)), int(rng.integers(0, 9)),
+                float(i) * 0.7) for i in range(40)]
+    a, b = _drive(4, 2, updates, policy="heartbeat", T_b=2.0)
+    assert a.tx_count > 0

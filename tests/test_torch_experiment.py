@@ -1,8 +1,9 @@
 """The port's experiment engine (repro_torch.core.experiment) against the
 reference's (repro.core.experiment) on the CPU: the planner's groups and
 program counts, the spec's JSON provenance read across packages, every
-ResultFrame column of a small spec in both modes, the payload's JSON
-round trip, the deprecated shims and what ``run()`` refuses."""
+ResultFrame column of a small spec in both modes, the faults axis, the
+payload's JSON round trip, the deprecated shims and what ``run()``
+refuses."""
 import json
 import warnings
 
@@ -20,6 +21,7 @@ from repro.core.trace import TraceSpec
 from repro_torch.core import experiment as TE
 from repro_torch.core import sweep as TSW
 from repro_torch.core import workloads as TW
+from repro_torch.core.faults import FaultSpec as TFaultSpec
 from repro_torch.core.sim import SimParams
 from test_torch_sim import _assert_states_equal
 
@@ -76,8 +78,11 @@ def test_spec_from_dict_reads_reference_json():
     assert json.loads(json.dumps(port.to_dict(), default=float)) == d
     assert port.plan().expected_programs("vmap") \
         == spec.plan().expected_programs("vmap")
-    # the planner takes it; run() refuses the fault axis, then the trace
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    # the fault axis reads back as the port's FaultSpecs; run() refuses
+    # the trace
+    assert [f.to_dict() for f in port.faults if f is not None] \
+        == [f for f in d["faults"] if f is not None]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         port.run(device="cpu")
     no_faults = TE.spec_from_dict(dict(d, faults=[None]))
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
@@ -147,6 +152,52 @@ def test_result_frame_equals_reference(mode):
         port.state(k=3)
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         port.trace_frame()
+
+
+@pytest.mark.parametrize("mode", ["seq", "vmap"])
+def test_fault_axis_equals_reference(mode):
+    """The faults axis: no fault, a partition and a manager outage
+    crossed with a suspicion policy and a retry knob axis, every column
+    (the fault coordinate and the availability and detector columns,
+    zero-filled for the no-fault group) and every group's state equal
+    to the reference's."""
+    def run(E, P, F, device):
+        spec = E.ExperimentSpec(
+            base=P(**SMALL, k=4, T_b=1000.0, susp_mult=4.0),
+            policies=(("avoid_suspected", "periodic"),),
+            topologies=("hier_tree",),
+            knobs={"retry_after": (0.0, 250.0)},
+            workloads=(E.WorkloadSpec("interference", seeds=(0,)),),
+            faults=(None, F.partition(t_down=4e4, t_heal=9e4),
+                    F.gmn_outage(t_down=3e4, t_heal=1.2e5, name="outage")),
+            sim_len=1.5e5)
+        return spec.run() if device is None else spec.run(mode=mode,
+                                                          device=device)
+    ref = run(RE, RefParams, FaultSpec, None)
+    port = run(TE, SimParams, TFaultSpec, "cpu")
+    assert len(port) == len(ref) == 6
+    assert set(port._columns()) == set(ref._columns())
+    for name in ref._columns():
+        if name in WALL:
+            continue
+        want, got = ref.col(name), port.col(name)
+        if name == "mgmt_latency":
+            assert np.allclose(got, want, rtol=1e-5), name
+        else:
+            assert np.array_equal(got, want, equal_nan=want.dtype.kind
+                                  == "f"), name
+    assert port.col("fault").tolist() == ["none"] * 2 + ["partition"] * 2 \
+        + ["outage"] * 2
+    assert port.msgs_lost(fault="none").sum() == 0
+    assert port.msgs_lost(fault="partition").sum() > 0
+    for fault in ("none", "partition", "outage"):
+        _assert_states_equal(
+            {key: torch.from_numpy(v) for key, v in
+             port.state(fault=fault).items()},
+            jax.device_get(ref.state(fault=fault)))
+    assert port.expected_programs == ref.plan.expected_programs(mode)
+    assert [g["coords"] for g in port.manifest()["groups"]] \
+        == [g["coords"] for g in ref.manifest()["groups"]]
 
 
 def test_payload_round_trips_through_json():

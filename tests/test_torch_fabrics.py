@@ -1,12 +1,15 @@
 """The port's event loops on every fabric against the reference on the
 CPU: ``sim.run`` and ``sweep(mode="vmap")`` (the lane loop) leaf for
 leaf on each fabric at k in {1, 4, 16}, ``ExperimentSpec.run`` over a
-topology axis in both modes, and the frozen fabric digests
-(``goldens.FABRICS``).  Every non-ideal run also holds beacon
+topology axis in both modes, and the frozen fabric and fault digests
+(``goldens.FABRICS``, ``goldens.FAULTS``, with a CPU rehearsal of the
+card's smallest fault group).  Every non-ideal run also holds beacon
 conservation and an empty in-flight matrix at its end.
 
 Every leaf is held bitwise except ``mgmt_latency``, at rtol=1e-5 (see
 tests/test_torch_sim.py)."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro_torch.core import goldens as G
 from repro_torch.core import sweep as TSW
 from repro_torch.core import workloads as TW
 from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.sim import SimParams
 from repro_torch.core.sim import run as port_run
 from repro_torch.core.transport import TOPOLOGIES
@@ -140,3 +144,48 @@ def test_cut_goldens_shape():
             tx, rx = np.array(row["beacons_tx"]), np.array(row["beacons_rx"])
             assert (rx == 255 * tx).all() and row["dropped"] == [0, 0]
             assert max(row["evq_peak"]) < G.cut_params(256)["queue_cap"]
+
+
+def test_fault_goldens_shape():
+    """The frozen fault digests cover every group of the card's phase
+    (``goldens.fault_specs``), 2 lanes each: the no-fault group equals
+    ``goldens.FABRICS`` on their shared counters and loses nothing, every
+    lane conserves beacons with its losses and retries, retries exist
+    only under the detector tier's retry_after, and each partition lane
+    carries the scheduled outage in ``downtime``."""
+    assert set(G.FAULTS) == {
+        "hier_tree/min_search/threshold/" + f for f in (
+            "none", "poisson_links", "partition", "gmn_churn")} | {
+        "mesh2d/min_search/threshold/partition"} | {
+        f"hier_tree/{m}/gmn_outage" for m in (
+            "min_search/periodic", "avoid_suspected/periodic",
+            "suspect_weighted/periodic", "avoid_suspected/heartbeat")}
+    k, sim_len = G.FAULT_K, G.FAULT_SIM_LEN
+    none = G.FAULTS["hier_tree/min_search/threshold/none"]
+    fab = G.FABRICS[sim_len][k]["hier_tree"]
+    for key in ("events_processed", "beacons_tx", "beacons_rx"):
+        assert none[key] == fab[key], key
+    assert none["msgs_lost"] == none["reroutes"] == [0, 0]
+    cut = 2 * (k // 2) * (k - k // 2)
+    for key, row in G.FAULTS.items():
+        tx, rx, lost, rtr = (np.array(row[n]) for n in (
+            "beacons_tx", "beacons_rx", "msgs_lost", "retries_tx"))
+        assert len(tx) == len(G.FABRIC_SEEDS), key
+        assert (rx + lost == (k - 1) * tx + rtr).all(), key
+        assert (rtr > 0).all() == ("gmn_outage" in key), key
+        if key.endswith("/partition"):
+            assert row["downtime"] == [cut * 0.3 * sim_len] * 2, key
+
+
+def test_fault_group_rehearsal_matches_golden():
+    """A CPU rehearsal of the card's phase faults: its smallest group
+    (``suspect_weighted`` under the outage, at the phase's widths and
+    horizon) through ``ExperimentSpec`` in vmap mode equals its frozen
+    digest."""
+    spec = G.fault_specs(ExperimentSpec, WorkloadSpec, SimParams, FaultSpec,
+                         mode="vmap")[2]
+    spec = dataclasses.replace(
+        spec, policies=(("suspect_weighted", "periodic"),))
+    got = G.fault_digests([spec.run(device="cpu")])
+    key = "hier_tree/suspect_weighted/periodic/gmn_outage"
+    assert got == {key: G.FAULTS[key]}

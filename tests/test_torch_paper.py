@@ -4,7 +4,8 @@ arguments give the same results JSON — curves, rows, claim booleans,
 embedded spec and meta block — except wall-clock fields, the
 reference's count of compiled programs (the port compiles none) and its
 count of the compiled loop's copy bytes and its XLA:CPU cost anchor
-(``topology_frontier``: the port has no compiled program to count)."""
+(``topology_frontier``: the port has no compiled program to count), and
+the reference's claims about its count of compiled programs."""
 import importlib
 import json
 import sys
@@ -18,17 +19,20 @@ sys.path.insert(0, str(ROOT))            # the reference's benchmarks/
 import benchmarks.common as ref_common  # noqa: E402
 from repro_torch.benchmarks import common as port_common  # noqa: E402
 
-# wall-clock fields and the compile count: measured, not computed
+# wall-clock fields and the compile counts: measured, not computed
 SKIP = {"us_per_batch", "us_per_decision", "flat_argmin_us_per_batch",
         "sweep_s", "events_per_sec", "us_per_event", "wall_s",
         "lane_wall_s", "n_compiles", "copy_bytes_per_iter", "cold_wall_s",
         "warm_wall_s", "warm_events_per_sec", "marginal_wall_s",
-        "compile_s"}
+        "compile_s", "detector_compiles"}
 # what the port's payloads add: K1's assignments against its plain version
 PORT_ONLY = {"two_stage_matches_plain"}
-# what only the reference's have: the XLA loop body's copy bytes and the
-# reference's own XLA:CPU cost anchor (topology_frontier)
-REF_ONLY = {"copy_bytes_per_iter", "pr1_reference"}
+# what only the reference's have: the XLA loop body's copy bytes, the
+# reference's own XLA:CPU cost anchor (topology_frontier) and its claims
+# about how many XLA programs it compiles (the port compiles none)
+REF_ONLY = {"copy_bytes_per_iter", "pr1_reference",
+            "claim_one_program_per_group", "claim_fault_grid_no_recompile",
+            "claim_detector_no_recompile"}
 
 CASES = {
     "fig2a": {},
@@ -115,3 +119,73 @@ def test_topology_frontier_payload_equals_reference(tmp_path, monkeypatch,
     assert lines[0].split(",")[0] == lines[half].split(",")[0]
     assert [ln.split(":")[0] for ln in lines[1:half]] \
         == [ln.split(":")[0] for ln in lines[half + 1:]]
+
+
+def _runner_pair(name, tmp_path, monkeypatch):
+    """The reference's and the port's runner ``name``, writing to
+    ``tmp_path`` and ``tmp_path/torch``."""
+    monkeypatch.setattr(ref_common, "RESULTS_DIR", str(tmp_path))
+    monkeypatch.setattr(port_common, "RESULTS_DIR", str(tmp_path / "torch"))
+    return (importlib.import_module(f"benchmarks.{name}"),
+            importlib.import_module(f"repro_torch.benchmarks.{name}"))
+
+
+def _written_equal(name, tmp_path, got):
+    """The port's results JSON equals the reference's (but SKIP and the
+    reference-only keys) and what its run() returned; returns it.  A
+    ``claims_all_pass`` is held over the claims both make: the
+    reference's compile claims depend on which programs its process
+    had compiled before."""
+    want = json.loads((tmp_path / f"{name}.json").read_text())
+    if "claims_all_pass" in want:
+        want["claims_all_pass"] = all(
+            v for k, v in want.items()
+            if k.startswith("claim_") and k not in REF_ONLY)
+    written = json.loads((tmp_path / "torch" / f"{name}.json").read_text())
+    _same(written, want)
+    assert written == json.loads(json.dumps(got, default=float))
+    return written
+
+
+def test_fault_frontier_payload_equals_reference(tmp_path, monkeypatch,
+                                                 capsys):
+    ref, port = _runner_pair("fault_frontier", tmp_path, monkeypatch)
+    ref.run(grid="tiny")
+    got = port.run(grid="tiny", device="cpu")
+    _written_equal("fault_frontier", tmp_path, got)
+    claims = [k for k in got if k.startswith("claim_")]
+    assert len(claims) == 13 and all(got[k] for k in claims)
+    assert got["claims_all_pass"]
+    lines = capsys.readouterr().out.strip().splitlines()
+    half = len(lines) // 2
+    assert lines[0].split(",")[0] == lines[half].split(",")[0]
+    assert lines[1:half] == lines[half + 1:]
+
+
+# policy_frontier's tiny grid cut to one knob point per beacon policy,
+# sim_len 1e5, the suspicion mappings beside min_search
+TINY_POLICY = dict(m=16, k=4, n_childs=16, max_apps=32,
+                   queue_cap=512, sim_len=1e5, thresholds=(2,),
+                   periods=(4000.0,), pair_periods=(36_000.0,), seeds=(0,),
+                   scenario_seeds=(0,), topologies=("ideal", "hier_tree"),
+                   bursty=dict(iat_on=12_000.0, iat_off=90_000.0),
+                   hotspot=dict(mean_iat=30_000.0, hot_frac=0.6))
+
+
+def test_policy_frontier_payload_equals_reference(tmp_path, monkeypatch,
+                                                  capsys):
+    ref, port = _runner_pair("policy_frontier", tmp_path, monkeypatch)
+    monkeypatch.setitem(ref.GRIDS, "tiny", TINY_POLICY)
+    monkeypatch.setitem(port.GRIDS, "tiny", TINY_POLICY)
+    kw = dict(grid="tiny", mappings=("min_search", "avoid_suspected",
+                                     "suspect_weighted"),
+              beacons=("threshold", "periodic", "hybrid"))
+    ref.run(**kw)
+    got = port.run(**kw, device="cpu")
+    _written_equal("policy_frontier", tmp_path, got)
+    assert got["claim_default_bitwise_vs_run"]
+    assert {r["mapping"] for r in got["rows"]} == set(kw["mappings"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    half = len(lines) // 2
+    assert lines[0].split(",")[0] == lines[half].split(",")[0]
+    assert lines[1:half] == lines[half + 1:]

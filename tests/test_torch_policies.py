@@ -121,11 +121,15 @@ def test_host_stage2_and_beacon_due_match_reference():
 
 
 def test_unported_policies_raise_not_implemented():
+    """Every policy of the reference is ported now: the suspicion rules
+    and heartbeat (periodic's due-rule) resolve; unknown names are
+    refused."""
     for name in TP.SUSPECT_POLICIES:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            TP.mapping_policy(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        TP.beacon_policy("heartbeat")
+        assert TP.mapping_policy(name) is not None
+        assert TP.lane_mapping_policy(name) is not None
+    assert TP.beacon_policy("heartbeat") is TP.beacon_policy("periodic")
+    with pytest.raises(ValueError):
+        TP.mapping_policy("nope")
     with pytest.raises(ValueError):
         TP.SimPolicy(mapping="nope")
     with pytest.raises(ValueError):

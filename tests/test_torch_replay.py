@@ -1,10 +1,14 @@
 """Trace replay on the port (repro_torch.serving.replay) on the CPU: the
-fault-free cases of the reference's tests/test_replay.py — full
-agreement of the wall-clock scheduler with the recorded stage-1
-decisions on ``ideal`` and ``mesh2d``, the T_b = inf case, heterogeneous
-ages on ``shared_bus``, the ``record_s1`` refusal, recording that
-changes no result, and ``replay_trace`` end to end — and the recorded
-``dec_*`` leaves of both event loops held equal to the reference's."""
+cases of the reference's tests/test_replay.py — full agreement of the
+wall-clock scheduler with the recorded stage-1 decisions on ``ideal``
+and ``mesh2d``, the T_b = inf case, heterogeneous ages on
+``shared_bus``, the ``record_s1`` refusal, recording that changes no
+result, ``replay_trace`` end to end, and faulty runs (the suspicion
+policies under a manager outage, GMN churn with takeovers) replayed at
+full agreement — and the recorded ``dec_*`` leaves of both event loops
+held equal to the reference's."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -12,10 +16,12 @@ import torch
 
 from repro.core import sweep as RSW
 from repro.core import workloads as RW
+from repro.core.faults import FaultSpec as RFaultSpec
 from repro.core.sim import SimParams as RefParams
 from repro.core.sim import run as ref_run
 from repro_torch.core import sweep as TSW
 from repro_torch.core import workloads as W
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.sim import SimParams, run
 from repro_torch.serving import replay as R
 
@@ -118,3 +124,49 @@ def test_recorded_leaves_match_reference(mapping):
             w = np.asarray(w[key])
             assert g[key].numpy().dtype == w.dtype
             assert np.array_equal(g[key].numpy(), w), key
+
+
+def _faulty(kw, fault, sim_len=3e5):
+    """A recorded faulty run of the port (interference seed 1), with its
+    decision leaves (dec_gmn included) held equal to the reference's."""
+    rp, tp = RefParams(**kw), SimParams(**kw)
+    wl = W.interference(tp, sim_len=sim_len, seed=1)
+    want = jax.device_get(ref_run(rp, *wl, sim_len, faults=fault(RFaultSpec)))
+    st = run(tp, *wl, sim_len, faults=fault(FaultSpec), device="cpu")
+    for key in DEC + ("dec_gmn",):
+        assert np.array_equal(st[key].numpy(), np.asarray(want[key])), key
+    return {key: v.numpy() for key, v in st.items()}, wl
+
+
+@pytest.mark.parametrize("mapping", ["avoid_suspected", "suspect_weighted"])
+def test_suspect_policy_faulty_run_replays_at_full_agreement(mapping):
+    """A manager outage at k=2 drives the survivor's decisions through
+    the all-peers-suspected branch, which replays bitwise."""
+    p = SimParams(**_kw(mapping, k=2, topology="hier_tree", dn_th=2,
+                        T_b=1000.0, susp_mult=4.0))
+    st, wl = _faulty(dataclasses.asdict(p),
+                     lambda F: F.gmn_outage(t_down=5e4, t_heal=2e5))
+    trace = R.decision_trace(st, wl[1])
+    assert len(trace) > 50
+    deadline = p.susp_mult * p.T_b
+    assert [d for d in trace
+            if all(a > deadline for j, a in enumerate(d.age) if j != d.gmn)]
+    report = R.replay_decisions(trace, p)
+    assert report.agreement == 1.0, report.mismatches[:3]
+
+
+def test_faulty_run_replays_at_full_agreement():
+    """GMN churn and a link failure, takeovers included: ``dec_gmn`` is
+    the decider after the takeover, and replay agrees on every
+    decision."""
+    p = SimParams(**_kw("min_search", topology="hier_tree", dn_th=2))
+    st, wl = _faulty(dataclasses.asdict(p), lambda F: F.scripted([
+        (4e4, "gmn_fail", 1, 0), (5e4, "gmn_fail", 3, 0),
+        (1.6e5, "gmn_heal", 1, 0), (2.1e5, "gmn_heal", 3, 0),
+        (6e4, "link_down", 0, 2), (1.2e5, "link_up", 0, 2)]))
+    done = st["app_arrive"] < 1e17
+    assert (st["dec_gmn"][done] != np.asarray(wl[1])[done]).sum() > 0
+    trace = R.decision_trace(st, wl[1])
+    assert len(trace) > 50
+    report = R.replay_decisions(trace, p)
+    assert report.agreement == 1.0, report.mismatches[:3]

@@ -92,10 +92,13 @@ def test_fleet_matches_reference(topology, policy):
 
 
 def test_unported_fleet_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        TE.FleetSim(k=2, mapping="avoid_suspected", T_b=5.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        TE.FleetSim(k=2, beacon="heartbeat", T_b=5.0)
+    """The suspicion policies and heartbeat run (an infinite suspicion
+    deadline is refused, as in the reference); the Perfetto export is
+    still refused."""
+    TE.FleetSim(k=2, mapping="avoid_suspected", T_b=5.0)
+    TE.FleetSim(k=2, beacon="heartbeat", T_b=5.0)
+    with pytest.raises(ValueError, match="suspicion"):
+        TE.FleetSim(k=2, mapping="suspect_weighted")
     fleet = TE.FleetSim(k=2, trace=True)
     fleet.tick()
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):

@@ -15,6 +15,7 @@ from repro.core.sim import SimParams as RefParams
 from repro.core.sim import run as ref_run
 from repro_torch.core import sim as TS
 from repro_torch.core import workloads as TW
+from repro_torch.core.faults import FaultSpec
 
 SMALL = dict(m=16, n_childs=16, max_apps=32, queue_cap=512)
 
@@ -72,21 +73,34 @@ def test_queue_overflow_drops_match_reference():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(mapping="suspect_weighted"), "8"),
+    (dict(mapping="suspect_weighted"), "9"),
     (dict(beacon="heartbeat", topology="hier_tree", queue_impl="calendar",
-          batch_pop=8), "8"),
-    (dict(mapping="avoid_suspected"), "8"), (dict(beacon="heartbeat"), "8"),
+          batch_pop=8), "9"),
+    (dict(mapping="avoid_suspected", faults="none"), "9"),
+    (dict(beacon="heartbeat", faults="gmn_outage"), "9"),
 ])
 def test_unported_configurations_raise(change, item):
+    """A trace (ROADMAP item 9) is refused on every configuration, the
+    fault-aware programs included."""
+    change = dict(change)
+    faults = change.pop("faults", None)
+    if faults is not None:
+        faults = getattr(FaultSpec, faults)(*(
+            (2e4, 5e4) if faults == "gmn_outage" else ()))
     p = TS.SimParams(**dict(SMALL, k=4, **change))
     wl = TW.independent_tasks(p)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TS.run(p, *wl, 1e7, device="cpu")
+        TS.run(p, *wl, 1e7, device="cpu", faults=faults,
+               trace={"ring_cap": 256})
 
 
-@pytest.mark.parametrize("kwarg,item", [("faults", "8"), ("trace", "9")])
-def test_faults_and_trace_raise(kwarg, item):
+@pytest.mark.parametrize("kwarg,exc,match", [
+    ("faults", TypeError, "FaultSpec"),
+    ("trace", NotImplementedError, "ROADMAP item 9")])
+def test_faults_and_trace_raise(kwarg, exc, match):
+    """``faults`` takes a FaultSpec or FaultSchedule, nothing else; a
+    trace is not ported."""
     p = TS.SimParams(**dict(SMALL, k=4))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(exc, match=match):
         TS.run(p, *TW.independent_tasks(p), 1e7, device="cpu",
                **{kwarg: object()})

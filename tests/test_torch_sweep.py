@@ -22,6 +22,7 @@ from repro.core.sim import SimPolicy as RefPolicy
 from repro_torch.core import goldens as G
 from repro_torch.core import sweep as TSW
 from repro_torch.core import workloads as TW
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.sim import SimParams, SimPolicy
 from test_torch_sim import _assert_states_equal
 
@@ -217,10 +218,13 @@ def test_knob_builders_match_reference_and_validate():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(faults=object()), "8"), (dict(trace=object()), "9"),
-    (dict(policy=SimPolicy(mapping="avoid_suspected")), "8"),
+    (dict(faults=FaultSpec.none(), trace=object()), "9"),
+    (dict(trace=object()), "9"),
+    (dict(policy=SimPolicy(mapping="avoid_suspected"),
+          trace={"ring_cap": 64}), "9"),
     (dict(policy=SimPolicy(beacon="heartbeat"), queue_impl="tree",
-          batch_pop=2), "8"),
+          batch_pop=2, faults=FaultSpec.partition(t_down=1e3),
+          trace=object()), "9"),
 ])
 def test_unported_configurations_raise(kwargs, item):
     p = SimParams(**SMALL, k=4)
