@@ -41,15 +41,15 @@ any failure ends the run with a non-zero exit:
             times;
 6. golden   the frozen golden grid and single-app anchor;
 7. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
-            interference seed 1) at sim_len 4e6 — or 1e6, said in the
-            line, when the rate measured in phase 6 would put 4e6 over a
-            third of the run's time limit — against the frozen digests;
+            interference seed 1) at sim_len 1e6 (13,824 events; the
+            paper's 4e6 is cut for the script's time limit), timed,
+            against the frozen digests;
 8. mapper   ``mapping.map_batch``/``map_one`` on a cuda ``MapperState``
             at m=256, k=16, T=100, against the plain version;
-9. profile  the paper point at sim_len 1e6 (13,824 events), timed, then
-            run again under ``torch.profiler``: kernels per event and
-            device kernel time against wall time (the event loop's
-            device busy share);
+9. profile  the paper point at sim_len 1e6 run again under
+            ``torch.profiler``: kernels per event and device kernel time
+            against phase 7's wall time (the event loop's device busy
+            share);
 10. syncs   the profiled run, under torch's sync debug mode as well,
             which warns at every call that waits for the card: all but a
             few set-up syncs must come from the loop's one packed read
@@ -59,10 +59,10 @@ any failure ends the run with a non-zero exit:
             grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
             1e6) through ``sweep`` against their frozen digests; Table 5
             at the paper's widths (m=256, k in {1, 8, 16, 256}, seeds
-            1-3) cut to sim_len 5e5 through ``ExperimentSpec.run()``
+            1-3) cut to sim_len 2.5e5 through ``ExperimentSpec.run()``
             against the JAX reference's frozen digests, with its ordering
             claim and k16/k1 ratio (reported, not gated); fig3a's k=16
-            group (12 lanes, sim_len 5e5) timed in ``"vmap"`` mode and
+            group (12 lanes, sim_len 2.5e5) timed in ``"vmap"`` mode and
             two of its lanes in ``"seq"`` mode (equal leaves), and at
             sim_len 1e5 its device kernels and syncs per step; the
             ``scheduler_overhead`` runner, whose K1 assignments must
@@ -132,25 +132,42 @@ any failure ends the run with a non-zero exit:
             reads a step of the no-fault group (steps 51-250, as phase
             12's linear/1) and of the outage group inside its outage
             (steps 301-700);
-15. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
+15. trace   the in-loop trace (``core/trace``) with ``trace_report``'s
+            TraceSpec (ring 16,384, stride 64, 512 samples, 64 bins, 4
+            per octave), 60 s budget: (a) the paper point through
+            ``sim.run`` at sim_len 1e6 against phase 7's untraced run;
+            (b) the k=16 ``hier_tree`` group of phase 12's tier (linear
+            queue, seeds 1-2) at 1e5 through the lane loop against
+            phase 12's untraced probe; (c) k=16 ``hier_tree`` on the
+            tree queue with batch_pop 64 under a partition at 2e4 with a
+            1,024-row ring that overflows, against its untraced run.
+            Gates: every shared leaf bitwise, the trace leaves against
+            ``goldens.TRACE`` (the JAX reference's), every lane's
+            ``TraceFrame.check()``, ``validate_perfetto`` empty.
+            Reported: events/s on and off (the gated runs, and in turns
+            — off, on, on, off — at 5e4 (a) and 2e4 (b)), kernels,
+            device busy time and syncs an event of (a) at 5e4 and a step
+            of (b) at 2e4 by step kind (against phase 12's count), the
+            p50/p95/p99 columns;
+16. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
             forward on the card (K2, K3) against the same weights on
             the CPU (plain versions);
-16. lm_prefill the full-width 16-layer Jamba in bf16: one
+17. lm_prefill the full-width 16-layer Jamba in bf16: one
             ``make_prefill_step`` call on 2 x 4096 tokens must launch K2
             twice and K3 14 times and give finite logits; then timed
             (tokens/s) and profiled (device time by kernel);
-17. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
+18. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
 launch counts, zeroed just before it and read just after: the TLM path
 (phases 7-8: K1), the sweep (phase 11: K1, from
-``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13)
-and the faults (phase 14), which launch none of the three kernels, the
-prefill (phase 16: K2, K3) and ``serve()`` (phase 17, whose decode
-steps are plain torch).  The comparison launches of phases 3-5 and 15
-do not count.  Float32
+``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13),
+the faults (phase 14) and the trace (phase 15), which launch none of the
+three kernels, the prefill (phase 17: K2, K3) and ``serve()`` (phase 18,
+whose decode steps are plain torch).  The comparison launches of phases
+3-5 and 16 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
@@ -499,7 +516,6 @@ def phase_golden():
         raise AssertionError(f"golden grid on the card: {got} != {want}")
     emit({"phase": "golden", "match": True, **got, "wall_s": wall,
           "events": events, "events_per_s": events / wall})
-    return events / wall
 
 
 PROFILE_SIM_LEN = 1e6     # the paper point's --fast horizon, 13,824 events
@@ -523,26 +539,26 @@ def _check_paper(st, sim_len: float, phase: str) -> int:
     return got["events_processed"]
 
 
-def phase_paper(rate_hint: float):
+def phase_paper():
+    """The paper point at PROFILE_SIM_LEN, timed, against the frozen
+    digests; its run is also phase ``profile``'s untimed baseline and
+    phase ``trace``'s untraced run."""
     import torch
     from repro_torch.core import goldens as G
     from repro_torch.core.sim import run
-    full = G.PAPER_POINT[4e6]["events_processed"]
-    predicted_s = full / rate_hint
-    sim_len = 4e6 if predicted_s <= TIME_LIMIT_S / 3 else 1e6
-    p, wl = _paper_run(sim_len)
+    p, wl = _paper_run(PROFILE_SIM_LEN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = run(p, *wl, sim_len)
+    st = run(p, *wl, PROFILE_SIM_LEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = _check_paper(st, sim_len, "paper")
-    emit({"phase": "paper", "match": True, "sim_len": sim_len,
-          "cut_to_1e6": sim_len != 4e6,
-          "predicted_4e6_s": predicted_s, **G.paper_point_digest(st),
-          "wall_s": wall, "events_per_s": events / wall,
+    events = _check_paper(st, PROFILE_SIM_LEN, "paper")
+    emit({"phase": "paper", "match": True, "sim_len": PROFILE_SIM_LEN,
+          **G.paper_point_digest(st), "wall_s": wall,
+          "events_per_s": events / wall,
           "m": p.m, "k": p.k, "n_childs": p.n_childs,
           "queue_cap": p.queue_cap, "max_apps": p.max_apps})
+    return {"state": st, "wall_s": wall, "events": events}
 
 
 def phase_mapper():
@@ -570,22 +586,17 @@ def phase_mapper():
           "T": K1_T, "kernel_launches": HM.launches - before})
 
 
-def phase_profile():
+def phase_profile(paper):
     """Device busy share of the event loop at the paper point (sim_len
-    1e6): CUDA kernel time over wall time, against the same run timed
-    without the profiler first.  The profiled run is also under torch's
-    sync debug mode: returns its events and host syncs by line for
-    :func:`phase_syncs`."""
+    1e6): CUDA kernel time over wall time, against phase ``paper``'s
+    run of it timed without the profiler.  The profiled run is also
+    under torch's sync debug mode: returns its events and host syncs by
+    line for :func:`phase_syncs`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sim import run
     p, wl = _paper_run(PROFILE_SIM_LEN)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = run(p, *wl, PROFILE_SIM_LEN)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events = _check_paper(st, PROFILE_SIM_LEN, "profile")
+    wall, events = paper["wall_s"], paper["events"]
 
     def profiled():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -660,7 +671,7 @@ def phase_syncs(events: int, lines):
 # fig3a's k=16 group at the paper's widths: 6 thresholds x 2 seeds
 SWEEP_K, SWEEP_SEEDS = 16, (1, 2)
 SWEEP_THRESHOLDS = (1, 2, 4, 8, 16, 32)
-SWEEP_SIM_LEN = 5e5
+SWEEP_SIM_LEN = 2.5e5   # cut for the script's time limit
 SWEEP_COUNT_SIM_LEN = 1e5     # the horizon kernels and syncs are counted at
 
 
@@ -734,7 +745,7 @@ def phase_sweep() -> int:
     if got != [G.FIG3B_BEACONS, G.FIG3B_APP_DONE_SHA]:
         raise AssertionError(f"sweep: fig3b spot grid {got}")
     fig3b_steps = int(st["events_processed"].max())
-    # Table 5 at the paper's widths, cut to sim_len 5e5
+    # Table 5 at the paper's widths, cut to sim_len 2.5e5 (goldens.TABLE5_SIM_LEN)
     frame = timed("table5", lambda: table5.spec(
         G.TABLE5_SIM_LEN, G.TABLE5_SEEDS).run(mode="vmap"))
     digest = G.table5_digest(frame)
@@ -1105,6 +1116,7 @@ def phase_fabrics():
                       "events": int(np.asarray(probe.groups[0].state[
                           "events_processed"]).sum()),
                       "wall_s": probe.groups[0].wall_s},
+            "probe_state": probe.groups[0].state,
             "count": dict(count, sim_len=FABRIC_COUNT_SIM_LEN)}
 
 
@@ -1481,6 +1493,191 @@ def phase_faults(linear):
           "count": {"sim_len": sl, **counts,
                     "no_fault_linear_1": linear["count"]},
           "wall_s": time.perf_counter() - t_phase})
+
+
+# --------------------------------------------------------------------------
+# The in-loop trace
+# --------------------------------------------------------------------------
+
+TRACE_BUDGET_S = 60.0          # the phase's share of TIME_LIMIT_S
+# the paper point's kernels an event and events/s, trace on and off
+TRACE_COUNT_SIM_LEN = 5e4
+
+
+def _trace_gates(name, on, off, spec) -> list:
+    """Phase trace's gates on one run: every leaf of the untraced state
+    ``off`` bitwise in the traced ``on`` (numpy or tensor leaves, any
+    lane axes), the trace leaves against ``goldens.TRACE[name]``,
+    every lane's conservation checks, and a valid Perfetto export of
+    each lane.  Returns the failures."""
+    from repro_torch.core import goldens as G
+    from repro_torch.core.trace import (TraceFrame, trace_state,
+                                        validate_perfetto)
+    on = {key: G._host(v) for key, v in on.items()}
+    off = {key: G._host(v) for key, v in off.items()}
+    bad = []
+    if set(on) != set(off) | set(trace_state(spec, 1, "cpu")):
+        bad.append((name, "leaves", sorted(set(on) ^ set(off))))
+    bad += [(name, "shared leaf", key) for key in off
+            if key in on and not np.array_equal(on[key], off[key])]
+    bad += [(name, "digest") + m for m in G.trace_mismatches(
+        G.trace_digest(on), G.TRACE[name])]
+    lead = on["tr_n"].shape
+    for i in np.ndindex(lead):
+        tf = TraceFrame({key: v[i] for key, v in on.items()}, spec)
+        chk = tf.check()
+        if not chk["ok"]:
+            bad.append((name, "check", i, chk))
+        errs = validate_perfetto(tf.to_perfetto())
+        if errs:
+            bad.append((name, "perfetto", i, errs[:3]))
+    return bad
+
+
+def _paper_count(trace):
+    """Kernels, device busy time and host syncs an event of the paper
+    point at TRACE_COUNT_SIM_LEN, with ``trace`` or without."""
+    from repro_torch.core.sim import run
+    p, wl = _paper_run(TRACE_COUNT_SIM_LEN)
+    (st, n, busy), lines = _sync_lines(lambda: _device_kernels(
+        lambda: run(p, *wl, TRACE_COUNT_SIM_LEN, trace=trace)))
+    events = int(st["events_processed"])
+    read_line, reads = lines.most_common(1)[0]
+    others = sum(lines.values()) - reads
+    if reads != events + 1 or others > SETUP_SYNCS_MAX:
+        raise AssertionError(f"trace: host syncs per line {dict(lines)} "
+                             f"for {events} events (trace {trace})")
+    return {"events": events, "kernels_per_event": n / events,
+            "device_busy_us_per_event": busy / 1e3 / events,
+            "reads_per_event": reads / (events + 1), "other_syncs": others}
+
+
+def _in_turns(run_off, run_on) -> dict:
+    """Events/s of two runs of the same events, untraced and traced,
+    timed in turns (off, on, on, off; each ending in a synchronize) so
+    that a drift of the host's speed falls on both."""
+    import torch
+    walls, events = {"off": 0.0, "on": 0.0}, 0
+    for which in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = (run_on if which == "on" else run_off)()
+        torch.cuda.synchronize()
+        walls[which] += time.perf_counter() - t0
+        events = int(st["events_processed"].sum())
+    if events == 0:
+        raise AssertionError("trace: a timed run processed no event")
+    return {"events": events, "wall_s_off": walls["off"] / 2,
+            "wall_s_on": walls["on"] / 2,
+            "events_per_s_off": 2 * events / walls["off"],
+            "events_per_s_on": 2 * events / walls["on"],
+            "on_over_off_wall": walls["on"] / walls["off"]}
+
+
+def phase_trace(paper_off, linear):
+    """The in-loop trace on the card, with trace_report's TraceSpec:
+    (a) the paper point through ``sim.run`` at 1e6 against phase
+    ``paper``'s untraced run; (b) the tier's k=16 ``hier_tree`` group
+    (linear queue, seeds 1-2) at 1e5 through the lane loop against phase
+    ``fabrics``' untraced probe; (c) k=16 ``hier_tree`` on tree/64 under
+    a partition at 2e4 with a ring that overflows, against its untraced
+    run.  Gates (:func:`_trace_gates`): shared leaves bitwise, the trace
+    leaves against ``goldens.TRACE``, conservation on every lane, valid
+    Perfetto.  Reports events/s on and off in this call (the gated runs'
+    walls, and shorter runs timed in turns), kernels, device busy time
+    and syncs an event (a) or a step by kind (b) on and off, and the
+    percentile columns."""
+    import dataclasses
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.sim import SimParams, run
+    from repro_torch.core.trace import TraceFrame, TraceSpec
+    t_phase = time.perf_counter()
+    spec = TraceSpec(**G.TRACE_FIELDS)
+    bad = []
+
+    # (a) the paper point at 1e6
+    p, wl = _paper_run(G.TRACE_SIM_LENS["paper"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(p, *wl, G.TRACE_SIM_LENS["paper"], trace=spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad += _trace_gates("paper", st, paper_off["state"], spec)
+    ev = int(st["events_processed"])
+    tf = TraceFrame(st, spec)
+    p_c, wl_c = _paper_run(TRACE_COUNT_SIM_LEN)
+    paper = {"sim_len": G.TRACE_SIM_LENS["paper"], "events": ev,
+             "events_per_s_on": ev / wall,
+             "events_per_s_off": paper_off["events"] / paper_off["wall_s"],
+             "on_over_off_wall": wall / paper_off["wall_s"],
+             "wall_s_on": wall, "wall_s_off": paper_off["wall_s"],
+             "mgmt": tf.percentiles("mgmt"), "resp": tf.percentiles("resp"),
+             "in_turns": {"sim_len": TRACE_COUNT_SIM_LEN, **_in_turns(
+                 lambda: run(p_c, *wl_c, TRACE_COUNT_SIM_LEN),
+                 lambda: run(p_c, *wl_c, TRACE_COUNT_SIM_LEN,
+                             trace=spec))},
+             "count": {"sim_len": TRACE_COUNT_SIM_LEN,
+                       "off": _paper_count(None), "on": _paper_count(spec)}}
+
+    # (b) and (c) through the lane loop, each against its untraced run
+    specs = G.trace_specs(ExperimentSpec, WorkloadSpec, SimParams,
+                          FaultSpec, TraceSpec, mode="vmap")
+    groups = {}
+    for name, sp in specs.items():
+        frame = sp.run()
+        g = frame.groups[0]
+        if name == "hier_tree":
+            off_state, off_wall = linear["probe_state"], \
+                linear["probe"]["wall_s"]
+        else:
+            g_off = dataclasses.replace(sp, trace=None).run().groups[0]
+            off_state, off_wall = g_off.state, g_off.wall_s
+        bad += _trace_gates(name, g.state, off_state, sp.trace)
+        ev = np.asarray(g.state["events_processed"])
+        groups[name] = {
+            "sim_len": sp.sim_len, "lanes": int(ev.size),
+            "steps": int(ev.max()), "events": int(ev.sum()),
+            "queue": f"{g.combo.shape.queue_impl}/{g.combo.shape.batch_pop}",
+            "fault": g.fault_label, "ring_cap": sp.trace.ring_cap,
+            "trace_dropped": np.asarray(g.state["trace_dropped"]).ravel()
+            .tolist(),
+            "wall_s_on": g.wall_s, "wall_s_off": off_wall,
+            "events_per_s_on": int(ev.sum()) / g.wall_s,
+            "events_per_s_off": int(ev.sum()) / off_wall,
+            "on_over_off_wall": g.wall_s / off_wall,
+            **{c: frame.col(c).tolist() for c in frame.PCT_NAMES}}
+    if bad:
+        raise AssertionError(f"trace: gates failed {bad}")
+
+    # (b)'s kernels, busy time and reads a step at 2e4, against phase
+    # fabrics' untraced count of the same run
+    pc = SimParams(k=16, **G.FABRIC_PARAMS)
+    wl_l = W.interference_batch(pc, seeds=G.FABRIC_SEEDS,
+                                sim_len=FABRIC_COUNT_SIM_LEN,
+                                pair_period=G.FABRIC_PAIR_PERIOD)
+
+    def lanes(trace):
+        return SW.sweep(pc.shape, SW.knob_batch(**G.FABRIC_KNOBS), wl_l,
+                        FABRIC_COUNT_SIM_LEN, mode="vmap",
+                        topology="hier_tree", trace=trace)
+    count = _count(lambda: lanes(spec), "trace")
+    groups["hier_tree"]["in_turns"] = {
+        "sim_len": FABRIC_COUNT_SIM_LEN,
+        **_in_turns(lambda: lanes(None), lambda: lanes(spec))}
+    wall_phase = time.perf_counter() - t_phase
+    emit({"phase": "trace", "trace": spec.to_dict(), "gates": True,
+          "paper": paper, "groups": groups,
+          "count": {"sim_len": FABRIC_COUNT_SIM_LEN, "k": 16,
+                    "topology": "hier_tree", "queue": "linear/1",
+                    "on": count, "off": linear["count"]},
+          "budget_s": TRACE_BUDGET_S,
+          "within_budget": wall_phase <= TRACE_BUDGET_S,
+          "wall_s": wall_phase})
 
 
 # --------------------------------------------------------------------------
@@ -1901,14 +2098,14 @@ def main() -> int:
     k1 = timed(phase_k1)
     k2 = timed(phase_k2)
     k3 = timed(phase_k3)
-    rate = timed(phase_golden)
+    timed(phase_golden)
     FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
-    timed(phase_paper, rate)
+    paper_off = timed(phase_paper)
     timed(phase_mapper)
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
-    timed(phase_syncs, *timed(phase_profile))
+    timed(phase_syncs, *timed(phase_profile, paper_off))
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
     sweep_launches = timed(phase_sweep)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
@@ -1932,6 +2129,13 @@ def main() -> int:
         raise AssertionError("the fault path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    FA.launches = SS.launches = HM.launches = 0   # the trace path starts
+    timed(phase_trace, paper_off, linear)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the trace path (no kernel of its own) "
+                             "launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
+    del paper_off, linear
     timed(phase_lm_small)
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)

@@ -39,11 +39,17 @@ reference, and every lane of a group meets it; each scenario becomes a
 ``fault`` coordinate and the ``msgs_lost`` / ``reroutes`` / ``downtime``
 and detector columns (zero-filled for ``None`` groups).
 
+The **trace** (``trace=TraceSpec(...)``, the port's
+:class:`~repro_torch.core.trace.TraceSpec` or a reference payload's
+dict) records every lane's ring, timelines and histograms: the six
+percentile columns come from the histograms (NaN without a trace), and
+:meth:`ResultFrame.trace_frame` decodes one lane.
+
 The planner and :func:`spec_from_dict` accept every spec the reference
-accepts (``SPEC_VERSION = 4`` payloads; a trace spec kept as its
-serialized dict); only ``run()`` refuses what the port cannot run yet: a
-trace (ROADMAP item 9) and ``pmap`` over several cards (item 12).  Every
-fabric, queue, policy and fault scenario runs, in every mode.
+accepts (``SPEC_VERSION = 4`` payloads); only ``run()`` refuses what the
+port cannot run yet: ``pmap`` over several cards (ROADMAP item 12).
+Every fabric, queue, policy, fault scenario and trace runs, in every
+mode.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ import torch
 from repro_torch.core import faults as FLT
 from repro_torch.core import metrics as M
 from repro_torch.core import sweep as SW
+from repro_torch.core import trace as TR
 from repro_torch.core import workloads as W
 from repro_torch.core.eventq import QUEUE_IMPLS
 from repro_torch.core.policies import SimPolicy
@@ -284,7 +291,10 @@ class ExperimentSpec:
                    and/or FaultSpecs (or their serialized dicts),
                    crossed with every group; default (None,).
 
-      trace        None, or a serialized reference TraceSpec (a dict).
+      trace        None, or a TraceSpec (or its dict) applied to every
+                   group: the ring, timelines and histograms of each
+                   lane, the percentile columns and
+                   ``ResultFrame.trace_frame``.
 
     ``run()`` plans, dispatches and returns a :class:`ResultFrame`.
     """
@@ -378,9 +388,13 @@ class ExperimentSpec:
             raise ValueError("faults needs at least one entry "
                              "(use (None,) for no faults)")
         set_("faults", flts)
-        if self.trace is not None and not isinstance(self.trace, dict):
-            raise TypeError(f"trace must be None or a serialized TraceSpec "
-                            f"(dict), got {type(self.trace).__name__}")
+        tr = self.trace
+        if isinstance(tr, dict):
+            tr = TR.TraceSpec.from_dict(tr)
+        if tr is not None and not isinstance(tr, TR.TraceSpec):
+            raise TypeError(f"trace must be None or a TraceSpec, "
+                            f"got {type(tr).__name__}")
+        set_("trace", tr)
         set_("sim_len", float(self.sim_len))
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}; "
@@ -457,12 +471,12 @@ class ExperimentSpec:
                         st = {key: _np(v) for key, v in SW._sweep_vmap(
                             combo.shape, self.knobs, arr, gmns, lens,
                             self.sim_len, combo.policy, combo.topology,
-                            fs).items()}
+                            fs, self.trace).items()}
                         lane_walls = None
                     else:
                         st, lane_walls = _exec_seq(combo, self.knobs, arr,
                                                    gmns, lens, self.sim_len,
-                                                   fs)
+                                                   fs, self.trace)
                     groups.append(_GroupResult(combo, wi, lanes, st,
                                                _np(lens), time.time() - tg,
                                                lane_walls, f))
@@ -490,7 +504,7 @@ class ExperimentSpec:
             "workloads": [w.to_dict() for w in self.workloads],
             "faults": [None if f is None else f.to_dict()
                        for f in self.faults],
-            "trace": self.trace,
+            "trace": None if self.trace is None else self.trace.to_dict(),
             "sim_len": float(self.sim_len),
             "mode": self.mode,
         }
@@ -554,7 +568,7 @@ def _sync(device) -> None:
 
 
 def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
-              sim_len, faults=None):
+              sim_len, faults=None, trace=None):
     """One ``sim.simulate`` run per lane (``sweep``'s seq mode), with
     per-lane walls (each ends in ``torch.cuda.synchronize()`` on the
     card); numpy leaves (B, S, ...)."""
@@ -566,7 +580,7 @@ def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
             tl = time.time()
             out = simulate(combo.shape, SimKnobs(*(v[i] for v in kn)),
                            arr[j], gmns[j], lens[j], sim_len, combo.policy,
-                           combo.topology, faults)
+                           combo.topology, faults, trace)
             _sync(arr.device)
             lane_walls.append(time.time() - tl)
             outs.append({key: _np(v) for key, v in out.items()})
@@ -659,10 +673,17 @@ class ResultFrame:
         "suspected_final": lambda st: _sum_pairs(st, "suspect"),
         "retries_tx": lambda st: _opt_leaf(st, "retries_tx", np.int64),
     }
-    # the reference's histogram percentile columns: NaN without a trace,
-    # which the port cannot record yet (ROADMAP item 9)
-    _PCT_COLS = ("p50_mgmt_latency", "p95_mgmt_latency", "p99_mgmt_latency",
-                 "p50_response", "p95_response", "p99_response")
+    # histogram percentile columns (NaN without a trace):
+    # (column, state leaf, quantile)
+    _PCT_COLS = (
+        ("p50_mgmt_latency", "th_mgmt", 0.50),
+        ("p95_mgmt_latency", "th_mgmt", 0.95),
+        ("p99_mgmt_latency", "th_mgmt", 0.99),
+        ("p50_response", "th_resp", 0.50),
+        ("p95_response", "th_resp", 0.95),
+        ("p99_response", "th_resp", 0.99),
+    )
+    PCT_NAMES = tuple(c for c, _, _ in _PCT_COLS)
     COORDS = ("m", "k", "n_childs", "queue_cap", "max_apps", "queue_impl",
               "batch_pop", "mapping", "beacon", "topology", "fault")
     LANE_COORDS = ("workload", "seed", "pair_period")
@@ -691,7 +712,7 @@ class ResultFrame:
             return self._cols
         cols = {name: [] for name in
                 self.COORDS + self.LANE_COORDS + KNOB_FIELDS
-                + tuple(self._METRICS) + self._PCT_COLS
+                + tuple(self._METRICS) + self.PCT_NAMES
                 + ("speedup", "lane_wall_s")}
         b = self.spec.knobs.dn_th.shape[0]
         knob_rows = {f: _np(getattr(self.spec.knobs, f))
@@ -701,8 +722,11 @@ class ResultFrame:
             n = b * s
             met = {name: np.asarray(fn(g.state)).reshape(n)
                    for name, fn in self._METRICS.items()}
-            for cname in self._PCT_COLS:
-                met[cname] = np.full((n,), np.nan)
+            for cname, leaf, q in self._PCT_COLS:
+                h = g.state.get(leaf)
+                met[cname] = np.full((n,), np.nan) if h is None \
+                    else np.asarray(TR.hist_percentile(
+                        h, q, self.spec.trace)).reshape(n)
             met["speedup"] = np.asarray(
                 M.speedup(g.state, g.lengths)).reshape(n)
             met["lane_wall_s"] = (np.asarray(g.lane_wall_s)
@@ -718,7 +742,7 @@ class ResultFrame:
                         cols[c].append(lane.get(c))
                     for f in KNOB_FIELDS:
                         cols[f].append(knob_rows[f][i].item())
-            for name in (tuple(self._METRICS) + self._PCT_COLS
+            for name in (tuple(self._METRICS) + self.PCT_NAMES
                          + ("speedup", "lane_wall_s")):
                 cols[name].extend(met[name].tolist())
         self._cols = {k: np.asarray(v) for k, v in cols.items()}
@@ -765,11 +789,17 @@ class ResultFrame:
         return hits[0].state
 
     def trace_frame(self, workload_index: int = 0, knob: int = 0,
-                    lane: int = 0, **sel):
-        """A lane's decoded trace buffers in the reference; the port
-        records no trace yet."""
-        raise NotImplementedError("in-loop tracing is not ported yet "
-                                  "(ROADMAP item 9)")
+                    lane: int = 0, **sel) -> TR.TraceFrame:
+        """Decode one lane's trace buffers into a
+        :class:`~repro_torch.core.trace.TraceFrame` (events, timelines,
+        percentiles, Perfetto export).  ``sel`` picks the group as in
+        :meth:`state`; ``knob``/``lane`` index its (B, S) axes."""
+        if self.spec.trace is None:
+            raise ValueError("spec ran with trace=None — no trace buffers "
+                             "were recorded (set ExperimentSpec.trace)")
+        st = self.state(workload_index, **sel)
+        return TR.TraceFrame({k: v[knob, lane] for k, v in st.items()},
+                             self.spec.trace)
 
     # -- run manifest (per-group wall telemetry) --------------------------
 
@@ -805,7 +835,8 @@ class ResultFrame:
             "wall_s": self.wall_s,
             "n_compiles": self.compiles,
             "expected_programs": self.expected_programs,
-            "trace": self.spec.trace,
+            "trace": (None if self.spec.trace is None
+                      else self.spec.trace.to_dict()),
             "groups": groups,
         }
 
@@ -859,7 +890,7 @@ def _metric_accessor(name):
     return acc
 
 
-for _name in (tuple(ResultFrame._METRICS) + ResultFrame._PCT_COLS
+for _name in (tuple(ResultFrame._METRICS) + ResultFrame.PCT_NAMES
               + ("speedup",)):
     setattr(ResultFrame, _name, _metric_accessor(_name))
 del _name

@@ -18,7 +18,7 @@ without JAX (``chip_smoke.py``):
   the sha256 of the (6, 1, 128) f32 ``app_done``;
 - Table 5 at the paper's widths (m=256, n_childs=100, max_apps=512,
   queue_cap=2048, dn_th=4, k in (1, 8, 16, 256), interference seeds
-  (1, 2, 3)) cut to sim_len 5e5: per k, ``beacons_tx`` and
+  (1, 2, 3)) cut to sim_len 2.5e5: per k, ``beacons_tx`` and
   ``events_processed`` per seed, the ``app_done`` sha256 and each lane's
   speedup as the bits of its float32 value (:func:`table5_digest`);
 - the paper tier of ``benchmarks/topology_frontier.py`` on every fabric
@@ -42,6 +42,13 @@ without JAX (``chip_smoke.py``):
   under a manager outage): per group the per-seed counters, the
   fault and detector counters and the ``app_done`` sha256
   (:func:`fault_digests`);
+- the trace leaves of the card's phase ``trace`` (trace_report's
+  TraceSpec: ring 16,384, stride 64, 512 samples, 64 bins, 4 per
+  octave): the paper point at sim_len 1e6 through ``sim.run``; the
+  tier above at k=16 on ``hier_tree`` (linear queue, seeds 1-2) at 1e5;
+  and k=16 ``hier_tree`` on the tree queue with ``batch_pop`` 64 under
+  a partition at 2e4 with a 1,024-row ring that overflows
+  (:func:`trace_runs`, :func:`trace_digest`);
 - the result of ``launch.serve.serve(cfg)`` with its
   default arguments (64 requests, 4 clusters of 2 groups, dn_th 4, seed
   0): it depends on the control plane only, so it holds for any model
@@ -78,7 +85,7 @@ FIG3B_APP_DONE_SHA = \
 
 TABLE5_KS = (1, 8, 16, 256)
 TABLE5_SEEDS = (1, 2, 3)
-TABLE5_SIM_LEN = 5e5
+TABLE5_SIM_LEN = 2.5e5     # cut for the card script's time limit
 TABLE5_PARAMS = dict(m=256, n_childs=100, max_apps=512, queue_cap=2048)
 # The JAX reference's run of that spec on the CPU (seq mode), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
@@ -90,25 +97,25 @@ TABLE5_PARAMS = dict(m=256, n_childs=100, max_apps=512, queue_cap=2048)
 #   .run()))"
 TABLE5 = {
     1: {"beacons_tx": [0, 0, 0],
-        "events_processed": [6528, 6528, 6528],
-        "app_done_sha": "5b9a0a28e552ba9c5ab13e2c3a2b83ac"
-                        "ef1d671225ea2ec395977fea02700023",
-        "speedup_f32_bits": [1108452680, 1108584146, 1107998380]},
-    8: {"beacons_tx": [1794, 1778, 1781],
-        "events_processed": [6720, 6720, 6720],
-        "app_done_sha": "ec83e1cf4b4c722fa0a2abd107588e6d"
-                        "0d773b74218edbecc5c8e9e8faa732df",
-        "speedup_f32_bits": [1113129016, 1112674621, 1112986834]},
-    16: {"beacons_tx": [1949, 1941, 1961],
-        "events_processed": [6912, 6912, 6912],
-        "app_done_sha": "50e278673356d98a034d137d5144dbc5"
-                        "1a4219f40f8669bafec34bfd821b9b7a",
-        "speedup_f32_bits": [1112791374, 1112464696, 1113075500]},
-    256: {"beacons_tx": [1438, 878, 634],
-        "events_processed": [12864, 12864, 12864],
-        "app_done_sha": "59de22a35e5b154021ecae234d7d49fe"
-                        "8745c1506dce976449b747d151b0c3f3",
-        "speedup_f32_bits": [1107915792, 1108422532, 1109121152]},
+        "events_processed": [3264, 3264, 3264],
+        "app_done_sha": "349eb8b6923278d5b55db43a1aa3a03a"
+                        "9039c0d5244e54b3b2d6eb0577356a3e",
+        "speedup_f32_bits": [1109609050, 1110074721, 1109469447]},
+    8: {"beacons_tx": [901, 894, 894],
+        "events_processed": [3360, 3360, 3360],
+        "app_done_sha": "2593cfea7b845e7dd03abe2fad0b2f7d"
+                        "eb8c1b413d231a4e3d4546e647cb0f76",
+        "speedup_f32_bits": [1113580914, 1114055027, 1113652364]},
+    16: {"beacons_tx": [977, 971, 980],
+         "events_processed": [3456, 3456, 3456],
+         "app_done_sha": "68377727efe15c681400b3106a67519f"
+                         "bf59049e1b1fd5cff3ae8b37f4d29a21",
+         "speedup_f32_bits": [1112794244, 1114050773, 1113350044]},
+    256: {"beacons_tx": [612, 224, 204],
+          "events_processed": [6432, 6432, 6432],
+          "app_done_sha": "c795be0de366d0f95a7f749aea39eb73"
+                          "1d6ccd06fbeb5e2f800c08e371a577d9",
+          "speedup_f32_bits": [1108514464, 1109297876, 1109213258]},
 }
 
 FABRIC_KS = (16, 32)
@@ -629,6 +636,241 @@ def fault_digests(frames) -> dict:
     reference's), keyed as FAULTS."""
     return {fault_key(dict(g.combo.coords(), fault=g.fault_label)):
             fault_state_digest(g.state) for fr in frames for g in fr.groups}
+
+
+# phase trace's TraceSpec (trace_report's TRACE) and its three runs:
+# the paper point, the tier's k=16 hier_tree group (linear queue), and
+# a partition on the tree queue with batch_pop 64 and a small ring
+TRACE_FIELDS = dict(ring_cap=16384, sample_every=64, n_samples=512,
+                    hist_bins=64, bins_per_octave=4)
+TRACE_SIM_LENS = {"paper": 1e6, "hier_tree": 1e5, "partition": 2e4}
+TRACE_SMALL_RING = 1024
+# The JAX reference's runs of trace_runs() on the CPU (~2 min), made by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax; from repro.core
+#   import sim, workloads; from repro.core.experiment import
+#   ExperimentSpec, WorkloadSpec; from repro.core.faults import FaultSpec;
+#   from repro.core.trace import TraceSpec; from repro_torch.core import
+#   goldens as G; print({name: G.trace_digest(jax.device_get(st)) for
+#   name, st in G.trace_runs(sim, workloads, ExperimentSpec, WorkloadSpec,
+#   FaultSpec, TraceSpec).items()})"
+TRACE = {
+    "paper": {
+        "tr_n": [13824],
+        "trace_dropped": [0],
+        "tl_n": [216],
+        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 59148, 1208, 1387,
+                   1649, 5525, 1205, 2740, 943, 1726, 7087, 2011, 1412, 1589,
+                   990, 972, 917, 672, 568, 812, 648, 548, 446, 560, 1065,
+                   209, 135, 158, 126, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0]],
+        "th_resp": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 0,
+                   4, 105, 6, 7, 2]],
+        "ring_sha": "29dcb7ad39d8474417ef90b64c06723c"
+                    "903dc54daa694acc7c553830680765c1",
+        "tl_t_sha": "693a87d2e32b78608be31b1bdbc890cf"
+                    "5117684a5f449d71de34ca979368dd3f",
+        "tl_busy_sha": "93bc53505d4fe55d63ef5bd22b5bd2b7"
+                       "4eaa631c53cb40b0a41be24c0f214315",
+        "tl_load_sha": "d9018bab42554e4416da102d8d5e33f8"
+                       "0a3800934b771f8d36e4cced86071a5a",
+        "tl_qdepth_sha": "2fdaa61c5661c772f7410fb961c672f0"
+                         "46b6b33a4fb4d72b7eb9f96be315fe2a",
+        "ring_lat_sum": [3619651.0],
+        "tl_stale_sum": [[655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555,
+                        655138.6525268555, 655138.6525268555]],
+    },
+    "hier_tree": {
+        "tr_n": [6831, 6756],
+        "trace_dropped": [0, 0],
+        "tl_n": [106, 105],
+        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 721, 16, 9, 19,
+                   3898, 96, 811, 42, 297, 237, 706, 153, 190, 170, 83, 94,
+                   208, 148, 85, 156, 156, 138, 195, 204, 129, 91, 50, 23, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 572, 7, 21,
+                   16, 3347, 31, 1048, 51, 487, 218, 694, 114, 261, 184, 90,
+                   92, 251, 190, 167, 191, 224, 202, 230, 183, 80, 28, 29, 25,
+                   2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0]],
+        "th_resp": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 5, 1,
+                   0, 4, 2, 0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 4, 2, 0, 6, 0, 0, 0]],
+        "ring_sha": "97a1e39aade94fa934d37a93d0314024"
+                    "bae4ba52fdf1c7d7b288dca0b6371a04",
+        "tl_t_sha": "c792cdf061bbdaf67077096817429e9d"
+                    "c37d823c5a63dc4e8a07ebfe4c46d29d",
+        "tl_busy_sha": "130663bf5956362a0275641181a492fe"
+                       "af12200891ddbc2a0dfb5d414aecfbfa",
+        "tl_load_sha": "bd0caa74f04c635584fc64a900099c68"
+                       "e5fab0a6355c46ee11b40d44ec84ff3c",
+        "tl_qdepth_sha": "914775d9bbc9b4866e1b0d422d3f4ec3"
+                         "80c939d5b1fb614e5b04d1d167fd918a",
+        "ring_lat_sum": [760734.5, 765393.3125],
+        "tl_stale_sum": [[483034.12438964844, 478976.75244140625,
+                        480171.37890625, 484522.47998046875, 486073.662109375,
+                        489889.3477783203, 490251.4483642578,
+                        492016.6141357422, 495212.5974121094,
+                        495835.8981933594, 498271.19860839844,
+                        505980.65368652344, 495949.28649902344,
+                        503708.36560058594, 505335.44104003906,
+                        501128.69384765625], [471966.2473144531,
+                        475241.51123046875, 474871.4309082031,
+                        480423.3709716797, 474056.36279296875,
+                        474985.40576171875, 473341.87109375,
+                        483397.2166748047, 476872.8112792969,
+                        482449.37438964844, 485009.9755859375,
+                        487137.5925292969, 488831.01037597656,
+                        487913.0734863281, 489683.04235839844,
+                        494477.2824707031]],
+    },
+    "partition": {
+        "tr_n": [1256, 1312],
+        "trace_dropped": [232, 288],
+        "tl_n": [19, 20],
+        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 81, 1, 0, 1, 396,
+                   1, 185, 2, 89, 35, 104, 23, 55, 40, 24, 30, 44, 26, 48, 46,
+                   51, 41, 34, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 50, 0, 7, 1, 323, 4, 228, 5, 105, 56,
+                   141, 64, 35, 37, 12, 47, 61, 41, 40, 41, 34, 35, 47, 24, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0]],
+        "th_resp": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0,
+                   0, 0, 0, 0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                   0, 0, 0, 2, 0, 0, 0, 0, 0, 0]],
+        "ring_sha": "8e01fcc59056a3a7e5c17f4ae8b10734"
+                    "5fad459dfe0728f0878c8666de7e0143",
+        "tl_t_sha": "efc6405179afcf81ab42ae49e4e66a9c"
+                    "d8c8b96f2d01d367089eb0545b4e7d38",
+        "tl_busy_sha": "624a911c0ea8d616eff65ffdce0b1bd4"
+                       "6bcb52c204c168119dc56bd1096ce08a",
+        "tl_load_sha": "901f0a8cc7f6c8c87f528c25fe3f0d9f"
+                       "a250b01561c9cdfe1250caa9c0559b67",
+        "tl_qdepth_sha": "c6c3eabf39c9bfc9dfb40f0ac988c5be"
+                         "955b4d8a77a02eaa2b5408776742ecd1",
+        "ring_lat_sum": [104826.921875, 103391.765625],
+        "tl_stale_sum": [[147724.9755859375, 148740.1357421875,
+                        148800.6357421875, 149824.5185546875,
+                        149019.7119140625, 149106.91064453125,
+                        149155.41064453125, 148247.396484375,
+                        164461.42919921875, 163559.61474609375,
+                        166114.7587890625, 166114.7587890625,
+                        166110.044921875, 165944.1904296875,
+                        164980.5986328125, 164969.0986328125],
+                        [126199.36828613281, 126219.19348144531,
+                        126039.36828613281, 126020.86828613281,
+                        125049.86535644531, 125061.86535644531,
+                        125098.36535644531, 125155.86535644531,
+                        125246.28820800781, 126078.36767578125,
+                        125114.86511230469, 125086.94262695312,
+                        125040.06799316406, 124026.06469726562,
+                        124009.91027832031, 126199.36828613281]],
+    },
+}
+
+
+def trace_specs(ExperimentSpec, WorkloadSpec, SimParams, FaultSpec,
+                TraceSpec, mode: str = "seq") -> dict:
+    """Phase trace's ``hier_tree`` and ``partition`` runs as
+    ExperimentSpecs of the package whose classes are passed: the tier
+    of FABRICS at k=16 on ``hier_tree``, seeds 1 and 2 (one group of 2
+    lanes each) — on the linear queue at 1e5, and on the tree queue
+    with batch_pop 64 under a partition (0.3-0.6 of the horizon) at 2e4
+    with a ring of TRACE_SMALL_RING rows."""
+    wl = (WorkloadSpec.make("interference", seeds=FABRIC_SEEDS,
+                            pair_periods=(FABRIC_PAIR_PERIOD,)),)
+    kw = dict(topologies=("hier_tree",), knobs=FABRIC_KNOBS, workloads=wl,
+              mode=mode)
+    sl = TRACE_SIM_LENS["partition"]
+    return {
+        "hier_tree": ExperimentSpec(
+            shapes=(SimParams(k=16, **FABRIC_PARAMS).shape,),
+            trace=TraceSpec(**TRACE_FIELDS),
+            sim_len=TRACE_SIM_LENS["hier_tree"], **kw),
+        "partition": ExperimentSpec(
+            shapes=(SimParams(k=16, queue_impl="tree", batch_pop=64,
+                              **FABRIC_PARAMS).shape,),
+            faults=(FaultSpec.partition(t_down=0.3 * sl, t_heal=0.6 * sl),),
+            trace=TraceSpec(**dict(TRACE_FIELDS,
+                                   ring_cap=TRACE_SMALL_RING)),
+            sim_len=sl, **kw)}
+
+
+def trace_runs(sim, workloads, ExperimentSpec, WorkloadSpec, FaultSpec,
+               TraceSpec, mode: str = "seq", **run_kw) -> dict:
+    """The final states of phase trace's three runs through the package
+    whose modules and classes are passed (the reference's or the
+    port's; ``run_kw`` goes to each run, e.g. ``device``): ``paper``
+    (the paper point through ``sim.run``, unbatched), and the
+    :func:`trace_specs` groups ((1, 2) lanes)."""
+    p = sim.SimParams()
+    sl = TRACE_SIM_LENS["paper"]
+    out = {"paper": sim.run(p, *workloads.interference(
+        p, sim_len=sl, seed=PAPER_SEED), sl,
+        trace=TraceSpec(**TRACE_FIELDS), **run_kw)}
+    for name, spec in trace_specs(ExperimentSpec, WorkloadSpec,
+                                  sim.SimParams, FaultSpec, TraceSpec,
+                                  mode).items():
+        out[name] = spec.run(**run_kw).state(k=16)
+    return out
+
+
+def _host(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def trace_digest(st) -> dict:
+    """The trace leaves of a state (any leading axes), keyed as a TRACE
+    entry: per lane the counts and histograms (integers), sha256s of the
+    leaves held bitwise (the ring's [t, type, slot, a0, a1] columns and
+    the timelines but ``tl_stale``), the float64 sum of the ring's
+    ``lat`` column and, per GMN, the float64 sum of ``tl_stale``."""
+    st = {key: _host(v) for key, v in st.items()}
+    lead = st["tr_n"].shape
+    n = int(np.prod(lead))
+
+    def lanes(key):
+        return st[key].reshape((n,) + st[key].shape[len(lead):])
+    row = {key: lanes(key).astype(np.int64).tolist()
+           for key in ("tr_n", "trace_dropped", "tl_n", "th_mgmt",
+                       "th_resp")}
+    row["ring_sha"] = sha256_f32(lanes("tr_ring")[..., :5])
+    for key in ("tl_t", "tl_busy", "tl_load", "tl_qdepth"):
+        row[f"{key}_sha"] = hashlib.sha256(lanes(key).tobytes()).hexdigest()
+    row["ring_lat_sum"] = lanes("tr_ring")[..., 5].astype(np.float64) \
+        .sum(-1).tolist()
+    row["tl_stale_sum"] = lanes("tl_stale").astype(np.float64) \
+        .sum(-2).tolist()
+    return row
+
+
+def trace_mismatches(got: dict, want: dict) -> list:
+    """The keys of a trace_digest ``got`` that differ from ``want``:
+    exact but the ring's lat sum (rtol 1e-5: differences of the f32
+    running mgmt_latency) and the tl_stale sums (rtol 1e-6: f32 means
+    over k)."""
+    tol = {"ring_lat_sum": 1e-5, "tl_stale_sum": 1e-6}
+    return [(key, got.get(key), w) for key, w in want.items()
+            if not (np.allclose(got[key], w, rtol=tol[key], atol=0)
+                    if key in tol else got.get(key) == w)]
 
 
 SERVE = {"finished": 64, "waves": 1, "imbalance": 1.0047190851197014,

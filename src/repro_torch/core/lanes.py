@@ -59,6 +59,15 @@ where no lane has a dead GMN (takeovers) or a down link or dead GMN
 GMN_HEAL announcement and the heartbeat plane's HEARTBEAT events join
 the step's one beacon check.
 
+Trace.  Under a TraceSpec each lane keeps its own ring, timelines and
+histograms (``core/trace``): a step's histogram entries are added at its
+end in one pass; with one pop a step every live lane retires one event,
+so the host counts each lane's events and samples — the ring rows come
+from the step's packed records at device indices from
+``events_processed``, and the timeline runs only on steps where some
+lane samples — while batched pops take the reference's device cumsum.
+``th_resp`` is filled once at the end from ``app_done - app_arrive``.
+
 Done lanes cost a step's work until the last lane ends: the loop runs
 as many steps as the longest lane has events.
 """
@@ -69,6 +78,7 @@ import torch
 
 from repro_torch.core import faults as FLT
 from repro_torch.core import policies as P
+from repro_torch.core import trace as TR
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF
 from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy
@@ -77,9 +87,9 @@ from repro_torch.core.sim import (EV_ARRIVE, EV_BEACON_RX, EV_GMN_FAIL,
                                   EV_LINK_DOWN, EV_LINK_UP, EV_LOCAL_SPAWN,
                                   F32, I32, SimKnobs, SimShape, _bulk_push,
                                   _Ctx, _detect, _handle_beacon_rx_batch,
-                                  _init_queue, _queue_commit,
-                                  _refresh_masks, _require_ported,
-                                  _rx_cohort, make_state)
+                                  _hist, _hist_flush, _init_queue,
+                                  _queue_commit, _refresh_masks,
+                                  _require_ported, _rx_cohort, make_state)
 from repro_torch.core.transport import DEFAULT_TOPOLOGY, Topology
 
 
@@ -91,8 +101,9 @@ class _LaneCtx(_Ctx):
 
     def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
                  topology: Topology, device, arrival_gmns,
-                 sim_len: float, faults_on: bool = False):
-        super().__init__(shape, knobs, policy, topology, device, faults_on)
+                 sim_len: float, faults_on: bool = False, trace=None):
+        super().__init__(shape, knobs, policy, topology, device, faults_on,
+                         trace)
         self.pick_cluster = P.lane_mapping_policy(policy.mapping)
         # the horizon on the card, and as the host compares it (the
         # reference's f32)
@@ -118,6 +129,15 @@ class _LaneCtx(_Ctx):
             self.susp_thr = self.susp_thr.view(-1, 1, 1)   # per lane
             self.sus_prev = torch.zeros((n, self.k, self.k),
                                         dtype=torch.bool, device=device)
+        if trace is not None:
+            # each lane's first ring row less one (the flattened (L *
+            # ring_cap, 6) ring), and the host's counts of each lane's
+            # events and timeline samples (one pop a step)
+            n = arrival_gmns.shape[0]
+            self.ring_row0 = self.lane * trace.ring_cap - 1
+            self.hist_off = self.lane * trace.hist_bins
+            self.ep_h = np.zeros((n,), np.int64)
+            self.tl_n_h = np.zeros((n,), np.int64)
 
 
 def _rows(x, p, idx):
@@ -156,6 +176,8 @@ def _rehome(st, p, m, g, t):
     st["reroutes"] += moved
     st["mgmt_msgs"] += moved
     st["mgmt_latency"] += lat
+    if p.trace is not None:
+        _hist(st, p, lat, moved)
     return g2, t_eff
 
 
@@ -273,8 +295,11 @@ def _arrive(st, p, m, t, app, g, g_oh):
         st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
     if detours:
         st["reroutes"] += torch.where(m, torch.stack(detours, 1).sum(1), 0)
-    st["mgmt_msgs"] += torch.where(m, torch.stack(remotes, 1).sum(1), 0)
-    st["mgmt_latency"] += torch.where(m, torch.stack(lats, 1).sum(1), 0.0)
+    remotes, lats = torch.stack(remotes, 1), torch.stack(lats, 1)
+    st["mgmt_msgs"] += torch.where(m, remotes.sum(1), 0)
+    st["mgmt_latency"] += torch.where(m, lats.sum(1), 0.0)
+    if p.trace is not None:
+        _hist(st, p, lats, m[:, None] & remotes)
     st["mgmt_proc"] += torch.where(m, t_tree - t_eff, 0.0)
     hot_a = m[:, None] & (p.ar_app == app[:, None])
     st["app_remaining"] = torch.where(hot_a, p.n_childs, st["app_remaining"])
@@ -337,7 +362,10 @@ def _spawn(st, p, m, t, app, g, g_oh, cnt, n_steps, lengths):
         st["lbus_free"] = torch.where(hot, bus[:, None], st["lbus_free"])
     st["mgmt_msgs"] += torch.where(m, cnt, 0)
     # the masked tail adds +0.0 (lanes outside m: only +0.0)
-    st["mgmt_latency"] += torch.where(act, torch.stack(lats, 1), 0.0).sum(1)
+    lats = torch.stack(lats, 1)
+    st["mgmt_latency"] += torch.where(act, lats, 0.0).sum(1)
+    if p.trace is not None:
+        _hist(st, p, lats, act)
     st["mgmt_proc"] += torch.where(m, t_cpu - t, 0.0)
     return t_cpu, torch.stack(finishes, 1), torch.stack(pes, 1), act
 
@@ -356,7 +384,10 @@ def _join_local(st, p, m, t, g, g_oh, pe):
     at = hot[:, :, None] & (p.ar_mpk == pe[:, None])[:, None, :]
     st["loads"] = torch.where(at, st["loads"] - 1, st["loads"])
     st["mgmt_msgs"] += m
-    st["mgmt_latency"] += torch.where(m, t_msg - t, 0.0)
+    d_msg = t_msg - t
+    st["mgmt_latency"] += torch.where(m, d_msg, 0.0)
+    if p.trace is not None:
+        _hist(st, p, d_msg, m)
     return t_msg
 
 
@@ -384,6 +415,8 @@ def _join_forward(st, p, m, t_msg, app, g):
         st["lbus_free"] = torch.where(m[:, None], lbus, st["lbus_free"])
     st["mgmt_msgs"] += m & remote
     st["mgmt_latency"] += torch.where(m, lat, 0.0)
+    if p.trace is not None:
+        _hist(st, p, lat, m & remote)
     t_bar = torch.maximum(t_fwd, _rows(st["gmn_free"], p, pg)) + p.c_join
     st["mgmt_proc"] += torch.where(m, t_bar - t_fwd, 0.0)
     hot = m[:, None] & (p.ar_k == pg[:, None])
@@ -445,7 +478,12 @@ def _beacon(st, p, m, g, t, forced=None):
         st["beacons_tx"] += fire_i
         st["mgmt_msgs"] += fire_i * (p.k - 1)
         n_dlv = (rcv & dlv).sum(1).to(F32) if lossy else float(p.k - 1)
-        st["mgmt_latency"] += torch.where(fire, n_dlv * (t_tx - t), 0.0)
+        d_tx = t_tx - t
+        st["mgmt_latency"] += torch.where(fire, n_dlv * d_tx, 0.0)
+        if p.trace is not None:
+            # every delivery shares the bus latency: one entry of their
+            # count
+            _hist(st, p, d_tx, torch.where(fire, n_dlv, 0.0))
         t_r, pushes = t_tx[:, None], []
     if lossy and p.retry_on:
         # one bounded re-beacon per lost delivery, source encoded g + k
@@ -478,7 +516,10 @@ def _beacon_fanout(st, p, g, t, fire, hot, load, dlv):
     fire_i = fire.to(I32)
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
-    st["mgmt_latency"] += torch.where(push, t_arr - t[:, None], 0.0).sum(1)
+    d_arr = t_arr - t[:, None]
+    st["mgmt_latency"] += torch.where(push, d_arr, 0.0).sum(1)
+    if p.trace is not None:
+        _hist(st, p, d_arr, push)
     spread = torch.clamp(torch.where(dlv, t_arr, -INF).amax(1)
                          - torch.where(dlv, t_arr, INF).amin(1), min=0.0)
     spread = torch.where(fire, spread, 0.0)
@@ -601,8 +642,48 @@ def _step(st, p, types, rows, head, lengths):
             evq = evq + cols[0].sum(1)
         evq = evq - _queue_commit(st, p, slots, ok, t, *cols)
     st["evq_len"] += evq
+    if p.trace is not None:
+        _hist_flush(st, p)
+        if p.bp > 1:
+            TR.ring_commit(st, p.trace, t, ok, slots, *rx[:3],
+                           st["mgmt_latency"])
+            TR.timeline_sample(st, p.trace, t, live)
+        else:
+            _trace_step(st, p, rows, head, t, live)
     if p.faults_on and types & _FAULT_TYPES:
         _mirror(st, p, rows)
+
+
+def _trace_step(st, p, rows, head, t, live) -> None:
+    """The ring rows and timeline sample of a step with one pop a lane.
+    Every live lane retires one event, so the host counts each lane's
+    events (``p.ep_h``) and samples (``p.tl_n_h``): the ring row of a
+    live lane is its event count less one, taken from its packed record
+    ``head``; rows past capacity, and timeline writes on steps where no
+    lane samples, are skipped."""
+    spec = p.trace
+    live_h = np.array([r[0] < INF for r in rows])
+    p.ep_h += live_h
+    room = live_h & (p.ep_h <= spec.ring_cap)
+    if room.any():
+        # [t, type, slot, a0, a1] and the running mgmt_latency
+        # (``trace.ring_finish`` makes it the step's change)
+        row = torch.cat([head.index_select(1, p.ring_perm),
+                         st["mgmt_latency"][:, None]], 1)
+        ep = st["events_processed"]
+        if room.all():
+            idx = ep + p.ring_row0
+        else:
+            idx = ep.clamp(max=spec.ring_cap) + p.ring_row0
+            row = torch.where((live & (ep <= spec.ring_cap))[:, None], row,
+                              0.0)
+        # each row lands on zeros (rows are written once): exact
+        st["tr_ring"].view(-1, 6).index_add_(0, idx, row)
+    sample = live_h & (p.tl_n_h < spec.n_samples) \
+        & (p.ep_h >= (p.tl_n_h + 1) * spec.sample_every)
+    if sample.any():
+        TR.timeline_sample(st, spec, t, live)
+        p.tl_n_h += sample
 
 
 _FAULT_TYPES = {EV_LINK_DOWN, EV_LINK_UP, EV_GMN_FAIL, EV_GMN_HEAL}
@@ -610,13 +691,15 @@ _FAULT_TYPES = {EV_LINK_DOWN, EV_LINK_UP, EV_GMN_FAIL, EV_GMN_HEAL}
 
 def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                    lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
-                   topology: Topology = DEFAULT_TOPOLOGY, faults=None):
+                   topology: Topology = DEFAULT_TOPOLOGY, faults=None,
+                   trace=None):
     """L runs in one loop on ``arrivals.device``: knobs with (L,) leaves,
     arrivals (L, A) f32, arrival_gmns (L, A) i32, lengths (L, A, n_childs)
     f32 tensors; ``faults`` None, a FaultSpec or a FaultSchedule that
-    every lane meets.  Returns the final state dict, every leaf
-    (L, ...)."""
-    _require_ported(shape, policy, topology, faults)
+    every lane meets; ``trace`` None or a TraceSpec (each lane's own
+    ring, timelines and histograms).  Returns the final state dict, every
+    leaf (L, ...)."""
+    _require_ported(shape, policy, topology, faults, trace)
     if arrivals.ndim != 2 or lengths.ndim != 3 \
             or knobs.dn_th.shape != arrivals.shape[:1]:
         raise ValueError("simulate_lanes needs knobs (L,), arrivals (L, A), "
@@ -624,7 +707,7 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
     dev = arrivals.device
     faults = FLT.as_schedule(faults, shape.k, float(sim_len))
     p = _LaneCtx(shape, knobs, policy, topology, dev, arrival_gmns,
-                 float(sim_len), faults_on=faults is not None)
+                 float(sim_len), faults_on=faults is not None, trace=trace)
     n_lanes = arrivals.shape[0]
     st = {key: v.repeat((n_lanes,) + (1,) * v.ndim)
           for key, v in make_state(p, dev).items()}
@@ -654,4 +737,12 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                 "lanes.step_rx" if types == {EV_BEACON_RX}
                 else "lanes.step"):
             _step(st, p, types, rows, head, lengths)
+    if p.trace is not None:
+        TR.resp_hist(st, p.trace, p.tr_thr, p.hist_off)
+        if p.bp == 1:
+            # the counts the ring commit keeps on batched pops
+            st["tr_n"].copy_(st["events_processed"])
+            st["trace_dropped"].copy_(torch.clamp(
+                st["events_processed"] - p.trace.ring_cap, min=0))
+        TR.ring_finish(st, p.trace)
     return st

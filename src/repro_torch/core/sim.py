@@ -13,8 +13,9 @@ one self-rescheduling HEARTBEAT event per GMN), and fault injection
 (``core/faults``): the fault-aware program that runs when a schedule is
 passed — link and GMN masks, lost best-effort beacons with bounded
 retries, reliable messages that detour or re-home, and the failure
-detector refreshed at every pop.  The trace raises
-``NotImplementedError`` naming its ROADMAP item.
+detector refreshed at every pop — and the in-loop trace
+(``core/trace``): a TraceSpec adds the ring, timeline and histogram
+leaves, written after each step's commit.
 
 How the loop runs.  The reference is one ``lax.while_loop``; here the
 loop is Python and every state tensor lives on the device.  Each
@@ -50,6 +51,21 @@ whether a beacon, a task-start or a forward meets a down link or a
 dead receiver at all — only then do the masked device ops run.  The
 failure detector is a device computation at every pop before
 ``sim_len``, and frozen (skipped) after it.
+
+The trace.  ``th_mgmt`` takes the values of the reference's accrual
+sites, weighted by their device masks: a step queues them and adds them
+at its end (one bucketize, one ``index_add_``).  ``th_resp`` is filled
+once at the end from ``app_done - app_arrive``, the values the
+reference adds at each completing barrier.  With one pop a step
+(``batch_pop`` 1, or the ``ideal`` fabric) every step retires one event,
+so the host knows ``tr_n`` and the timeline stride: it keeps both counts
+and writes the ring row (from the step's packed record) and the
+timeline row at host indices.  With same-timestamp batches a cohort's
+size is only on the card, and the ring and timeline take the
+reference's device cumsum (``trace.ring_commit``,
+``trace.timeline_sample``).  A ring row's ``lat`` holds the running
+``mgmt_latency`` until ``trace.ring_finish`` differences the column at
+the end.  No path adds a host read.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ import torch
 from repro_torch.core import eventq as EQ
 from repro_torch.core import faults as FLT
 from repro_torch.core import policies as P
+from repro_torch.core import trace as TR
 from repro_torch.core import transport as T
 from repro_torch.core.eventq import INF, QUEUE_IMPLS
 from repro_torch.core.policies import DEFAULT_POLICY, SimPolicy  # noqa: F401
@@ -207,10 +224,11 @@ def _log2_levels(v: int) -> float:
 
 def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
                     faults=None, trace=None) -> None:
-    """Raise for every configuration outside this slice of the port."""
-    if trace is not None:
-        raise NotImplementedError(
-            "in-loop tracing is not ported yet (ROADMAP item 9)")
+    """Refuse what no loop runs: a ``trace`` that is not a TraceSpec, a
+    ``faults`` that is not a FaultSpec or FaultSchedule, an unknown
+    policy."""
+    if trace is not None and not isinstance(trace, TR.TraceSpec):
+        raise ValueError(f"trace must be a TraceSpec or None, got {trace!r}")
     if faults is not None and not isinstance(
             faults, (FLT.FaultSpec, FLT.FaultSchedule)):
         raise TypeError(f"faults must be None, a FaultSpec or a "
@@ -221,11 +239,13 @@ def _require_ported(shape: SimShape, policy: SimPolicy, topology: Topology,
 
 class _Ctx:
     """Static shape ints, policy, topology and the knob tensors on the
-    run's device, plus the few constant tensors the handlers reuse, and
-    under faults the host's mirror of the link and GMN masks."""
+    run's device, plus the few constant tensors the handlers reuse, under
+    faults the host's mirror of the link and GMN masks, and under a
+    trace its spec, the bin thresholds and the host's counts."""
 
     def __init__(self, shape: SimShape, knobs: SimKnobs, policy: SimPolicy,
-                 topology: Topology, device, faults_on: bool = False):
+                 topology: Topology, device, faults_on: bool = False,
+                 trace=None):
         self.m, self.k, self.mpk = shape.m, shape.k, shape.mpk
         self.n_childs = shape.n_childs
         self.queue_cap, self.max_apps = shape.queue_cap, shape.max_apps
@@ -287,6 +307,19 @@ class _Ctx:
         self.bp = shape.batch_pop if self.rx_on else 1
         self.cal_width = torch.clamp(torch.maximum(knobs.c_b, knobs.c_s),
                                      min=1.0)
+        self.trace = trace
+        self.hist_off = None            # each lane's first histogram bin
+        if trace is not None:
+            self.tr_thr = torch.from_numpy(TR.bin_thresholds(trace)) \
+                .to(device)
+            # the ring row [t, type, slot, a0, a1] from a packed record
+            # (t, slot, type, a0, a1, a2), and the host's counts of rows
+            # and timeline samples (one pop a step)
+            self.ring_perm = torch.tensor([0, 2, 1, 3, 4], device=device)
+            self.tr_ones = torch.ones((max(self.n_childs, self.ns, 1),),
+                                      dtype=F32, device=device)
+            self.hq = []                # a step's th_mgmt entries
+            self.tr_n_h = self.tl_n_h = 0
 
 
 def make_state(p, device):
@@ -382,7 +415,34 @@ def make_state(p, device):
         if p.faults_on:
             # the deciding GMN after a takeover (for replay)
             st["dec_gmn"] = z((A,), I32)
+    if p.trace is not None:
+        st |= TR.trace_state(p.trace, k, device)
     return st
+
+
+def _hist(st, p, vals, weight=None):
+    """Queue ``vals`` for the trace's ``th_mgmt`` with ``weight`` (a mask
+    or counts; ones when None); :func:`_hist_flush` adds a step's
+    entries at its end.  Callers test ``p.trace`` first, so an untraced
+    run computes no argument."""
+    p.hq.append((vals, weight))
+
+
+def _hist_flush(st, p) -> None:
+    """Add the step's queued ``th_mgmt`` entries in one pass (one
+    bucketize and one ``index_add_``; per lane with a lane axis)."""
+    q = p.hq
+    if not q:
+        return
+    lead = () if p.hist_off is None else (p.hist_off.shape[0],)
+    vals = [v.reshape(lead + (-1,)) for v, _ in q]
+    ws = [p.tr_ones[:v.shape[-1]].expand_as(v) if w is None
+          else w.reshape(lead + (-1,)) for (_, w), v in zip(q, vals)]
+    if len(q) > 1:
+        vals, ws = [torch.cat(vals, -1)], [torch.cat(ws, -1)]
+    TR.hist_add(st["th_mgmt"], vals[0], p.trace, p.tr_thr, ws[0],
+                p.hist_off)
+    q.clear()
 
 
 def _take(arr, i):
@@ -725,8 +785,12 @@ def _fire_beacon(st, p, g, t, fire, load_g):
     st["last_bcast_t"][g] = torch.where(fire, t_tx, st["last_bcast_t"][g])
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
-    st["mgmt_latency"] += torch.where(
-        fire, float(p.k - 1 - n_lost) * (t_tx - t), 0.0)
+    d_tx = t_tx - t
+    st["mgmt_latency"] += torch.where(fire, float(p.k - 1 - n_lost) * d_tx,
+                                      0.0)
+    # every delivery shares the bus latency: one entry of their count
+    if p.trace is not None:
+        _hist(st, p, d_tx, torch.where(fire, float(p.k - 1 - n_lost), 0.0))
     return fan
 
 
@@ -754,7 +818,10 @@ def _beacon_fanout(st, p, g, t, fire, load_g):
     fire_i = fire.to(I32)
     st["beacons_tx"] += fire_i
     st["mgmt_msgs"] += fire_i * (p.k - 1)
-    st["mgmt_latency"] += torch.where(push, t_arr - t, 0.0).sum()
+    d_arr = t_arr - t
+    st["mgmt_latency"] += torch.where(push, d_arr, 0.0).sum()
+    if p.trace is not None:
+        _hist(st, p, d_arr, push)
     # delivery skew: the latest minus the earliest delivered arrival
     spread = torch.clamp(torch.where(dlv, t_arr, -INF).max()
                          - torch.where(dlv, t_arr, INF).min(), min=0.0)
@@ -882,6 +949,8 @@ def _rehome(st, p, g0: int, t):
     st["reroutes"] += 1
     st["mgmt_msgs"] += 1
     st["mgmt_latency"] += lat
+    if p.trace is not None:
+        _hist(st, p, lat)
     return g, t_eff
 
 
@@ -931,8 +1000,11 @@ def _handle_arrive(st, p, t, app, g, _unused, lengths):
     st["gbus_free"], st["lbus_free"] = gbus, lbus
     if detours:
         st["reroutes"] += torch.stack(detours).sum()
-    st["mgmt_msgs"] += torch.stack(remotes).sum()
-    st["mgmt_latency"] += torch.stack(lats).sum()
+    remotes, lats = torch.stack(remotes), torch.stack(lats)
+    st["mgmt_msgs"] += remotes.sum()
+    st["mgmt_latency"] += lats.sum()
+    if p.trace is not None:
+        _hist(st, p, lats, remotes)
     st["mgmt_proc"] += t_tree - t_eff
     # fill_, not item assignment: assigning a Python scalar into a CUDA
     # tensor copies it from the host and waits for the card
@@ -981,8 +1053,11 @@ def _handle_local_spawn(st, p, t, app, g, cnt, lengths):
         st["gbus_free"] = bus
     else:
         st["lbus_free"][g] = bus
+    lats = torch.stack(lats)
     st["mgmt_msgs"] += cnt
-    st["mgmt_latency"] += torch.stack(lats).sum()
+    st["mgmt_latency"] += lats.sum()
+    if p.trace is not None:
+        _hist(st, p, lats)
     st["mgmt_proc"] += t_cpu - t_eff
 
     fan = _maybe_beacon(st, p, g, t_cpu)
@@ -1007,7 +1082,10 @@ def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
         st["lbus_free"][g] = t_msg
     st["loads"][g, pe] -= 1
     st["mgmt_msgs"] += 1
-    st["mgmt_latency"] += t_msg - t
+    d_msg = t_msg - t
+    st["mgmt_latency"] += d_msg
+    if p.trace is not None:
+        _hist(st, p, d_msg)
     # the beacon's bus grant comes before the forward's
     fan = _maybe_beacon(st, p, g, t_msg)
     pg = int(parent_gmns[app])
@@ -1026,6 +1104,8 @@ def _handle_join_exit(st, p, t, app, g, pe, lengths, parent_gmns):
         st["reroutes"] += 1
     st["mgmt_msgs"] += int(remote)
     st["mgmt_latency"] += lat
+    if remote and p.trace is not None:
+        _hist(st, p, lat)
     t_bar = torch.maximum(t_fwd, st["gmn_free"][pg]) + p.c_join
     st["mgmt_proc"] += t_bar - t_fwd
     st["gmn_free"][pg] = t_bar
@@ -1110,13 +1190,14 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
              topology: Topology = DEFAULT_TOPOLOGY, faults=None, trace=None):
     """The event loop on ``arrivals.device``: arrivals (A,) f32,
     arrival_gmns (A,) i32, lengths (A, n_childs) f32 tensors; ``faults``
-    None (the no-fault program), a FaultSpec or a FaultSchedule.
-    Returns the final state dict."""
+    None (the no-fault program), a FaultSpec or a FaultSchedule;
+    ``trace`` None or a TraceSpec (``core/trace``).  Returns the final
+    state dict."""
     _require_ported(shape, policy, topology, faults, trace)
     dev = arrivals.device
     faults = FLT.as_schedule(faults, shape.k, float(sim_len))
     p = _Ctx(shape, knobs, policy, topology, dev,
-             faults_on=faults is not None)
+             faults_on=faults is not None, trace=trace)
     st = make_state(p, dev)
     # the barrier GMN of each application, read by the host dispatch
     parent_gmns = arrival_gmns.cpu().numpy()
@@ -1172,6 +1253,10 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
             n_pop = ok.sum()
             st["events_processed"] += n_pop
             _commit(st, p, (slots, ok, t, n_pop), _stage_none(p))
+            if p.trace is not None:
+                TR.ring_commit(st, p.trace, t, ok, slots,
+                               *pay.unbind(-1)[:3], st["mgmt_latency"])
+                TR.timeline_sample(st, p.trace, t)
             continue
         st["events_processed"] += 1
         if detect and typ != EV_BEACON_RX:
@@ -1182,7 +1267,44 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         _apply_staged(st, p, stg)
         _commit(st, p, (int(slot_h), None, None, 1) if linear
                 else (head[1:2].to(torch.int64), p.ones_b[:1], t, 1), stg)
+        if p.trace is not None:
+            _trace_step(st, p, head, t)
+    if p.trace is not None:
+        if p.bp == 1:
+            # the host's counts, once
+            st["tr_n"].fill_(p.tr_n_h)
+            st["trace_dropped"].fill_(max(p.tr_n_h - p.trace.ring_cap, 0))
+            st["tl_n"].fill_(p.tl_n_h)
+        TR.ring_finish(st, p.trace)
+        TR.resp_hist(st, p.trace, p.tr_thr)
     return st
+
+
+def _trace_step(st, p, head, t) -> None:
+    """A single pop's histogram entries, ring row and timeline sample
+    after its commit (``head`` is its packed record): with one pop a
+    step at host indices from the host's counts; with batched pops
+    through the device counts (``trace``'s reference forms)."""
+    spec = p.trace
+    _hist_flush(st, p)
+    if p.bp > 1:
+        TR.ring_commit(st, spec, t, p.ones_b[:1], head[1:2], head[2:3],
+                       head[3:4], head[4:5], st["mgmt_latency"])
+        TR.timeline_sample(st, spec, t)
+        return
+    n = p.tr_n_h
+    if n < spec.ring_cap:
+        # [t, type, slot, a0, a1] and the running mgmt_latency
+        # (``trace.ring_finish`` makes it the step's change)
+        row = st["tr_ring"][n]
+        torch.index_select(head, 0, p.ring_perm, out=row[:5])
+        row[5] = st["mgmt_latency"]
+    p.tr_n_h = n = n + 1
+    if p.tl_n_h < spec.n_samples \
+            and n >= (p.tl_n_h + 1) * spec.sample_every:
+        for key, val in zip(TR.TL_KEYS, TR.timeline_row(st, t)):
+            st[key][p.tl_n_h] = val
+        p.tl_n_h += 1
 
 
 def run(p: SimParams, arrivals, arrival_gmns, lengths, sim_len: float = 1e7,
@@ -1190,8 +1312,9 @@ def run(p: SimParams, arrivals, arrival_gmns, lengths, sim_len: float = 1e7,
     """arrivals (A,) f32 times (INF = unused); arrival_gmns (A,) i32;
     lengths (A, n_childs) f32 child task lengths (numpy arrays or
     tensors); ``faults`` an optional FaultSpec or FaultSchedule
-    (``core/faults``).  Runs on ``device`` (default: the CUDA card) and
-    returns the final state dict of tensors there."""
+    (``core/faults``); ``trace`` an optional TraceSpec (``core/trace``:
+    None adds no leaf and no op).  Runs on ``device`` (default: the CUDA
+    card) and returns the final state dict of tensors there."""
     dev = resolve_device(device)
     return simulate(p.shape, p.knobs,
                     torch.as_tensor(arrivals, dtype=F32).to(dev),

@@ -132,7 +132,9 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
               queue of ``core/eventq`` and window of ``batch_pop``).
     faults    None, or a FaultSpec or FaultSchedule (``core/faults``)
               that every lane meets.
-    trace     only None is ported (ROADMAP item 9).
+    trace     None, or a TraceSpec (``core/trace``): every lane records
+              its own ring, timelines and histograms; equal in both
+              modes.
 
     Returns the final-state dict with every leaf batched to (B, S, ...).
     """
@@ -165,19 +167,19 @@ def sweep(shape, knobs: SimKnobs, workload, sim_len: float = 1e7,
     mode = resolve_mode(mode, dev)
     if mode == "vmap":
         return _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len,
-                           policy, topology, faults)
+                           policy, topology, faults, trace)
     b, s = knobs.dn_th.shape[0], arrivals.shape[0]
     knobs = knobs.to(dev)
     outs = [simulate(shape, SimKnobs(*(v[i] for v in knobs)),
                      arrivals[j], gmns[j], lengths[j], sim_len, policy,
-                     topology, faults)
+                     topology, faults, trace)
             for i in range(b) for j in range(s)]
     return {key: torch.stack([o[key] for o in outs])
             .reshape((b, s) + outs[0][key].shape) for key in outs[0]}
 
 
 def _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len, policy,
-                topology, faults=None) -> dict:
+                topology, faults=None, trace=None) -> dict:
     """All B x S lanes in one lane-batched loop on ``arrivals.device``
     (lane i*S + j: knob i, workload j); leaves (B, S, ...)."""
     b, s = knobs.dn_th.shape[0], arrivals.shape[0]
@@ -185,7 +187,7 @@ def _sweep_vmap(shape, knobs, arrivals, gmns, lengths, sim_len, policy,
     st = simulate_lanes(
         shape, SimKnobs(*(v.repeat_interleave(s) for v in knobs)),
         arrivals.repeat(b, 1), gmns.repeat(b, 1), lengths.repeat(b, 1, 1),
-        sim_len, policy, topology, faults)
+        sim_len, policy, topology, faults, trace)
     return {key: v.reshape((b, s) + v.shape[1:]) for key, v in st.items()}
 
 

@@ -14,9 +14,10 @@ delays of ``core/transport.host_beacon_delays``.
 Faults (worker-group kills, failed links and managers) are handled as in
 the reference, and every mapping and beacon policy runs, the
 failure-detector ones included (:meth:`ClusterScheduler.suspects` is
-the wall-clock twin of the event loop's ``suspect`` row).  Not ported
-yet: the Perfetto export of the trace (ROADMAP item 9), which raises
-``NotImplementedError``.
+the wall-clock twin of the event loop's ``suspect`` row).  With
+``trace=True`` the fleet keeps the event loop's trace schema (event
+dicts and timeline rows) and exports it through the shared Perfetto
+exporter (``core/trace.perfetto_trace``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core import policies as P
+from repro_torch.core import trace as TR
 from repro_torch.core import transport as T
 from repro_torch.core.messages import Message, beacon, task_start
 
@@ -400,8 +402,12 @@ class FleetSim:
                 "qdepth": np.array([r["qdepth"] for r in rows])}
 
     def to_perfetto(self, max_counter_series: int = 8) -> dict:
-        raise NotImplementedError("Perfetto export needs the trace module, "
-                                  "which is not ported yet (ROADMAP item 9)")
+        """Chrome/Perfetto trace-event JSON through the exporter shared
+        with :class:`repro_torch.core.trace.TraceFrame` — wall-clock
+        seconds map to trace microseconds."""
+        return TR.perfetto_trace(self.trace_events, self.k, counters=(
+            TR.timeline_counters(self.timeline(), self.k,
+                                 max_counter_series)))
 
     def loads(self) -> np.ndarray:
         return np.stack([s.local for s in self.schedulers])

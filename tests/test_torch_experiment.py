@@ -2,8 +2,8 @@
 reference's (repro.core.experiment) on the CPU: the planner's groups and
 program counts, the spec's JSON provenance read across packages, every
 ResultFrame column of a small spec in both modes, the faults axis, the
-payload's JSON round trip, the deprecated shims and what ``run()``
-refuses."""
+payload's JSON round trip, the deprecated shims, a traced spec read
+from the reference's JSON, and what ``run()`` refuses."""
 import json
 import warnings
 
@@ -78,15 +78,27 @@ def test_spec_from_dict_reads_reference_json():
     assert json.loads(json.dumps(port.to_dict(), default=float)) == d
     assert port.plan().expected_programs("vmap") \
         == spec.plan().expected_programs("vmap")
-    # the fault axis reads back as the port's FaultSpecs; run() refuses
-    # the trace
+    # the fault axis reads back as the port's FaultSpecs, the trace as
+    # the port's TraceSpec
     assert [f.to_dict() for f in port.faults if f is not None] \
         == [f for f in d["faults"] if f is not None]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        port.run(device="cpu")
-    no_faults = TE.spec_from_dict(dict(d, faults=[None]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        no_faults.run(device="cpu")
+    assert port.trace.to_dict() == d["trace"]
+    # and it runs, traced, equal to the reference's run of the same
+    # payload (one k, fabric, queue and workload of it, both fault
+    # entries, at a horizon of 3e4)
+    from test_torch_trace import assert_traced_states
+    cut = dict(d, shapes=d["shapes"][1:], topologies=["mesh2d"],
+               queue_impls=["calendar"], batch_pops=[4],
+               workloads=d["workloads"][:1], sim_len=3e4)
+    ref = RE.spec_from_dict(cut).run()
+    got = TE.spec_from_dict(cut).run(device="cpu")
+    assert len(got.groups) == len(ref.groups) == 2
+    for g, r in zip(got.groups, ref.groups):
+        assert g.coords() == dict(r.combo.coords(), fault=r.fault_label)
+        assert_traced_states(g.state, jax.device_get(r.state))
+    for name in TE.ResultFrame.PCT_NAMES:
+        assert np.array_equal(got.col(name), ref.col(name)), name
+    assert got.manifest()["trace"] == d["trace"]
 
 
 def test_spec_from_dict_rejects_unknown_fields_and_versions():
@@ -150,8 +162,13 @@ def test_result_frame_equals_reference(mode):
     assert port.expected_programs == ref.plan.expected_programs(mode)
     with pytest.raises(KeyError):
         port.state(k=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        port.trace_frame()
+    # no trace: NaN percentile columns, and no trace frame (as the
+    # reference)
+    for name in TE.ResultFrame.PCT_NAMES:
+        assert np.isnan(port.col(name)).all(), name
+    for frame in (ref, port):
+        with pytest.raises(ValueError, match="trace=None"):
+            frame.trace_frame()
 
 
 @pytest.mark.parametrize("mode", ["seq", "vmap"])

@@ -1,11 +1,12 @@
 """The frozen digests of repro_torch.core.goldens — what chip_smoke.py
 checks the card against without JAX — are what the JAX reference
 computes, and the port reproduces them on the CPU: the golden grid of
-tests/test_sweep.py and the paper point."""
+tests/test_sweep.py, the paper point and the trace digests."""
 import hashlib
 
 import jax
 import numpy as np
+import pytest
 
 from repro.core import metrics as RMET
 from repro.core import workloads as RW
@@ -57,3 +58,54 @@ def test_port_paper_point_1e6_on_cpu():
     """The slice end to end at the paper's widths (m=256, k=16,
     n_childs=100, queue_cap=2048) and the 1e6 horizon."""
     assert G.paper_point(1e6, device="cpu") == G.PAPER_POINT[1e6]
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_trace_digests_recomputed(package):
+    """goldens.TRACE — phase trace's three runs (the paper point at 1e6,
+    the tier's k=16 hier_tree group at 1e5, a partition on tree/64 at
+    2e4 whose ring overflows) — recomputed by the JAX reference and by
+    the port on the CPU, to goldens.trace_mismatches' tolerances; the
+    traced runs' shared leaves are the untraced goldens, every lane's
+    conservation checks hold and its Perfetto export validates."""
+    if package == "reference":
+        from repro.core import sim, workloads
+        from repro.core.experiment import ExperimentSpec, WorkloadSpec
+        from repro.core.faults import FaultSpec
+        from repro.core.trace import TraceSpec
+        kw = {}
+    else:
+        from repro_torch.core import sim, workloads
+        from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
+        from repro_torch.core.faults import FaultSpec
+        from repro_torch.core.trace import TraceSpec
+        kw = dict(device="cpu")
+    from repro_torch.core.trace import TraceFrame
+    from repro_torch.core.trace import TraceSpec as TTraceSpec
+    from repro_torch.core.trace import validate_perfetto
+    runs = G.trace_runs(sim, workloads, ExperimentSpec, WorkloadSpec,
+                        FaultSpec, TraceSpec, **kw)
+    runs = {name: {k: G._host(v) for k, v in st.items()}
+            for name, st in runs.items()}
+    assert set(runs) == set(G.TRACE)
+    for name, st in runs.items():
+        assert G.trace_mismatches(G.trace_digest(st), G.TRACE[name]) == [], \
+            name
+    assert G.paper_point_digest(runs["paper"]) == G.PAPER_POINT[1e6]
+    got = G.state_digest(runs["hier_tree"])
+    for key, w in G.FABRICS[1e5][16]["hier_tree"].items():
+        assert (np.allclose(got[key], w, rtol=1e-5)
+                if key == "mgmt_latency" else got[key] == w), key
+    part = G.trace_digest(runs["partition"])
+    assert min(part["trace_dropped"]) > 0
+    for name, st in runs.items():
+        spec = TTraceSpec(**dict(
+            G.TRACE_FIELDS, ring_cap=G.TRACE_SMALL_RING
+            if name == "partition" else G.TRACE_FIELDS["ring_cap"]))
+        lanes = [st] if st["tr_n"].ndim == 0 else [
+            {k: v[0, j] for k, v in st.items()}
+            for j in range(st["tr_n"].shape[1])]
+        for lane in lanes:
+            tf = TraceFrame(lane, spec)
+            assert tf.check()["ok"], name
+            assert validate_perfetto(tf.to_perfetto()) == [], name

@@ -189,3 +189,37 @@ def test_policy_frontier_payload_equals_reference(tmp_path, monkeypatch,
     half = len(lines) // 2
     assert lines[0].split(",")[0] == lines[half].split(",")[0]
     assert lines[1:half] == lines[half + 1:]
+
+
+def test_trace_report_payload_equals_reference(tmp_path, monkeypatch,
+                                               capsys):
+    """trace_report on the tiny grid: the payload equals the reference's
+    but the warm walls (``overhead``), the reference's counts of its
+    compiled programs (``n_compiles``, ``expected_programs``,
+    ``claim_one_program_per_group``) and the Perfetto file's path (the
+    port writes under results/torch); the Perfetto files are equal."""
+    ref, port = _runner_pair("trace_report", tmp_path, monkeypatch)
+    monkeypatch.setattr(ref, "RESULTS_DIR", str(tmp_path))
+    ref.run(grid="tiny")
+    got = port.run(grid="tiny", device="cpu")
+    want = json.loads((tmp_path / "trace_report.json").read_text())
+    written = json.loads((tmp_path / "torch" / "trace_report.json")
+                         .read_text())
+    assert written == json.loads(json.dumps(got, default=float))
+    for key in ("n_compiles", "expected_programs",
+                "claim_one_program_per_group"):
+        del want[key]
+    assert set(written["overhead"]) == set(want.pop("overhead"))
+    del written["overhead"]
+    assert want.pop("perfetto_path").endswith("trace_tiny_perfetto.json")
+    assert written.pop("perfetto_path").endswith(
+        "torch/trace_tiny_perfetto.json")
+    _same(written, want)
+    assert written["claims_all_pass"] and written["rows"]
+    assert json.loads((tmp_path / "torch" / "trace_tiny_perfetto.json")
+                      .read_text()) == json.loads(
+        (tmp_path / "trace_tiny_perfetto.json").read_text())
+    assert sorted(p.name for p in (tmp_path / "torch").iterdir()) == [
+        "trace_report.json", "trace_tiny_perfetto.json"]
+    ref_row, *_ = capsys.readouterr().out.strip().splitlines()
+    assert ref_row.startswith("trace_report,")

@@ -78,6 +78,7 @@ def _drive(E, topology, mapping, beacon, T_b):
                    for s in fleet.schedulers],
         "events": fleet.trace_events,
         "timeline": {k: v.tolist() for k, v in tl.items()},
+        "perfetto": fleet.to_perfetto(),
     }
 
 
@@ -93,16 +94,24 @@ def test_fleet_matches_reference(topology, policy):
 
 def test_unported_fleet_paths_raise():
     """The suspicion policies and heartbeat run (an infinite suspicion
-    deadline is refused, as in the reference); the Perfetto export is
-    still refused."""
+    deadline is refused, as in the reference); the Perfetto export, the
+    last path that was refused, equals the reference's payload and
+    passes its validator."""
+    from repro.core.trace import validate_perfetto
     TE.FleetSim(k=2, mapping="avoid_suspected", T_b=5.0)
     TE.FleetSim(k=2, beacon="heartbeat", T_b=5.0)
     with pytest.raises(ValueError, match="suspicion"):
         TE.FleetSim(k=2, mapping="suspect_weighted")
-    fleet = TE.FleetSim(k=2, trace=True)
-    fleet.tick()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        fleet.to_perfetto()
+    fleets = [E.FleetSim(k=2, trace=True) for E in (TE, RE)]
+    for fleet in fleets:
+        fleet.tick()
+    got, want = (f.to_perfetto() for f in fleets)
+    assert got == want and validate_perfetto(got) == []
+    for topology in TOPOLOGIES:
+        got = _drive(TE, topology, "min_search", "threshold", float("inf"))
+        want = _drive(RE, topology, "min_search", "threshold", float("inf"))
+        assert got["perfetto"] == want["perfetto"], topology
+        assert validate_perfetto(got["perfetto"]) == []
 
 
 def test_serve_matches_reference_and_golden():

@@ -1,7 +1,8 @@
 """The port's event loop (repro_torch.core.sim) against the reference
 (repro.core.sim) on the CPU: leaf-for-leaf equality of final states
 over the ported policy pairs, cluster counts and workloads, and the
-configurations this slice does not port.
+traced runs of configurations that refused a trace before it was
+ported.
 
 Every state leaf must be bitwise equal except ``mgmt_latency``, held at
 rtol=1e-5: it accumulates f32 vector sums that each package reduces in
@@ -80,26 +81,46 @@ def test_queue_overflow_drops_match_reference():
     (dict(beacon="heartbeat", faults="gmn_outage"), "9"),
 ])
 def test_unported_configurations_raise(change, item):
-    """A trace (ROADMAP item 9) is refused on every configuration, the
-    fault-aware programs included."""
+    """The configurations that refused a trace before ROADMAP item
+    ``item`` was ported — the fault-aware programs included — run with
+    one and equal the reference; a trace that is not a TraceSpec (its
+    dict here) is refused with the reference's ValueError."""
+    from repro.core.faults import FaultSpec as RFaultSpec
+    from repro.core.trace import TraceSpec as RTraceSpec
+    from repro_torch.core.trace import TraceSpec
+    from test_torch_trace import assert_traced_states
+    assert item == "9"
     change = dict(change)
-    faults = change.pop("faults", None)
-    if faults is not None:
-        faults = getattr(FaultSpec, faults)(*(
-            (2e4, 5e4) if faults == "gmn_outage" else ()))
-    p = TS.SimParams(**dict(SMALL, k=4, **change))
+    kind = change.pop("faults", None)
+
+    def faults(F):
+        return None if kind is None else getattr(F, kind)(*(
+            (2e4, 5e4) if kind == "gmn_outage" else ()))
+    kw = dict(SMALL, k=4, **change)
+    # a horizon of 1e5: the heartbeat plane fires to the end of it
+    p = TS.SimParams(**kw)
     wl = TW.independent_tasks(p)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TS.run(p, *wl, 1e7, device="cpu", faults=faults,
+    want = jax.device_get(ref_run(RefParams(**kw), *wl, 1e5,
+                                  faults=faults(RFaultSpec),
+                                  trace=RTraceSpec(ring_cap=256)))
+    got = TS.run(p, *wl, 1e5, device="cpu", faults=faults(FaultSpec),
+                 trace=TraceSpec(ring_cap=256))
+    assert_traced_states(got, want)
+    with pytest.raises(ValueError):
+        ref_run(RefParams(**kw), *wl, 1e5, faults=faults(RFaultSpec),
+                trace={"ring_cap": 256})
+    with pytest.raises(ValueError, match="TraceSpec"):
+        TS.run(p, *wl, 1e5, device="cpu", faults=faults(FaultSpec),
                trace={"ring_cap": 256})
 
 
 @pytest.mark.parametrize("kwarg,exc,match", [
     ("faults", TypeError, "FaultSpec"),
-    ("trace", NotImplementedError, "ROADMAP item 9")])
+    ("trace", ValueError, "TraceSpec")], ids=["faults", "trace"])
 def test_faults_and_trace_raise(kwarg, exc, match):
-    """``faults`` takes a FaultSpec or FaultSchedule, nothing else; a
-    trace is not ported."""
+    """``faults`` takes a FaultSpec or FaultSchedule, nothing else;
+    ``trace`` a TraceSpec (the reference's sweep raises the same
+    ValueError)."""
     p = TS.SimParams(**dict(SMALL, k=4))
     with pytest.raises(exc, match=match):
         TS.run(p, *TW.independent_tasks(p), 1e7, device="cpu",

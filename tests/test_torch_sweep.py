@@ -227,8 +227,36 @@ def test_knob_builders_match_reference_and_validate():
           trace=object()), "9"),
 ])
 def test_unported_configurations_raise(kwargs, item):
+    """The sweeps that refused a trace before ROADMAP item ``item`` was
+    ported: a trace that is not a TraceSpec (an object, a dict) is
+    refused with the reference's ValueError, and the same configuration
+    with a TraceSpec runs in vmap mode equal to the reference's sweep."""
+    from repro.core.faults import FaultSpec as RFaultSpec
+    from repro.core.policies import SimPolicy as RSimPolicy
+    from repro.core.trace import TraceSpec as RTraceSpec
+    from repro_torch.core.trace import TraceSpec
+    from test_torch_trace import assert_traced_states
+    assert item == "9"
     p = SimParams(**SMALL, k=4)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TSW.sweep(p.shape, TSW.knob_batch(dn_th=(2, 4)),
-                  TW.independent_batch(p), 1e7, mode="vmap", device="cpu",
-                  **kwargs)
+    wl = TW.independent_batch(p)
+    with pytest.raises(ValueError, match="TraceSpec"):
+        TSW.sweep(p.shape, TSW.knob_batch(dn_th=(2, 4)), wl, 1e7,
+                  mode="vmap", device="cpu", **kwargs)
+    ref_kw = dict(kwargs)
+    pol = ref_kw.get("policy")
+    if pol is not None:
+        ref_kw["policy"] = RSimPolicy(pol.mapping, pol.beacon)
+    flt = ref_kw.get("faults")
+    if flt is not None:
+        ref_kw["faults"] = RFaultSpec.from_dict(flt.to_dict())
+    shape = RefParams(**SMALL, k=4).shape
+    with pytest.raises(ValueError, match="TraceSpec"):
+        RSW.sweep(shape, RSW.knob_batch(dn_th=(2, 4)), wl, 1e7, **ref_kw)
+    # the configuration with a trace, at a horizon of 1e5 (the heartbeat
+    # plane fires to its end)
+    want = RSW.sweep(shape, RSW.knob_batch(dn_th=(2, 4)), wl, 1e5,
+                     **dict(ref_kw, trace=RTraceSpec(ring_cap=64)))
+    got = TSW.sweep(p.shape, TSW.knob_batch(dn_th=(2, 4)), wl, 1e5,
+                    mode="vmap", device="cpu",
+                    **dict(kwargs, trace=TraceSpec(ring_cap=64)))
+    assert_traced_states(got, jax.device_get(want))
