@@ -62,7 +62,7 @@ any failure ends the run with a non-zero exit:
             1-3) cut to sim_len 2.5e5 through ``ExperimentSpec.run()``
             against the JAX reference's frozen digests, with its ordering
             claim and k16/k1 ratio (reported, not gated); fig3a's k=16
-            group (12 lanes, sim_len 2.5e5) timed in ``"vmap"`` mode and
+            group (12 lanes, sim_len 1e5) timed in ``"vmap"`` mode and
             two of its lanes in ``"seq"`` mode (equal leaves), and at
             sim_len 1e5 its device kernels and syncs per step; the
             ``scheduler_overhead`` runner, whose K1 assignments must
@@ -158,6 +158,24 @@ any failure ends the run with a non-zero exit:
             (tokens/s) and profiled (device time by kernel);
 18. lm_serve   ``launch.serve.serve`` on the same config in bf16: its
             dict must equal ``goldens.SERVE``; decode ms per step;
+19. k2_bwd     K2's forward with ``lse`` and the attention backward
+            (``csrc/flash_attention_bwd.cu``) against their plain
+            versions in f32 and bf16, at olmo_1b's training shape (B=4,
+            S=2048, Hq=Hkv=16, D=128, causal) and on GQA, windowed,
+            Sq < Skv and ragged cases; two backward launches must give
+            the same bits; the backward's kernel, plain, bound and
+            ``scaled_dot_product_attention`` backward times at the
+            training shape; K2 at the prefill shape with ``lse`` off and
+            on, in turns;
+20. lm_train_small  the reduced olmo of tests/test_train_loop.py in f32:
+            three ``make_train_step`` steps (plain, microbatches=2,
+            int8) on the card against the same steps on the CPU; a CUDA
+            ``selective_scan`` input that requires grad must raise;
+21. lm_train   olmo_1b at full width in bf16 through
+            ``launch.train.train``: 8 steps at batch 4 x 2048 from a
+            seeded init; 32 K2 and 16 backward launches a step, finite
+            losses, the last below the first; ms per step, tokens/s,
+            peak memory, device time by kernel group of one more step;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
@@ -165,9 +183,10 @@ launch counts, zeroed just before it and read just after: the TLM path
 (phases 7-8: K1), the sweep (phase 11: K1, from
 ``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13),
 the faults (phase 14) and the trace (phase 15), which launch none of the
-three kernels, the prefill (phase 17: K2, K3) and ``serve()`` (phase 18,
-whose decode steps are plain torch).  The comparison launches of phases
-3-5 and 16 do not count.  Float32
+three kernels, the prefill (phase 17: K2, K3), ``serve()`` (phase 18,
+whose decode steps are plain torch) and training (phase 21: K2 and its
+backward).  The comparison launches of phases
+3-5, 16, 19 and 20 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
@@ -196,7 +215,8 @@ TIME_LIMIT_S = 900.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
-KERNEL_SOURCES = ("hier_minsearch", "flash_attention", "selective_scan")
+KERNEL_SOURCES = ("hier_minsearch", "flash_attention",
+                  "flash_attention_bwd", "selective_scan")
 K1_KS = (1, 8, 16, 32, 256)
 K1_M, K1_T, K1_MAIN_K = 256, 100, 16
 # ragged shapes, and one above the warp kernel's capacity (block only)
@@ -671,7 +691,7 @@ def phase_syncs(events: int, lines):
 # fig3a's k=16 group at the paper's widths: 6 thresholds x 2 seeds
 SWEEP_K, SWEEP_SEEDS = 16, (1, 2)
 SWEEP_THRESHOLDS = (1, 2, 4, 8, 16, 32)
-SWEEP_SIM_LEN = 2.5e5   # cut for the script's time limit
+SWEEP_SIM_LEN = 1e5     # cut for the script's time limit
 SWEEP_COUNT_SIM_LEN = 1e5     # the horizon kernels and syncs are counted at
 
 
@@ -1913,7 +1933,8 @@ def phase_lm_small():
 
 def _device_time(prof) -> dict:
     """Device time (ms) of a profiled region: in all, by kernel group
-    (K2, K3, cuBLAS matmuls, the rest) and its eight longest kernels."""
+    (K2, its backward, K3, cuBLAS matmuls, the rest) and its eight
+    longest kernels."""
     import torch
     by_name, busy = {}, 0
     for e in prof.profiler.kineto_results.events():
@@ -1922,11 +1943,13 @@ def _device_time(prof) -> dict:
         busy += e.duration_ns()
         name = e.name()[:70]
         by_name[name] = by_name.get(name, 0) + e.duration_ns()
-    groups = {"flash_attention (K2)": 0, "selective_scan (K3)": 0,
-              "gemm": 0, "other": 0}
+    groups = {"flash_attention (K2)": 0, "flash_attention_bwd": 0,
+              "selective_scan (K3)": 0, "gemm": 0, "other": 0}
     for name, ns in by_name.items():
         low = name.lower()
         key = ("flash_attention (K2)" if "fa_fwd_" in name
+               else "flash_attention_bwd" if any(
+                   w in name for w in ("bwd_delta", "bwd_dkdv", "bwd_dq"))
                else "selective_scan (K3)" if "ssm_scan_fwd" in name
                else "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
                                                      "cutlass", "cublas"))
@@ -2071,6 +2094,329 @@ def phase_lm_serve():
     return launches
 
 
+# --------------------------------------------------------------------------
+# The training path: K2's backward, the train step, olmo_1b at full width
+# --------------------------------------------------------------------------
+
+K2_BWD_TRAIN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmo_1b's training
+K2_BWD_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, window): GQA, windows, Sq < Skv,
+    # lengths that are not multiples of the 64-row tiles, every head dim
+    (2, 256, 256, 8, 2, 64, True, 0),
+    (1, 333, 333, 2, 1, 128, True, 96),
+    (2, 200, 328, 4, 2, 128, True, 0),
+    (1, 130, 257, 2, 1, 16, True, 0),
+    (1, 100, 200, 2, 2, 32, False, 0),
+    (1, 256, 256, 4, 2, 64, False, 48),
+    (4, 32, 32, 4, 4, 16, True, 0),       # the reduced olmo of the tests
+]
+# kernel vs plain on the same (q, k, v, out, lse, dout), element by
+# element: |a - b| <= rtol |b| + atol max|b|, (rtol, atol) below.  f32 sums
+# in two orders; bf16 adds one rounding of each output, which may fall on
+# either side (one ulp, at most 2**-7 |b|, within rtol), and of ds, which
+# moves a gradient by far less than atol.  A key tile left out of one late
+# row's dq (an entry of a few hundredths off by about its own size) is
+# held to about 1e-3, not to 1e-2 of the largest entry.
+K2_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
+K2_LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}  # lse of order 10, f32
+# the reduced olmo of tests/test_train_loop.py, card against CPU in f32:
+# losses to 1e-5 relative, parameters after three steps to
+# LM_TRAIN_SMALL_TOL (gradients agree to ~1e-6; Adam's first steps move
+# each weight by about the learning rate, 1e-3, whatever the gradient's
+# size, so the int8 run, where a gradient on a quantization step's edge
+# may round either way, is held to two such moves)
+LM_TRAIN_SMALL_TOL = {"none": 1e-4, "microbatches=2": 1e-4, "int8": 2e-3}
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2048, 8
+
+
+def _lm_train_run():
+    """RunConfig's defaults (AdamW at 3e-4, cosine, bf16, remat "full")
+    but for the schedule: the run is the first 8 steps of a 16-step
+    schedule with a 4-step warmup.  Under the default 100-step warmup
+    the 8th step's rate is 2.4e-5 and the loss moves less than its
+    batch-to-batch spread; a 2-step warmup to the full rate makes the
+    loss jump at step 4 (PERF.md §4)."""
+    from repro_torch.configs import RunConfig
+    return RunConfig(warmup_steps=4, total_steps=2 * LM_TRAIN_STEPS)
+
+
+def k2_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, elem_bytes):
+    """Least time for the backward's work: the larger of its bytes (q,
+    k, v, out, dout, lse in; dq, dk, dv out) over the memory rate and its
+    five products over the unmasked (q, k) pairs (s, dp, dv, dq, dk; 2 D
+    flops each) over the bf16 tensor-core peak."""
+    qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= qpos >= kpos
+    if window:
+        ok &= (qpos - kpos) < window
+    flops = 10.0 * B * Hq * D * float(ok.sum())
+    nbytes = (4 * B * Sq * Hq * D + 4 * B * Skv * Hkv * D) * elem_bytes \
+        + 4 * B * Hq * Sq
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_k2_bwd():
+    """K2's forward with ``lse`` and the backward kernels against their
+    plain versions, two backward launches bit for bit, times at olmo_1b's
+    training shape, and K2 at the prefill shape with ``lse`` off and on."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst, out_worst = [], 0.0, 0.0
+    for case in [K2_BWD_TRAIN] + K2_BWD_CASES:
+        causal, win = case[6], case[7]
+        mask = {"causal": causal, "sliding_window": win}
+        for name, dtype in _dtypes().items():
+            q, k, v = _k2_inputs(case, dtype, gen)
+            dout = torch.randn(q.shape, generator=gen,
+                               device="cuda").to(dtype)
+            out, lse = FA.flash_attention(q, k, v, return_lse=True, **mask)
+            out_p, lse_p = FA.flash_attention_plain(q, k, v, return_lse=True,
+                                                    **mask)
+            got = FA.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+            again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+            want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                **mask)
+            torch.cuda.synchronize()
+            # K2's forward at this shape: out and lse against plain
+            out_err = float((out.float() - out_p.float()).abs().max())
+            if not out_err < K2_TOL[name]:
+                raise AssertionError(f"k2_bwd {case} {name}: out vs plain "
+                                     f"max abs err {out_err} >= "
+                                     f"{K2_TOL[name]}")
+            lse_err = float((lse - lse_p).abs().max())
+            if not lse_err < K2_LSE_TOL[name]:
+                raise AssertionError(f"k2_bwd {case} {name}: lse vs plain "
+                                     f"max abs err {lse_err}")
+            rtol, atol = K2_BWD_TOL[name]
+            errs = {}
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                a, b = a.float(), b.float()
+                diff, limit = (a - b).abs(), rtol * b.abs() \
+                    + atol * float(b.abs().max())
+                errs[gname] = float(diff.max())
+                errs[gname + "_of_limit"] = float((diff / limit).nan_to_num(
+                    0.0, posinf=float("inf")).max())
+                if not bool((diff <= limit).all()):
+                    raise AssertionError(
+                        f"k2_bwd {case} {name} {gname}: kernel vs plain "
+                        f"exceeds {rtol} |plain| + {atol} max|plain| "
+                        f"{errs[gname + '_of_limit']} times (max abs err "
+                        f"{errs[gname]})")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"k2_bwd {case} {name}: two launches "
+                                     f"differ")
+            worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+            out_worst = max(out_worst, out_err)
+            rows.append({"case": list(case), "dtype": name, **errs,
+                         "out_err": out_err, "lse_err": lse_err,
+                         "same_bits": True})
+            del q, k, v, dout, out, lse, out_p, lse_p, got, again, want
+    torch.cuda.empty_cache()
+    # times at the training shape, bf16: kernel, plain, and
+    # scaled_dot_product_attention's backward on (B, H, S, D) copies
+    case = K2_BWD_TRAIN
+    q, k, v = _k2_inputs(case, torch.bfloat16, gen)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    out, lse = FA.flash_attention(q, k, v, return_lse=True)
+
+    def bwd():
+        return FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    ms = cuda_ms(bwd, rounds=5)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, out, lse, dout), rounds=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    library_ms = cuda_ms(sdpa_bwd, rounds=5)
+    sdpa_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                   for a, b in zip(sdpa_bwd(), bwd()))
+    f32 = [t.float() for t in (q, k, v, out, dout)]
+    ms_f32 = cuda_ms(lambda: FA.flash_attention_bwd(*f32[:4], lse, f32[4]),
+                     rounds=3)
+    bound, by = k2_bwd_bound_ms(*case, elem_bytes=2)
+    del q, k, v, dout, out, lse, qt, kt, vt, ot, dot, f32
+    torch.cuda.empty_cache()
+    # K2's forward at the prefill shape, lse off and on in turns
+    q, k, v = _k2_inputs(K2_MODEL, torch.bfloat16, gen)
+    fwd = {"off": lambda: FA.flash_attention(q, k, v),
+           "on": lambda: FA.flash_attention(q, k, v, return_lse=True)}
+    turns = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        turns[which].append(cuda_ms(fwd[which], rounds=5))
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit({"phase": "k2_bwd", "cases": rows, "all_match": True,
+          "train_shape": list(case), "dtype": "bfloat16", "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+          "sdpa_bwd_ms": library_ms, "sdpa_vs_kernel_max_abs": sdpa_err,
+          "kernel_over_sdpa": ms / library_ms, "ms_f32": ms_f32,
+          "k2_prefill_shape": list(K2_MODEL), "k2_lse_off_ms": turns["off"],
+          "k2_lse_on_ms": turns["on"]})
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "k2_out_max_abs_err": out_worst}
+
+
+def _olmo(reduced: bool):
+    from repro_torch.configs import get_config, reduced_config
+    cfg = get_config("olmo_1b")
+    return reduced_config(cfg) if reduced else cfg
+
+
+def phase_lm_train_small():
+    """The reduced olmo in f32: three train steps (plain, microbatches=2,
+    int8) on the card against the same steps on the CPU, from the same
+    weights and batches; and the scan refusing a CUDA input under grad."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import optimizer as OPT
+    from repro_torch.parallel import compression as COMP
+    from repro_torch.pytree import leaves
+    cfg = _olmo(reduced=True)
+    base = RunConfig(param_dtype="float32", learning_rate=1e-3,
+                     total_steps=30, warmup_steps=2, schedule="constant")
+    runs = {"none": base,
+            "microbatches=2": dataclasses.replace(base, microbatches=2),
+            "int8": dataclasses.replace(base, grad_compression="int8")}
+    batches = [synth_batch(cfg, 4, 32, DataConfig(), s) for s in range(3)]
+    init = MDL.init_model(cfg, torch.float32, seed=0, device="cpu")
+    out = {}
+    for label, run in runs.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = convert.params_to(init, dev)
+            opt = OPT.init_opt_state(params, run)
+            err = COMP.init_error_state(params)
+            step = make_train_step(cfg, run, device=dev)
+            losses = []
+            for b in batches:
+                if run.grad_compression == "int8":
+                    params, opt, err, m = step(params, opt, err, b)
+                else:
+                    params, opt, m = step(params, opt, b)
+                losses.append(float(m["loss"]))
+            res[dev] = (losses, [p.cpu() for p in leaves(params)])
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(res["cuda"][0], res["cpu"][0]))
+        param_err = max(float((a - b).abs().max())
+                        for a, b in zip(res["cuda"][1], res["cpu"][1]))
+        if not (loss_err < 1e-5 and param_err <= LM_TRAIN_SMALL_TOL[label]):
+            raise AssertionError(f"lm_train_small {label}: card vs CPU loss "
+                                 f"rel err {loss_err}, params max abs err "
+                                 f"{param_err}")
+        out[label] = {"losses_cuda": res["cuda"][0],
+                      "losses_cpu": res["cpu"][0], "loss_rel_err": loss_err,
+                      "param_max_abs_err": param_err,
+                      "tol": LM_TRAIN_SMALL_TOL[label]}
+    # K3 has no backward: a CUDA scan input that requires grad raises
+    x = torch.zeros((1, 4, 8), device="cuda", requires_grad=True)
+    bc = torch.zeros((1, 4, 2), device="cuda")
+    try:
+        ops.selective_scan(x, x, torch.zeros((8, 2), device="cuda"), bc, bc,
+                           torch.ones(8, device="cuda"))
+        raise AssertionError("lm_train_small: selective_scan took a CUDA "
+                             "input that requires grad")
+    except NotImplementedError:
+        pass
+    emit({"phase": "lm_train_small", "match": True, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": 4, "seq": 32, "steps": 3,
+          "runs": out, "scan_refuses_grad": True})
+
+
+def phase_lm_train():
+    """olmo_1b at full width in bf16 through ``launch.train.train``
+    (``_lm_train_run``), batch 4 x 2048 from a seeded init: K2 and
+    backward launches per step (its own main path), finite losses, the
+    last below the first; tokens/s, ms per step, peak memory, and one
+    more step profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    cfg = _olmo(reduced=False)
+    run = _lm_train_run()
+    stamps = []
+
+    def log(line):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = FA.bwd_launches = SS.launches = HM.launches = 0
+    t0 = time.perf_counter()                   # the training path starts
+    params, opt, losses = train(cfg, run, steps=LM_TRAIN_STEPS,
+                                batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                                log_every=1, verbose=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.launches,
+                "flash_attention_bwd": FA.bwd_launches,
+                "selective_scan": SS.launches,
+                "hier_minsearch": HM.launches}  # ... and ends here
+    want = {"flash_attention": 2 * cfg.n_layers * LM_TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * LM_TRAIN_STEPS,
+            "selective_scan": 0, "hier_minsearch": 0}
+    if launches != want:
+        raise AssertionError(f"lm_train launches {launches}, want {want} "
+                             f"(under full remat each attention layer "
+                             f"runs K2 twice a step, its backward once)")
+    values = [loss for _, loss in losses]
+    if len(values) != LM_TRAIN_STEPS or not all(np.isfinite(values)) \
+            or not values[-1] < values[0]:
+        raise AssertionError(f"lm_train losses {values}: want "
+                             f"{LM_TRAIN_STEPS} finite, the last below the "
+                             f"first")
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_ms = 1e3 * statistics.median(step_s)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more step under the profiler: device time by kernel group
+    step = make_train_step(cfg, run)
+    batch = synth_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DataConfig(),
+                        LM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    emit({"phase": "lm_train", "config": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "dtype": run.param_dtype, "remat": run.remat,
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "steps": LM_TRAIN_STEPS, "launches": launches,
+          "launches_per_step": {k: v / LM_TRAIN_STEPS
+                                for k, v in launches.items()},
+          "losses": values, "finite": True, "decreased": True,
+          "wall_s": wall, "step_ms": [1e3 * s for s in step_s],
+          "ms_per_step_after_first": step_ms,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "peak_mem_gib": peak, "profiled_step": _device_time(prof)})
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2139,18 +2485,29 @@ def main() -> int:
     timed(phase_lm_small)
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
+    k2_bwd = timed(phase_k2_bwd)
+    timed(phase_lm_train_small)
+    trained = timed(phase_lm_train)
+    # K2's row also covers its forward at the training shape (phase k2_bwd)
+    k2["max_abs_err"] = max(k2["max_abs_err"],
+                            k2_bwd.pop("k2_out_max_abs_err"))
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
-    rows = [(HM, tlm_launches + sweep_launches, k1),
-            (FA, prefill["flash_attention"], k2),
-            (SS, prefill["selective_scan"], k3)]
+    # K2 runs on two main paths: the prefill and training
+    rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
+             tlm_launches + sweep_launches, k1),
+            (FA.NAME, FA.SOURCE, FA.REPLACES,
+             prefill["flash_attention"] + trained["flash_attention"], k2),
+            (SS.NAME, SS.SOURCE, SS.REPLACES, prefill["selective_scan"], k3),
+            (FA.BWD_NAME, FA.BWD_SOURCE, FA.BWD_REPLACES,
+             trained["flash_attention_bwd"], k2_bwd)]
     emit({"kernels": [{
-        "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
-        "replaces": mod.REPLACES, "launches": n,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n,
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m.get("library_ms")}
-        for mod, n, m in rows]})
+        for name, source, replaces, n, m in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (  # noqa: F401
     PORTED_ARCHS,
     SHAPES,
     ModelConfig,
+    RunConfig,
     MoEConfig,
     SSMConfig,
     ShapeConfig,

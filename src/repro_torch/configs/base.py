@@ -167,6 +167,30 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Training hyperparameters (the reference's ``RunConfig``, field for
+    field).  ``layout`` (the sharded cell's layout) is carried but has no
+    effect on one card: sharding is ROADMAP item 12."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"       # cosine | wsd | constant
+    warmup_steps: int = 100
+    decay_start_frac: float = 0.8  # WSD: where decay phase begins
+    total_steps: int = 1000
+    param_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    remat: str = "full"            # none | full | dots
+    microbatches: int = 1          # gradient accumulation
+    grad_compression: str = "none"  # none | int8
+    layout: str = "tp_fsdp"        # tp_fsdp | zero3 (ROADMAP item 12)
+    seed: int = 0
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 # every architecture of the reference, and the ones ported so far
@@ -182,7 +206,7 @@ ARCH_IDS = (
     "glm4_9b",
     "internvl2_2b",
 )
-PORTED_ARCHS = ("jamba_v01_52b",)
+PORTED_ARCHS = ("jamba_v01_52b", "olmo_1b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -13,7 +13,10 @@ dicts, or objects read by attribute.
   the port's ``MapperState``.
 - :func:`model_params_from_reference`: a reference LM parameter tree
   (``repro.models.model.init_model``, leaves as numpy arrays) -> the
-  port's parameter dict, the stacked super-blocks sliced into a list.
+  port's parameter dict, the stacked super-blocks sliced into a list
+  (also a gradient or moment tree of the same shape).
+- :func:`opt_state_from_reference`: a reference ``OptState`` (step,
+  mu, nu) -> the port's ``OptState``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import torch
 from repro_torch.core.mapping import MapperState
 from repro_torch.core.sim import SimParams
 from repro_torch.device import resolve_device
+from repro_torch.optim.optimizer import OptState
+from repro_torch.pytree import leaves, tree_map
 
 # the dtypes the reference's state leaves use; anything else would be a
 # silent change of width on the way through
@@ -78,14 +83,6 @@ def _leaf_tensor(leaf, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
 
-def _tree(node, fn):
-    if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return [_tree(v, fn) for v in node]
-    return fn(node)
-
-
 def model_params_from_reference(tree, device=None) -> dict:
     """The port's LM parameters from a reference ``init_model`` tree
     whose leaves are numpy arrays (or anything ``np.asarray`` takes), in
@@ -93,18 +90,28 @@ def model_params_from_reference(tree, device=None) -> dict:
     stacks its periodic super-blocks along a leading axis of every
     ``blocks`` leaf; the port keeps one dict per super-block."""
     dev = resolve_device(device)
-    out = {k: _tree(v, lambda a: _leaf_tensor(a, dev))
+    out = {k: tree_map(lambda a: _leaf_tensor(a, dev), v)
            for k, v in tree.items() if k != "blocks"}
     blocks = tree.get("blocks") or {}
-    leaves = []
-    _tree(blocks, leaves.append)
-    n_super = int(np.asarray(leaves[0]).shape[0]) if leaves else 0
-    out["blocks"] = [_tree(blocks, lambda a, i=i: _leaf_tensor(
-        np.asarray(a)[i], dev)) for i in range(n_super)]
+    stacked = leaves(blocks)
+    n_super = int(np.asarray(stacked[0]).shape[0]) if stacked else 0
+    out["blocks"] = [tree_map(lambda a, i=i: _leaf_tensor(
+        np.asarray(a)[i], dev), blocks) for i in range(n_super)]
     return out
+
+
+def opt_state_from_reference(opt, device=None) -> OptState:
+    """The port's ``OptState`` from a reference ``OptState`` (any object
+    with ``step``, ``mu`` and ``nu``; the moments as parameter trees)."""
+    dev = resolve_device(device)
+    return OptState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=dev),
+        mu=model_params_from_reference(opt.mu, dev),
+        nu=model_params_from_reference(opt.nu, dev))
 
 
 def params_to(tree, device):
     """A parameter or cache dict with every tensor moved to ``device``."""
     dev = resolve_device(device)
-    return _tree(tree, lambda t: t.to(dev))
+    return tree_map(lambda t: t.to(dev), tree)

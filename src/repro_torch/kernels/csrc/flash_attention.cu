@@ -14,6 +14,10 @@
 // max/sum/accumulator in f32, rows whose sum stays 0 written as 0, output
 // in q's dtype.  GQA: q head h reads kv head h / (Hq/Hkv); K and V are
 // never repeated.
+// Given a non-null `lse`, each also writes every row's log-sum-exp of
+// its scaled scores, m + log(l) (`_fa_fwd_scan`'s lse,
+// src/repro/kernels/ops.py:46), which the backward
+// (flash_attention_bwd.cu) reads; with a null one nothing else changes.
 //
 // What bounds it on this card: at the model's shapes (S=4096, D=128,
 // causal) the work is ~4*S*S/2*D flops per (batch, q head), far above the
@@ -92,9 +96,9 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int Sq,
-                int Skv, int Hq, int Hkv, int causal, int window,
-                float scale) {
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                int causal, int window, float scale) {
   extern __shared__ float smem[];
   constexpr int QS = D + 1;       // padded row stride of Q and K
   float* Qs = smem;               // (BQ, QS)
@@ -186,13 +190,15 @@ fa_fwd_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t o_base = (((int64_t)b * Sq + row) * Hq + h) * D;
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) o[o_base + sub + 4 * i] = acc[i] * inv_l;
+    if (lse != nullptr && sub == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] = m + logf(l == 0.f ? 1.f : l);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                   int causal, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + BK * D);
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_simt_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -201,8 +207,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf((float)D);
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   fa_fwd_simt_f32<D><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      Hq, Hkv, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Skv, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -341,8 +347,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa_fwd_wgmma_bf16(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
-                  int Hkv, int causal, int window, float scale) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                  float scale) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -474,6 +481,11 @@ fa_fwd_wgmma_bf16(const __nv_bfloat16* __restrict__ q,
   for (int e = 0; e < 2; ++e) {
     const int row = q0 + r0 + 8 * e;
     if (row >= Sq) continue;
+    // the log-sum-exp of the row's scaled scores, for the backward: m
+    // is the same on the quad's four lanes, l their reduced sum
+    if (lse != nullptr && t == 0)
+      lse[((int64_t)b * Hq + h) * Sq + row] =
+          m[e] + logf(l[e] == 0.f ? 1.f : l[e]);
     __nv_bfloat16* orow = o + (((int64_t)b * Sq + row) * Hq + h) * D;
 #pragma unroll
     for (int pn = 0; pn < C::PANELS; ++pn)
@@ -490,8 +502,8 @@ fa_fwd_wgmma_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                   int causal, int window, cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -501,8 +513,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
   fa_fwd_wgmma_bf16<D><<<grid, THREADS, C::SMEM, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Skv, Hq, Hkv, causal,
-      window, scale);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, Sq, Skv, Hq, Hkv,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -510,14 +522,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 #define FA_DISPATCH_D(NS)                                                  \
   switch (D) {                                                             \
-    case 16: return (int)NS::launch<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv,   \
-                                        causal, window, s);                \
-    case 32: return (int)NS::launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv,   \
-                                        causal, window, s);                \
-    case 64: return (int)NS::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv,   \
-                                        causal, window, s);                \
-    case 128: return (int)NS::launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, \
-                                          causal, window, s);              \
+    case 16: return (int)NS::launch<16>(q, k, v, o, (float*)lse, B, Sq,    \
+                                        Skv, Hq, Hkv, causal, window, s);  \
+    case 32: return (int)NS::launch<32>(q, k, v, o, (float*)lse, B, Sq,    \
+                                        Skv, Hq, Hkv, causal, window, s);  \
+    case 64: return (int)NS::launch<64>(q, k, v, o, (float*)lse, B, Sq,    \
+                                        Skv, Hq, Hkv, causal, window, s);  \
+    case 128: return (int)NS::launch<128>(q, k, v, o, (float*)lse, B, Sq,  \
+                                          Skv, Hq, Hkv, causal, window,    \
+                                          s);                              \
     default: return (int)cudaErrorInvalidValue;                            \
   }
 
@@ -528,19 +541,21 @@ extern "C" {
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o (B, Sq, Hq, D), contiguous,
 // all float32 (fa_fwd_simt_f32) or all bfloat16 with 16-byte-aligned
 // bases (fa_fwd_wgmma_bf16); D in {16, 32, 64, 128}; Hq % Hkv == 0;
-// Sq <= Skv.  Each returns the launch's cudaError_t.
+// Sq <= Skv.  lse: null, or float32 (B, Hq, Sq) that receives each row's
+// log-sum-exp m + log(l) of its scaled scores (the backward's input).
+// Each returns the launch's cudaError_t.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                            void* o, int B, int Sq, int Skv, int Hq,
-                            int Hkv, int D, int causal, int window,
+                            void* o, void* lse, int B, int Sq, int Skv,
+                            int Hq, int Hkv, int D, int causal, int window,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   FA_DISPATCH_D(simt)
 }
 
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                             void* o, int B, int Sq, int Skv, int Hq,
-                             int Hkv, int D, int causal, int window,
-                             void* stream) {
+                             void* o, void* lse, int B, int Sq, int Skv,
+                             int Hq, int Hkv, int D, int causal,
+                             int window, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   FA_DISPATCH_D(tc)
 }

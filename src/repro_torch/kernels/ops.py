@@ -6,6 +6,13 @@ takes the kernel's plain torch version.  Arrays that are not tensors go
 to the default device (the CUDA card).  The decode paths are plain torch
 on both devices, as their reference counterparts (``ref.py``
 ``decode_attention_ref``, ``ssm_decode_ref``) are not Pallas kernels.
+
+Gradients: :func:`attention` goes through ``FA.FlashAttention`` (K2's
+forward with ``lse``, the hand-written backward) whenever grad is on
+and an input requires it.  K3 has no backward kernel yet, so
+:func:`selective_scan` refuses a CUDA input that requires grad rather
+than cut the gradient (ROADMAP item 11.2); on the CPU its plain version
+is differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ def attention(q, k, v, *, causal=True, sliding_window=0):
     """q (B,Sq,Hq,D); k, v (B,Skv,Hkv,D) -> (B,Sq,Hq,D): K2
     (``kernels/csrc/flash_attention.cu``) on CUDA."""
     q, k, v = _tensors(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FA.FlashAttention.apply(q, k, v, causal, sliding_window)
     return FA.flash_attention(q, k, v, causal=causal,
                               sliding_window=sliding_window)
 
@@ -65,8 +74,16 @@ def decode_attention(q, cache_k, cache_v, pos, *, lengths=None,
 
 
 def selective_scan(x, dt, A, Bc, Cc, D_skip):
-    """Mamba-1 scan: K3 (``kernels/csrc/selective_scan.cu``) on CUDA."""
-    return SS.selective_scan(*_tensors(x, dt, A, Bc, Cc, D_skip))
+    """Mamba-1 scan: K3 (``kernels/csrc/selective_scan.cu``) on CUDA
+    (forward only)."""
+    args = _tensors(x, dt, A, Bc, Cc, D_skip)
+    if args[0].device.type == "cuda" and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in args):
+        raise NotImplementedError(
+            "selective_scan: K3 has no backward kernel yet, and its launch "
+            "would cut the gradient; training the SSM and hybrid families "
+            "is ROADMAP item 11.2")
+    return SS.selective_scan(*args)
 
 
 def ssm_decode(h, x, dt, A, Bc, Cc, D_skip):

@@ -1,6 +1,8 @@
-"""Core transformer layers, forward only (port of
-``repro/models/layers.py``): RMS norm, RoPE, embeddings, GQA attention
-and its decode step, the MLPs.
+"""Core transformer layers (port of ``repro/models/layers.py``): the
+RMS, layer and non-parametric norms, RoPE, embeddings, GQA attention and
+its decode step, the MLPs.  Training differentiates them with autograd;
+attention's backward is the hand-written kernel behind
+:func:`repro_torch.kernels.ops.attention`.
 
 Parameters are plain dicts of tensors with the reference's names and
 layouts (``wq`` is (d, Hq*hd), ...); the functions take them as the
@@ -36,22 +38,39 @@ def dense(gen, d_in, d_out, dtype, device, scale=None):
 # --------------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, dtype=torch.float32, device="cpu"):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet "
-                                  f"(ROADMAP item 11); only 'rms' is")
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "rms":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+    if cfg.norm == "layer":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+    if cfg.norm == "nonparam":
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def apply_norm(params, x, kind: str, eps: float = 1e-5):
-    """RMS norm: statistics in f32, full-width tensors in x's dtype
-    (``_rms_fwd``)."""
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                                  f"(ROADMAP item 11); only 'rms' is")
+    """Statistics in f32, full-width tensors in x's dtype (``apply_norm``
+    and ``_rms_fwd``).  Autograd differentiates this directly; the
+    reference's dtype-keeping RMS VJP (``_rms_bwd``) is not ported yet
+    (ROADMAP item 11)."""
+    dt = x.dtype
+    d = x.shape[-1]
     xf = x.float()
-    ms = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
-    inv = torch.rsqrt(ms + eps)
-    return x * inv.to(x.dtype) * params["scale"].to(x.dtype)
+    ms = (xf * xf).sum(dim=-1, keepdim=True) / d
+    if kind == "rms":
+        inv = torch.rsqrt(ms + eps)
+        return x * inv.to(dt) * params["scale"].to(dt)
+    if kind not in ("layer", "nonparam"):
+        raise ValueError(kind)
+    mean = xf.sum(dim=-1, keepdim=True) / d
+    inv = torch.rsqrt(ms - mean * mean + eps)
+    out = (x - mean.to(dt)) * inv.to(dt)
+    if kind == "layer":
+        out = out * params["scale"].to(dt) + params["bias"].to(dt)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Decoder LM over a layer plan: init, forward (prefill) and the cached
-single-token decode (port of ``repro/models/model.py``; the encoder and
-vision paths are ROADMAP item 11).
+"""Decoder LM over a layer plan: init, forward (training and prefill,
+with activation checkpointing), the fused chunked loss ``lm_loss`` and
+the cached single-token decode (port of ``repro/models/model.py``; the
+encoder and vision paths are ROADMAP item 11).
 
 The parameters are a dict mirroring the reference's pytree, except that
 the super-blocks the reference stacks along a leading axis (to scan over
@@ -11,10 +12,12 @@ reference tree into this form.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as CK
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -147,31 +150,111 @@ def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     return x, aux
 
 
-def _layers(params, cfg: ModelConfig):
-    """(layer params, spec) in order: the prefix, then each super-block."""
-    prefix, period, _ = plan_layers(cfg)
-    for p, spec in zip(params["prefix"], prefix):
-        yield p, spec
-    for blk in params["blocks"]:
-        for j, spec in enumerate(period):
-            yield blk[f"l{j}"], spec
+def _super_block(blk, cfg: ModelConfig, period, x, positions):
+    """One super-block (the reference's scan body): -> (x, summed aux)."""
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for j, spec in enumerate(period):
+        x, a = _apply_layer(blk[f"l{j}"], cfg, spec, x, positions)
+        aux = aux + a
+    return x, aux
 
 
-def forward(params, cfg: ModelConfig, tokens, *, return_hidden=False):
+# matmuls with no batch dimension (``aten.mm`` / ``aten.addmm``): what the
+# reference's ``dots_with_no_batch_dims_saveable`` keeps under remat
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CK.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CK.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under activation checkpointing (``_remat``): ``none`` keeps
+    every activation, ``full`` recomputes the whole call in the backward,
+    ``dots`` keeps the matmul outputs and recomputes the rest.  Values
+    are the same under each."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "full":
+        return functools.partial(CK.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            CK.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                CK.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {policy!r}: none | full | dots")
+
+
+def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
+            return_hidden=False):
     """tokens (B, S) int -> (logits (B, S, padded_vocab), aux (2,) f32:
     summed MoE load-balance and drop fraction) — or the final hidden
-    states instead of logits with ``return_hidden``."""
+    states instead of logits with ``return_hidden``.  Under grad each
+    super-block runs under ``remat`` (the prefix layers never do, as in
+    the reference's scan)."""
     _require_ported(cfg)
+    prefix, period, _ = plan_layers(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
-    for p, spec in _layers(params, cfg):
+    for p, spec in zip(params["prefix"], prefix):
         x, a = _apply_layer(p, cfg, spec, x, positions)
+        aux = aux + a
+    body = _remat(_super_block, remat)
+    for blk in params["blocks"]:
+        x, a = body(blk, cfg, period, x, positions)
         aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux
     return L.unembed(params["embed"], x), aux
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def _xent_chunk(xc, yc, w, transpose: bool):
+    """Summed softmax cross-entropy of one token chunk (f32)."""
+    # the tied path contracts ``td,vd->tv`` without a transposed copy
+    lg = (xc @ w.to(xc.dtype).T if transpose
+          else xc @ w.to(xc.dtype)).float()
+    gold = lg.gather(-1, yc[:, None])[:, 0]
+    return (torch.logsumexp(lg, dim=-1) - gold).sum()
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, *, remat: str = "full",
+            moe_loss_weight: float = 0.01, xent_chunk: int = 8192):
+    """Fused chunked softmax cross-entropy (``lm_loss``): the (T, vocab)
+    logits are never made whole — unembedding and log-sum-exp run per
+    token chunk of ``xent_chunk`` (all T when T is not a multiple), each
+    under checkpoint.  -> (loss, {"nll", "load_balance",
+    "dropped_frac"}); loss = nll + moe_loss_weight * load_balance."""
+    hidden, aux = forward(params, cfg, tokens, remat=remat,
+                          return_hidden=True)
+    S_text = labels.shape[1]
+    hidden = hidden[:, -S_text:]
+    B, S, d = hidden.shape
+    T = B * S
+    w = params["embed"].get("out")
+    transpose = w is None
+    if transpose:
+        w = params["embed"]["tok"]                  # (V, d), tied
+    x = hidden.reshape(T, d)
+    y = torch.as_tensor(labels, device=x.device).reshape(T).long()
+    chunk = min(xent_chunk, T)
+    if T % chunk:
+        chunk = T
+    body = (functools.partial(CK.checkpoint, _xent_chunk, use_reentrant=False)
+            if torch.is_grad_enabled() else _xent_chunk)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, chunk):
+        nll_sum = nll_sum + body(x[i:i + chunk], y[i:i + chunk], w,
+                                 transpose)
+    nll = nll_sum / T
+    loss = nll + moe_loss_weight * aux[0]
+    return loss, {"nll": nll, "load_balance": aux[0], "dropped_frac": aux[1]}
 
 
 # --------------------------------------------------------------------------

@@ -72,7 +72,7 @@ def test_config_and_plan_match_reference(cfgs):
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP item 11"):
-        get_config("olmo_1b")
+        get_config("qwen2_72b")
 
 
 def test_converted_tree_keeps_every_leaf(models):

@@ -21,10 +21,11 @@ from repro_torch import convert
 from repro_torch.core import mapping as TM
 from repro_torch.core import sim as TS
 from repro_torch.device import resolve_device
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import RunConfig, get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as TSERVE
 from repro_torch.launch import steps as TSTEPS
+from repro_torch.launch import train as TTRAIN
 from repro_torch.models import model as TMDL
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,6 +162,12 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ops.selective_scan(x, x, np.zeros((8, 2), np.float32), bc, bc,
                            np.ones(8, np.float32))
+    olmo = reduced_config(get_config("olmo_1b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSTEPS.make_train_step(olmo, RunConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TTRAIN.train(olmo, RunConfig(), steps=1, batch=1, seq=4,
+                     verbose=lambda *_: None)
     params = TMDL.init_model(cfg, torch.float32, device="cpu")
     tree = {"embed": {k: v.numpy() for k, v in params["embed"].items()}}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
