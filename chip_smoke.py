@@ -172,15 +172,33 @@ any failure ends the run with a non-zero exit:
             kernel's device time in both dtypes (``torch.profiler``); a
             bf16 ``dout`` that is not 16-byte aligned must raise; K2 at
             the prefill shape with ``lse`` off and on, in turns;
-20. lm_train_small  the reduced olmo of tests/test_train_loop.py in f32:
+20. k3_bwd     the scan's backward (``csrc/selective_scan_bwd.cu``)
+            against its plain version in f32 and bf16 (f32 A), on the
+            JAX tests' scan cases, S and Di that are not multiples of
+            its 16-step runs or channel blocks, N in {1, 4, 16, 64}, B =
+            1 and falcon_mamba_7b's training shape (B=4, S=2048,
+            Di=8192, N=16): each gradient within 1e-4 (f32) or 2e-2
+            (bf16) of its largest magnitude, two launches bit-equal;
+            kernel, plain and bound times and each of its two kernels'
+            device time at the training shape;
+21. lm_train_small  the reduced olmo of tests/test_train_loop.py in f32:
             three ``make_train_step`` steps (plain, microbatches=2,
-            int8) on the card against the same steps on the CPU; a CUDA
-            ``selective_scan`` input that requires grad must raise;
-21. lm_train   olmo_1b at full width in bf16 through
+            int8) on the card against the same steps on the CPU; then
+            the reduced falcon_mamba_7b, deepseek_moe_16b, mixtral_8x22b
+            (window 16 over 32 tokens) and Jamba the same way (plain),
+            the scan's backward launched for falcon and Jamba;
+22. lm_train   olmo_1b at full width in bf16 through
             ``launch.train.train``: 8 steps at batch 4 x 2048 from a
             seeded init; 32 K2 and 16 backward launches a step, finite
             losses, the last below the first; ms per step, tokens/s,
             peak memory, device time by kernel group of one more step;
+23. lm_train_ssm  falcon_mamba_7b at full width cut to 16 of 64 layers
+            (2.22 B parameters), the same run: 32 K3 and 16 scan
+            backward launches a step, no K2;
+24. lm_train_moe  deepseek_moe_16b at full width cut to 6 of 28 layers
+            (3.44 B parameters), the same run: 11 K2 and 6 backward
+            launches a step (layer 0 is outside remat); the router's
+            load balance and dropped fraction of the profiled step;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
@@ -189,9 +207,9 @@ launch counts, zeroed just before it and read just after: the TLM path
 ``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13),
 the faults (phase 14) and the trace (phase 15), which launch none of the
 three kernels, the prefill (phase 17: K2, K3), ``serve()`` (phase 18,
-whose decode steps are plain torch) and training (phase 21: K2 and its
-backward).  The comparison launches of phases
-3-5, 16, 19 and 20 do not count.  Float32
+whose decode steps are plain torch) and the three training runs (phases
+22-24: K2 and its backward, K3 and its backward).  The comparison
+launches of phases 3-5, 16, 19, 20 and 21 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
 comparisons hold the kernels, not TF32 rounding.
@@ -221,7 +239,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCES = ("hier_minsearch", "flash_attention",
-                  "flash_attention_bwd", "selective_scan")
+                  "flash_attention_bwd", "selective_scan",
+                  "selective_scan_bwd")
 K1_KS = (1, 8, 16, 32, 256)
 K1_M, K1_T, K1_MAIN_K = 256, 100, 16
 # ragged shapes, and one above the warp kernel's capacity (block only)
@@ -360,7 +379,10 @@ def phase_build():
                              f"{k1_warp}")
     emit({"phase": "build", "libraries": {n: b[0] for n, b in built.items()},
           "seconds": {n: b[1] for n, b in built.items()}, "wall_s": wall,
-          "ptxas": kernels, "k2_hgmma_instructions": hgmma,
+          "ptxas": kernels, "k3_bwd": {
+              fn: v for fn, v in kernels.items()
+              if fn.startswith("ssm_scan_bwd")},
+          "k2_hgmma_instructions": hgmma,
           "k2_bwd_bf16": bwd_tc, "k1_warp": k1_warp,
           "spill_free": all(k.get("spill_bytes", 0) == 0
                             for k in kernels.values())})
@@ -1952,7 +1974,8 @@ def phase_lm_small():
 
 def _device_time(prof) -> dict:
     """Device time (ms) of a profiled region: in all, by kernel group
-    (K2, its backward, K3, cuBLAS matmuls, the rest) and its eight
+    (K2, its backward, K3, its backward, cuBLAS matmuls, the rest) and
+    its eight
     longest kernels."""
     import torch
     by_name, busy = {}, 0
@@ -1963,13 +1986,15 @@ def _device_time(prof) -> dict:
         name = e.name()[:70]
         by_name[name] = by_name.get(name, 0) + e.duration_ns()
     groups = {"flash_attention (K2)": 0, "flash_attention_bwd": 0,
-              "selective_scan (K3)": 0, "gemm": 0, "other": 0}
+              "selective_scan (K3)": 0, "selective_scan_bwd": 0, "gemm": 0,
+              "other": 0}
     for name, ns in by_name.items():
         low = name.lower()
         key = ("flash_attention (K2)" if "fa_fwd_" in name
                else "flash_attention_bwd" if any(
                    w in name for w in ("bwd_delta", "bwd_dkdv", "bwd_dq"))
                else "selective_scan (K3)" if "ssm_scan_fwd" in name
+               else "selective_scan_bwd" if "ssm_scan_bwd" in name
                else "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
                                                      "cutlass", "cublas"))
                else "other")
@@ -2179,13 +2204,14 @@ def k2_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, elem_bytes):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def _bwd_device_ms(fn, reps: int) -> dict:
-    """Median device time (ms) per launch of each of the backward's three
-    kernels over ``reps`` calls of ``fn`` (one backward each), from
-    ``torch.profiler``'s kernel records, and the attempts it took.  The
-    launches sit inside idle margins of the profiled window (a run late
-    in a long process has recorded none of a few-ms window); after three
-    windows without every record the times are None."""
+def _bwd_device_ms(fn, reps: int, names=BWD_KERNEL_NAMES) -> dict:
+    """Median device time (ms) per launch of each kernel of a backward
+    (``names``, matched in the kernels' names; default the attention
+    backward's three) over ``reps`` calls of ``fn`` (one backward each),
+    from ``torch.profiler``'s kernel records, and the attempts it took.
+    The launches sit inside idle margins of the profiled window (a run
+    late in a long process has recorded none of a few-ms window); after
+    three windows without every record the times are None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2197,10 +2223,10 @@ def _bwd_device_ms(fn, reps: int) -> dict:
                 fn()
             torch.cuda.synchronize()
             time.sleep(margin_s)
-        recs = {n: [] for n in BWD_KERNEL_NAMES}
+        recs = {n: [] for n in names}
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == torch.autograd.DeviceType.CUDA:
-                for n in BWD_KERNEL_NAMES:
+                for n in names:
                     if n in e.name():
                         recs[n].append(e.duration_ns())
         if all(len(r) == reps for r in recs.values()):
@@ -2208,7 +2234,7 @@ def _bwd_device_ms(fn, reps: int) -> dict:
                 n: statistics.median(r) / 1e6 for n, r in recs.items()}}
     return {"attempts": attempt, "records": {n: len(r)
                                              for n, r in recs.items()},
-            **{n: None for n in BWD_KERNEL_NAMES}}
+            **{n: None for n in names}}
 
 
 def phase_k2_bwd():
@@ -2337,26 +2363,165 @@ def phase_k2_bwd():
             "k2_out_max_abs_err": out_worst}
 
 
+# the scan's backward: the JAX tests' scan cases, S and Di that are not
+# multiples of the kernel's 16-step runs or of its channel blocks, N in
+# {1, 4, 16, 64}, B = 1; and falcon_mamba_7b's training shape
+K3_BWD_CASES = K3_CASES + [(1, 100, 130, 32), (2, 37, 20, 2),
+                           (1, 300, 72, 4)]
+K3_BWD_TRAIN = (4, 2048, 8192, 16)               # (B, S, Di, N)
+# kernel vs plain on the same inputs and dy, each gradient held to a
+# share of its largest magnitude: f32 sums in two orders (dA and dD sum
+# B * S terms; dB and dC sum Di terms); bf16 adds one rounding of each
+# output, which may fall on either side (2**-8 of the value)
+K3_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+K3_BWD_KERNEL_NAMES = ("ssm_scan_bwd<", "ssm_scan_bwd_sum")
+K3_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def k3_bwd_bound_ms(B, S, Di, N, elem_bytes):
+    """Least time for the scan's backward: the larger of its bytes (x,
+    dt, dy, B, C in and dx, ddt, dB, dC out in the input dtype; A, D in
+    and dA, dD out in f32) over the memory rate and its f32 operations
+    over the f32 peak: per state element 19 (dt*A and its exponential;
+    the h update a*h + dt*x*B, 3; the adjoint a*lam + g*C, 3; the sums
+    lam*B, 2, lam*A*(a*h), 3, and dA's lam*a*h*dt, 2; dB's lam*dt*x and
+    dC's g*h with their channel sums, 4), per channel step 5 (dx, ddt,
+    dD)."""
+    nbytes = (5 * B * S * Di + 4 * B * S * N) * elem_bytes \
+        + 8 * (Di * N + Di)
+    ops = 19.0 * B * S * Di * N + 5.0 * B * S * Di
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_k3_bwd():
+    """The scan's backward kernel against its plain version in f32 and
+    bf16 (f32 A), two launches bit for bit, and times at falcon_mamba_7b's
+    training shape."""
+    import torch
+    from repro_torch.kernels import selective_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = [], 0.0
+    for case in K3_BWD_CASES + [K3_BWD_TRAIN]:
+        for name, dtype in _dtypes().items():
+            args = _k3_inputs(case, dtype, gen)
+            dy = torch.randn(args[0].shape, generator=gen,
+                             device="cuda").to(dtype)
+            got = SS.selective_scan_bwd(*args, dy)
+            again = SS.selective_scan_bwd(*args, dy)
+            want = SS.selective_scan_bwd_plain(*args, dy)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, a, b in zip(K3_BWD_GRADS, got, want):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"k3_bwd {case} {name} {gname}: "
+                                         f"{a.dtype} {tuple(a.shape)} vs "
+                                         f"plain {b.dtype} {tuple(b.shape)}")
+                scale = float(b.float().abs().max())
+                err = float((a.float() - b.float()).abs().max())
+                errs[gname] = err
+                errs[gname + "_of_max"] = err / max(scale, 1e-30)
+                if not errs[gname + "_of_max"] <= K3_BWD_TOL[name]:
+                    raise AssertionError(
+                        f"k3_bwd {case} {name} {gname}: kernel vs plain "
+                        f"max abs err {err}, {errs[gname + '_of_max']} of "
+                        f"the largest |plain| {scale} > {K3_BWD_TOL[name]}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"k3_bwd {case} {name}: two launches "
+                                     f"differ")
+            worst = max(worst, *(errs[g] for g in K3_BWD_GRADS))
+            rows.append({"case": list(case), "dtype": name, **errs,
+                         "same_bits": True})
+            del args, dy, got, again, want
+    torch.cuda.empty_cache()
+    args = _k3_inputs(K3_BWD_TRAIN, torch.bfloat16, gen)
+    dy = torch.randn(args[0].shape, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+
+    def bwd():
+        return SS.selective_scan_bwd(*args, dy)
+    ms = cuda_ms(bwd, rounds=5)
+    # the plain version ran at this shape above: no warm-up call
+    plain_ms = cuda_ms(lambda: SS.selective_scan_bwd_plain(*args, dy),
+                       rounds=1, warmup=0)
+    fwd_ms = cuda_ms(lambda: SS.selective_scan(*args), rounds=5)
+    device_ms = _bwd_device_ms(bwd, reps=3, names=K3_BWD_KERNEL_NAMES)
+    bound, by = k3_bwd_bound_ms(*K3_BWD_TRAIN, elem_bytes=2)
+    del args, dy
+    torch.cuda.empty_cache()
+    emit({"phase": "k3_bwd", "cases": rows, "all_match": True,
+          "tol_of_max": K3_BWD_TOL, "train_shape": list(K3_BWD_TRAIN),
+          "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by, "k3_fwd_ms": fwd_ms,
+          "device_ms_by_kernel": device_ms})
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def _olmo(reduced: bool):
     from repro_torch.configs import get_config, reduced_config
     cfg = get_config("olmo_1b")
     return reduced_config(cfg) if reduced else cfg
 
 
-def phase_lm_train_small():
-    """The reduced olmo in f32: three train steps (plain, microbatches=2,
-    int8) on the card against the same steps on the CPU, from the same
-    weights and batches; and the scan refusing a CUDA input under grad."""
-    import torch
+# the reduced configs trained beside the reduced olmo in phase
+# lm_train_small (one plain run each, f32, batch 4 x 32: mixtral's window
+# of 16 over 32 tokens)
+LM_TRAIN_SMALL_FAMILIES = ("falcon_mamba_7b", "deepseek_moe_16b",
+                           "mixtral_8x22b", "jamba_v01_52b")
+# the families trained at full width, cut in depth: 16 of falcon_mamba_7b's
+# 64 layers (2.22 B parameters), 6 of deepseek_moe_16b's 28 (3.44 B)
+LM_TRAIN_SSM_LAYERS, LM_TRAIN_MOE_LAYERS = 16, 6
+
+
+def _small_steps(cfg, run, batches, dev, init):
+    """Three ``make_train_step`` steps from ``init`` on ``dev``: ->
+    (losses, the parameters after them on the CPU)."""
     from repro_torch import convert
-    from repro_torch.configs import RunConfig
-    from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import model as MDL
     from repro_torch.optim import optimizer as OPT
     from repro_torch.parallel import compression as COMP
     from repro_torch.pytree import leaves
+    params = convert.params_to(init, dev)
+    opt = OPT.init_opt_state(params, run)
+    err = COMP.init_error_state(params)
+    step = make_train_step(cfg, run, device=dev)
+    losses = []
+    for b in batches:
+        if run.grad_compression == "int8":
+            params, opt, err, m = step(params, opt, err, b)
+        else:
+            params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return losses, [p.cpu() for p in leaves(params)]
+
+
+def _small_compare(what, res, tol):
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(res["cuda"][0], res["cpu"][0]))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    if not (loss_err < 1e-5 and param_err <= tol):
+        raise AssertionError(f"lm_train_small {what}: card vs CPU loss rel "
+                             f"err {loss_err}, params max abs err "
+                             f"{param_err}")
+    return {"losses_cuda": res["cuda"][0], "losses_cpu": res["cpu"][0],
+            "loss_rel_err": loss_err, "param_max_abs_err": param_err,
+            "tol": tol}
+
+
+def phase_lm_train_small():
+    """The reduced olmo in f32: three train steps (plain, microbatches=2,
+    int8) on the card against the same steps on the CPU, from the same
+    weights and batches; then the reduced falcon_mamba_7b,
+    deepseek_moe_16b, mixtral_8x22b and Jamba the same way (plain run),
+    the SSM and hybrid ones through the scan's backward kernel."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import model as MDL
     cfg = _olmo(reduced=True)
     base = RunConfig(param_dtype="float32", learning_rate=1e-3,
                      total_steps=30, warmup_steps=2, schedule="constant")
@@ -2367,53 +2532,38 @@ def phase_lm_train_small():
     init = MDL.init_model(cfg, torch.float32, seed=0, device="cpu")
     out = {}
     for label, run in runs.items():
-        res = {}
-        for dev in ("cpu", "cuda"):
-            params = convert.params_to(init, dev)
-            opt = OPT.init_opt_state(params, run)
-            err = COMP.init_error_state(params)
-            step = make_train_step(cfg, run, device=dev)
-            losses = []
-            for b in batches:
-                if run.grad_compression == "int8":
-                    params, opt, err, m = step(params, opt, err, b)
-                else:
-                    params, opt, m = step(params, opt, b)
-                losses.append(float(m["loss"]))
-            res[dev] = (losses, [p.cpu() for p in leaves(params)])
-        loss_err = max(abs(a - b) / abs(b)
-                       for a, b in zip(res["cuda"][0], res["cpu"][0]))
-        param_err = max(float((a - b).abs().max())
-                        for a, b in zip(res["cuda"][1], res["cpu"][1]))
-        if not (loss_err < 1e-5 and param_err <= LM_TRAIN_SMALL_TOL[label]):
-            raise AssertionError(f"lm_train_small {label}: card vs CPU loss "
-                                 f"rel err {loss_err}, params max abs err "
-                                 f"{param_err}")
-        out[label] = {"losses_cuda": res["cuda"][0],
-                      "losses_cpu": res["cpu"][0], "loss_rel_err": loss_err,
-                      "param_max_abs_err": param_err,
-                      "tol": LM_TRAIN_SMALL_TOL[label]}
-    # K3 has no backward: a CUDA scan input that requires grad raises
-    x = torch.zeros((1, 4, 8), device="cuda", requires_grad=True)
-    bc = torch.zeros((1, 4, 2), device="cuda")
-    try:
-        ops.selective_scan(x, x, torch.zeros((8, 2), device="cuda"), bc, bc,
-                           torch.ones(8, device="cuda"))
-        raise AssertionError("lm_train_small: selective_scan took a CUDA "
-                             "input that requires grad")
-    except NotImplementedError:
-        pass
+        res = {dev: _small_steps(cfg, run, batches, dev, init)
+               for dev in ("cpu", "cuda")}
+        out[label] = _small_compare(label, res, LM_TRAIN_SMALL_TOL[label])
+    families = {}
+    for name in LM_TRAIN_SMALL_FAMILIES:
+        fcfg = reduced_config(get_config(name))
+        fb = [synth_batch(fcfg, 4, 32, DataConfig(), s) for s in range(3)]
+        finit = MDL.init_model(fcfg, torch.float32, seed=0, device="cpu")
+        cpu = _small_steps(fcfg, base, fb, "cpu", finit)
+        before = SS.bwd_launches
+        res = {"cpu": cpu, "cuda": _small_steps(fcfg, base, fb, "cuda",
+                                                finit)}
+        scan_bwd = SS.bwd_launches - before
+        if (fcfg.ssm is not None) != (scan_bwd > 0):
+            raise AssertionError(f"lm_train_small {name}: {scan_bwd} "
+                                 f"launches of the scan's backward")
+        families[name] = {**_small_compare(name, res,
+                                           LM_TRAIN_SMALL_TOL["none"]),
+                          "n_layers": fcfg.n_layers,
+                          "scan_bwd_launches": scan_bwd}
     emit({"phase": "lm_train_small", "match": True, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "batch": 4, "seq": 32, "steps": 3,
-          "runs": out, "scan_refuses_grad": True})
+          "runs": out, "families": families})
 
 
-def phase_lm_train():
-    """olmo_1b at full width in bf16 through ``launch.train.train``
-    (``_lm_train_run``), batch 4 x 2048 from a seeded init: K2 and
-    backward launches per step (its own main path), finite losses, the
-    last below the first; tokens/s, ms per step, peak memory, and one
-    more step profiled."""
+def _lm_train_path(phase, cfg, want_per_step):
+    """``cfg`` at full width in bf16 through ``launch.train.train``
+    (``_lm_train_run``), batch 4 x 2048 from a seeded init (its own main
+    path: the launch counts are zeroed before it and read after):
+    launches a step against ``want_per_step``, finite losses, the last
+    below the first; tokens/s, ms per step, peak memory, and one more
+    step profiled.  -> (launches, that step's metrics, the report)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, synth_batch
@@ -2422,7 +2572,6 @@ def phase_lm_train():
     from repro_torch.kernels import selective_scan as SS
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
-    cfg = _olmo(reduced=False)
     run = _lm_train_run()
     stamps = []
 
@@ -2432,56 +2581,105 @@ def phase_lm_train():
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = FA.bwd_launches = SS.launches = HM.launches = 0
+    FA.launches = FA.bwd_launches = SS.launches = SS.bwd_launches = 0
+    HM.launches = 0
     t0 = time.perf_counter()                   # the training path starts
     params, opt, losses = train(cfg, run, steps=LM_TRAIN_STEPS,
                                 batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
                                 log_every=1, verbose=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": FA.launches,
+    launches = {"flash_attention": FA.launches,  # ... and ends here
                 "flash_attention_bwd": FA.bwd_launches,
                 "selective_scan": SS.launches,
-                "hier_minsearch": HM.launches}  # ... and ends here
-    want = {"flash_attention": 2 * cfg.n_layers * LM_TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * LM_TRAIN_STEPS,
-            "selective_scan": 0, "hier_minsearch": 0}
+                "selective_scan_bwd": SS.bwd_launches,
+                "hier_minsearch": HM.launches}
+    want = {k: n * LM_TRAIN_STEPS for k, n in want_per_step.items()}
     if launches != want:
-        raise AssertionError(f"lm_train launches {launches}, want {want} "
-                             f"(under full remat each attention layer "
-                             f"runs K2 twice a step, its backward once)")
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
     values = [loss for _, loss in losses]
     if len(values) != LM_TRAIN_STEPS or not all(np.isfinite(values)) \
             or not values[-1] < values[0]:
-        raise AssertionError(f"lm_train losses {values}: want "
+        raise AssertionError(f"{phase} losses {values}: want "
                              f"{LM_TRAIN_STEPS} finite, the last below the "
                              f"first")
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     step_ms = 1e3 * statistics.median(step_s)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    # one more step under the profiler: device time by kernel group
-    step = make_train_step(cfg, run)
+    # one more step under the profiler (updating the phase's own state in
+    # place, as the loop's steps do): device time by kernel group
+    step = make_train_step(cfg, run, donate=True)
     batch = synth_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DataConfig(),
                         LM_TRAIN_STEPS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        params, opt, _ = step(params, opt, batch)
+        params, opt, metrics = step(params, opt, batch)
         torch.cuda.synchronize()
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    emit({"phase": "lm_train", "config": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "params": cfg.param_count(),
-          "dtype": run.param_dtype, "remat": run.remat,
-          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
-          "steps": LM_TRAIN_STEPS, "launches": launches,
-          "launches_per_step": {k: v / LM_TRAIN_STEPS
-                                for k, v in launches.items()},
-          "losses": values, "finite": True, "decreased": True,
-          "wall_s": wall, "step_ms": [1e3 * s for s in step_s],
-          "ms_per_step_after_first": step_ms,
-          "tokens_per_s": tokens / (step_ms / 1e3),
-          "peak_mem_gib": peak, "profiled_step": _device_time(prof)})
     del params, opt
     torch.cuda.empty_cache()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    report = {
+        "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": cfg.param_count(),
+        "dtype": run.param_dtype, "remat": run.remat,
+        "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "steps": LM_TRAIN_STEPS, "launches": launches,
+        "launches_per_step": {k: v / LM_TRAIN_STEPS
+                              for k, v in launches.items()},
+        "losses": values, "finite": True, "decreased": True,
+        "wall_s": wall, "step_ms": [1e3 * s for s in step_s],
+        "ms_per_step_after_first": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_mem_gib": peak, "profiled_step": _device_time(prof)}
+    return launches, metrics, report
+
+
+def phase_lm_train():
+    """olmo_1b at full width (16 layers) in bf16: 32 K2 and 16 backward
+    launches a step (under full remat each attention layer runs K2 twice
+    a step, its backward once), no scan."""
+    cfg = _olmo(reduced=False)
+    launches, _, report = _lm_train_path("lm_train", cfg, {
+        "flash_attention": 2 * cfg.n_layers,
+        "flash_attention_bwd": cfg.n_layers, "selective_scan": 0,
+        "selective_scan_bwd": 0, "hier_minsearch": 0})
+    emit(report)
+    return launches
+
+
+def phase_lm_train_ssm():
+    """falcon_mamba_7b at full width cut to 16 layers in bf16: every layer
+    is a super-block under full remat, so 32 K3 and 16 scan backward
+    launches a step; no attention."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
+                              n_layers=LM_TRAIN_SSM_LAYERS)
+    launches, _, report = _lm_train_path("lm_train_ssm", cfg, {
+        "flash_attention": 0, "flash_attention_bwd": 0,
+        "selective_scan": 2 * cfg.n_layers,
+        "selective_scan_bwd": cfg.n_layers, "hier_minsearch": 0})
+    emit(report)
+    return launches
+
+
+def phase_lm_train_moe():
+    """deepseek_moe_16b at full width cut to 6 layers in bf16: layer 0 (the
+    dense FFN) is a prefix layer outside remat, so 1 + 2 * 5 = 11 K2 and 6
+    backward launches a step; gated only on what routing does not change
+    (bf16 router logits may route a near-tie either way)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek_moe_16b"),
+                              n_layers=LM_TRAIN_MOE_LAYERS)
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    launches, metrics, report = _lm_train_path("lm_train_moe", cfg, {
+        "flash_attention": cfg.moe.first_dense + 2 * n_moe,
+        "flash_attention_bwd": cfg.n_layers, "selective_scan": 0,
+        "selective_scan_bwd": 0, "hier_minsearch": 0})
+    # the router's statistics of the last step run (the profiled one),
+    # each summed over the MoE layers as lm_loss sums them
+    emit({**report, "moe_layers": n_moe,
+          "last_step_load_balance": float(metrics["load_balance"]),
+          "last_step_dropped_frac": float(metrics["dropped_frac"])})
     return launches
 
 
@@ -2554,21 +2752,30 @@ def main() -> int:
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
     k2_bwd = timed(phase_k2_bwd)
+    k3_bwd = timed(phase_k3_bwd)
     timed(phase_lm_train_small)
     trained = timed(phase_lm_train)
+    trained_ssm = timed(phase_lm_train_ssm)
+    trained_moe = timed(phase_lm_train_moe)
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
-    # K2 runs on two main paths: the prefill and training
+    # K2 runs on three main paths (the prefill, olmo_1b's and
+    # deepseek_moe_16b's training), K3 on two (the prefill, falcon_mamba_7b's
+    # training)
+    trains = (trained, trained_ssm, trained_moe)
     rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
              tlm_launches + sweep_launches, k1),
-            (FA.NAME, FA.SOURCE, FA.REPLACES,
-             prefill["flash_attention"] + trained["flash_attention"], k2),
-            (SS.NAME, SS.SOURCE, SS.REPLACES, prefill["selective_scan"], k3),
+            (FA.NAME, FA.SOURCE, FA.REPLACES, prefill["flash_attention"]
+             + sum(t["flash_attention"] for t in trains), k2),
+            (SS.NAME, SS.SOURCE, SS.REPLACES, prefill["selective_scan"]
+             + sum(t["selective_scan"] for t in trains), k3),
             (FA.BWD_NAME, FA.BWD_SOURCE, FA.BWD_REPLACES,
-             trained["flash_attention_bwd"], k2_bwd)]
+             sum(t["flash_attention_bwd"] for t in trains), k2_bwd),
+            (SS.BWD_NAME, SS.BWD_SOURCE, SS.BWD_REPLACES,
+             sum(t["selective_scan_bwd"] for t in trains), k3_bwd)]
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n,

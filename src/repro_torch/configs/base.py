@@ -206,7 +206,8 @@ ARCH_IDS = (
     "glm4_9b",
     "internvl2_2b",
 )
-PORTED_ARCHS = ("jamba_v01_52b", "olmo_1b")
+PORTED_ARCHS = ("falcon_mamba_7b", "deepseek_moe_16b", "mixtral_8x22b",
+                "jamba_v01_52b", "olmo_1b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

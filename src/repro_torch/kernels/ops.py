@@ -7,12 +7,11 @@ to the default device (the CUDA card).  The decode paths are plain torch
 on both devices, as their reference counterparts (``ref.py``
 ``decode_attention_ref``, ``ssm_decode_ref``) are not Pallas kernels.
 
-Gradients: :func:`attention` goes through ``FA.FlashAttention`` (K2's
-forward with ``lse``, the hand-written backward) whenever grad is on
-and an input requires it.  K3 has no backward kernel yet, so
-:func:`selective_scan` refuses a CUDA input that requires grad rather
-than cut the gradient (ROADMAP item 11.2); on the CPU its plain version
-is differentiated by autograd.
+Gradients: whenever grad is on and an input requires it,
+:func:`attention` goes through ``FA.FlashAttention`` (K2's forward with
+``lse``, the hand-written backward) and :func:`selective_scan` through
+``SS.SelectiveScan`` (K3, then the scan's backward kernel), on both
+devices: a CPU tensor takes the plain versions of both directions.
 """
 from __future__ import annotations
 
@@ -74,15 +73,11 @@ def decode_attention(q, cache_k, cache_v, pos, *, lengths=None,
 
 
 def selective_scan(x, dt, A, Bc, Cc, D_skip):
-    """Mamba-1 scan: K3 (``kernels/csrc/selective_scan.cu``) on CUDA
-    (forward only)."""
+    """Mamba-1 scan: K3 (``kernels/csrc/selective_scan.cu``) on CUDA, its
+    backward ``kernels/csrc/selective_scan_bwd.cu``."""
     args = _tensors(x, dt, A, Bc, Cc, D_skip)
-    if args[0].device.type == "cuda" and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "selective_scan: K3 has no backward kernel yet, and its launch "
-            "would cut the gradient; training the SSM and hybrid families "
-            "is ROADMAP item 11.2")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SS.SelectiveScan.apply(*args)
     return SS.selective_scan(*args)
 
 

@@ -1,5 +1,5 @@
-"""Mamba-1 selective scan (forward) — the port of the Pallas kernel
-``repro/kernels/selective_scan.py:_scan_kernel``.
+"""Mamba-1 selective scan — the port of the Pallas kernel
+``repro/kernels/selective_scan.py:_scan_kernel`` — and its backward.
 
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t
     y_t = h_t . C_t + D * x_t
@@ -22,6 +22,14 @@ takes :func:`selective_scan_plain` (the sequential loop of
 ``repro/kernels/ref.py:selective_scan_ref``), a CUDA tensor launches the
 kernel or raises — there is no fallback from one to the other.
 ``launches`` counts kernel launches.
+
+The backward (:func:`selective_scan_bwd`, a kernel that replaces no TPU
+kernel: the reference differentiates ``ops._chunked_selective_scan`` with
+XLA autodiff) dispatches the same way, between
+:func:`selective_scan_bwd_plain` (an explicit reverse-time loop) and
+``csrc/selective_scan_bwd.cu`` (its source note gives the design);
+``bwd_launches`` counts its launches.  :class:`SelectiveScan` is the
+autograd function over the two.
 """
 from __future__ import annotations
 
@@ -34,11 +42,16 @@ from repro_torch.kernels import _build
 NAME = "selective_scan"
 SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 REPLACES = "src/repro/kernels/selective_scan.py:26"
+BWD_NAME = "selective_scan_bwd"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+# not a TPU kernel: the reference differentiates its XLA scan by autodiff
+BWD_REPLACES = "src/repro/kernels/ops.py:217"
 
 MAX_STATE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0    # kernel launches so far (the plain version never counts)
+launches = 0        # forward kernel launches (the plain version never counts)
+bwd_launches = 0    # backward launches (the kernel and its partials' sum)
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,13 +63,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _acc_dtype(x):
+    """The plain versions' arithmetic: f32, or f64 for f64 inputs (so
+    ``gradcheck`` can hold the backward in f64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def selective_scan_plain(x, dt, A, Bc, Cc, D_skip):
     """The scan as a sequential torch loop over time, in f32."""
     Bsz, S, Di = x.shape
     N = A.shape[1]
-    xf, dtf = x.float(), dt.float()
-    Bf, Cf, Af = Bc.float(), Cc.float(), A.float()
-    h = torch.zeros((Bsz, Di, N), dtype=torch.float32, device=x.device)
+    f = _acc_dtype(x)
+    xf, dtf = x.to(f), dt.to(f)
+    Bf, Cf, Af = Bc.to(f), Cc.to(f), A.to(f)
+    h = torch.zeros((Bsz, Di, N), dtype=f, device=x.device)
     ys = []
     for t in range(S):
         da = torch.exp(dtf[:, t, :, None] * Af[None])
@@ -64,8 +84,54 @@ def selective_scan_plain(x, dt, A, Bc, Cc, D_skip):
         h = da * h + dbx
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = (torch.stack(ys, dim=1) if ys else torch.zeros_like(xf)) \
-        + xf * D_skip.float()[None, None]
+        + xf * D_skip.to(f)[None, None]
     return y.to(x.dtype)
+
+
+def selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy):
+    """The scan's VJP as an explicit reverse-time loop in f32: the
+    forward walk keeps every h, then with g_t = dy[:, t] and the adjoint
+    lam_t = a_{t+1} lam_{t+1} + g_t C_t (a_t = exp(dt_t A)):
+
+        dx_t  = D g_t + dt_t sum_n lam_t B_t
+        ddt_t = sum_n lam_t (x_t B_t + A a_t h_{t-1})
+        dB_t  = sum_d lam_t dt_t x_t,   dC_t = sum_d g_t h_t
+        dA    = sum_{b,t} lam_t dt_t a_t h_{t-1},   dD = sum_{b,t} g_t x_t
+
+    -> (dx, ddt, dA, dB, dC, dD), in the order of the inputs: dx, ddt,
+    dB, dC in their inputs' dtypes, dA in f32 (f64 for f64 inputs), dD
+    in D's dtype."""
+    Bsz, S, Di = x.shape
+    N = A.shape[1]
+    f = _acc_dtype(x)
+    xf, dtf, gf = x.to(f), dt.to(f), dy.to(f)
+    Bf, Cf, Af = Bc.to(f), Cc.to(f), A.to(f)
+    hs = [torch.zeros((Bsz, Di, N), dtype=f, device=x.device)]  # h_{-1}
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * Af[None])
+        hs.append(da * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    lam = torch.zeros_like(hs[0])
+    a_next = torch.zeros_like(hs[0])              # a_{t+1}; lam_S = 0
+    for t in reversed(range(S)):
+        g = gf[:, t]
+        lam = a_next * lam + g[..., None] * Cf[:, t, None, :]
+        da = torch.exp(dtf[:, t, :, None] * Af[None])
+        dxt = dtf[:, t] * xf[:, t]
+        lb = (lam * Bf[:, t, None, :]).sum(-1)
+        hda = da * hs[t]                          # a_t h_{t-1}
+        dx[:, t] = D_skip.to(f) * g + dtf[:, t] * lb
+        ddt[:, t] = xf[:, t] * lb + (lam * Af[None] * hda).sum(-1)
+        dB[:, t] = torch.einsum("bdn,bd->bn", lam, dxt)
+        dC[:, t] = torch.einsum("bd,bdn->bn", g, hs[t + 1])
+        dA += (lam * dtf[:, t, :, None] * hda).sum(0)
+        a_next = da
+    dD = (gf * xf).sum(dim=(0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB.to(Bc.dtype),
+            dC.to(Cc.dtype), dD.to(D_skip.dtype))
 
 
 def ssm_decode_plain(h, x, dt, A, Bc, Cc, D_skip):
@@ -97,18 +163,10 @@ def _check(x, dt, A, Bc, Cc, D_skip):
                          f"C {tuple(Cc.shape)}, D {tuple(D_skip.shape)}")
 
 
-def selective_scan(x, dt, A, Bc, Cc, D_skip):
-    """The Mamba-1 scan (see the module note).  CPU tensors take the
-    plain version; CUDA tensors launch the Hopper kernel or raise.  A and
-    D are read as f32; x, dt, B and C must share a dtype."""
-    global launches
-    _check(x, dt, A, Bc, Cc, D_skip)
-    if x.device.type == "cpu":
-        return selective_scan_plain(x, dt, A, Bc, Cc, D_skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not "
-                         f"{x.device}")
-    Bsz, S, Di = x.shape
+def _kernel_inputs(x, dt, A, Bc, Cc, D_skip):
+    """Check what the kernels take: -> (B, C contiguous; A, D contiguous
+    f32)."""
+    Bsz = x.shape[0]
     N = A.shape[1]
     if x.dtype not in _DTYPES \
             or not (x.dtype == dt.dtype == Bc.dtype == Cc.dtype):
@@ -124,9 +182,28 @@ def selective_scan(x, dt, A, Bc, Cc, D_skip):
         raise ValueError("selective_scan kernel takes contiguous x and dt")
     # B and C arrive as column slices of the selection projection, A and D
     # in the parameter dtype: small, made contiguous f32 here
-    Bc, Cc = Bc.contiguous(), Cc.contiguous()
-    A = A.to(torch.float32).contiguous()
-    D_skip = D_skip.to(torch.float32).contiguous()
+    return (Bc.contiguous(), Cc.contiguous(),
+            A.to(torch.float32).contiguous(),
+            D_skip.to(torch.float32).contiguous())
+
+
+def _device(x, name):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return x.device.type
+
+
+def selective_scan(x, dt, A, Bc, Cc, D_skip):
+    """The Mamba-1 scan (see the module note).  CPU tensors take the
+    plain version; CUDA tensors launch the Hopper kernel or raise.  A and
+    D are read as f32; x, dt, B and C must share a dtype."""
+    global launches
+    _check(x, dt, A, Bc, Cc, D_skip)
+    if _device(x, "selective_scan") == "cpu":
+        return selective_scan_plain(x, dt, A, Bc, Cc, D_skip)
+    Bsz, S, Di = x.shape
+    N = A.shape[1]
+    Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -141,3 +218,78 @@ def selective_scan(x, dt, A, Bc, Cc, D_skip):
                            f"cudaError {err}")
     launches += 1
     return y
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_NAME)
+    if lib.selective_scan_bwd.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.selective_scan_bwd.argtypes = [vp] * 14 + [ci] * 5 + [vp]
+        lib.selective_scan_bwd.restype = ci
+        lib.selective_scan_bwd_workspace.argtypes = [ci] * 4
+        lib.selective_scan_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy):
+    """The scan's VJP at dy (B, S, Di) -> (dx, ddt, dA, dB, dC, dD), as
+    :func:`selective_scan_bwd_plain` returns them.  CPU tensors take the
+    plain version; CUDA tensors launch the backward kernel
+    (``csrc/selective_scan_bwd.cu``) or raise.  On the card dy must be
+    contiguous and of x's dtype."""
+    global bwd_launches
+    _check(x, dt, A, Bc, Cc, D_skip)
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)} on "
+                         f"{dy.device} does not match x {tuple(x.shape)} "
+                         f"on {x.device}")
+    if _device(x, "selective_scan_bwd") == "cpu":
+        return selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy)
+    Bsz, S, Di = x.shape
+    N = A.shape[1]
+    D_dtype = D_skip.dtype
+    Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
+    if dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"selective_scan_bwd kernel takes a contiguous dy "
+                         f"of x's dtype {x.dtype}, got {dy.dtype}")
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    dA = torch.empty_like(A)
+    dD = torch.empty_like(D_skip)
+    if x.numel() == 0:      # no step or no channel: nothing to launch
+        return (dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(),
+                dD.zero_().to(D_dtype))
+    lib = _bwd_lib()
+    ws = torch.empty(lib.selective_scan_bwd_workspace(Bsz, S, Di, N),
+                     dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.selective_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), D_skip.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+            dD.data_ptr(), ws.data_ptr(), Bsz, S, Di, N, _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC, dD.to(D_dtype)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan with the hand-written backward: the forward is
+    :func:`selective_scan` and saves its six inputs (no h: the backward
+    recomputes it); the backward makes dy contiguous in x's dtype and
+    runs :func:`selective_scan_bwd`.  Under activation checkpointing the
+    forward runs again in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, D_skip):
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D_skip)
+        return selective_scan(x, dt, A, Bc, Cc, D_skip)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bc, Cc, D_skip = ctx.saved_tensors
+        return selective_scan_bwd(x, dt, A, Bc, Cc, D_skip,
+                                  dy.to(x.dtype).contiguous())

@@ -1,6 +1,8 @@
 """Step factories: train, prefill and decode (port of
-``repro/launch/steps.py``; the sharded cell assembly is ROADMAP item 12,
-training the SSM, hybrid and MoE families item 11.2).
+``repro/launch/steps.py``; the sharded cell assembly is ROADMAP item 12).
+Every family that ``models/model.py`` builds trains: the dense, MoE, SSM
+and hybrid decoders (attention and the scan differentiate through their
+hand-written backward kernels on the card).
 
 Each builder resolves its device when it is made (default: the card, and
 it raises without one); the step moves host token arrays there.  PyTorch
@@ -21,16 +23,6 @@ from repro_torch.parallel import compression as COMP
 from repro_torch.pytree import leaves, tree_map, unflatten
 
 
-def _require_trainable(cfg: ModelConfig) -> None:
-    """Training reaches K3 and the MoE router only through paths without
-    a backward yet: refuse those configs on every device."""
-    if cfg.ssm is not None or cfg.moe is not None:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) needs a K3 backward kernel "
-            f"and the router's gradients, not ported yet (ROADMAP item "
-            f"11.2); dense configs train")
-
-
 def _value_and_grad(params, cfg: ModelConfig, run: RunConfig, tokens,
                     labels):
     """-> (loss, metrics, grads in the parameters' dtypes) of
@@ -46,15 +38,19 @@ def _value_and_grad(params, cfg: ModelConfig, run: RunConfig, tokens,
             unflatten(params, grads))
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig,
-                    device=None) -> Callable:
+def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
+                    donate: bool = False) -> Callable:
     """``train_step(params, opt, batch)`` -> (params, opt, metrics): one
     ``lm_loss`` gradient (f32 sums over ``run.microbatches`` slices,
     divided by their count, when above 1), then ``adamw_update``.  With
     ``run.grad_compression == "int8"`` the step is ``(params, opt, err,
     batch)`` -> (params, opt, err, metrics), its gradient int8-compressed
-    with error feedback (microbatches ignored, as in the reference)."""
-    _require_trainable(cfg)
+    with error feedback (microbatches ignored, as in the reference).
+    With ``donate`` the step writes the new parameters and moments over
+    the ones it is given (as the reference's train loop donates them to
+    its jitted step), so a step holds the moments once.  Refuses, as
+    ``models/model.py`` does, the families it cannot build."""
+    MDL._require_ported(cfg)
     dev = resolve_device(device)
 
     def batch_of(batch):
@@ -84,7 +80,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         else:
             loss, metrics, grads = _value_and_grad(params, cfg, run, tokens,
                                                    labels)
-        params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run)
+        params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run,
+                                                    inplace=donate)
         return params, opt, {"loss": loss, **metrics, **opt_metrics}
 
     def train_step_compressed(params, opt, err, batch):
@@ -92,7 +89,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         loss, metrics, grads = _value_and_grad(params, cfg, run, tokens,
                                                labels)
         grads, err = COMP.compress_grads(grads, err)
-        params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run)
+        params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run,
+                                                    inplace=donate)
         return params, opt, err, {"loss": loss, **metrics, **opt_metrics}
 
     if run.grad_compression == "int8":

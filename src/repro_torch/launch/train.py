@@ -22,13 +22,13 @@ import torch
 
 from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.configs.base import RunConfig, get_config, reduced_config
-from repro_torch.convert import params_to
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as MDL
 from repro_torch.optim import optimizer as OPT
 from repro_torch.parallel import compression as COMP
+from repro_torch.pytree import tree_map
 
 
 def train(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
@@ -39,14 +39,17 @@ def train(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
     every ``log_every`` steps and at the last).  The weights come from
     ``init_model`` seeded with ``run.seed``, or are ``params`` (e.g.
     reference weights carried by ``convert.model_params_from_reference``)
-    moved to the device; a resumed run takes the checkpoint's."""
-    step_fn = make_train_step(cfg, run, device=device)
+    copied to the device, so the caller's tree is left as it was; a
+    resumed run takes the checkpoint's."""
+    # the loop owns its parameters and optimizer state, and each step
+    # updates them in place (the reference donates them to its step)
+    step_fn = make_train_step(cfg, run, device=device, donate=True)
     dev = resolve_device(device)
     if params is None:
         params = MDL.init_model(cfg, getattr(torch, run.param_dtype),
                                 seed=run.seed, device=dev)
     else:
-        params = params_to(params, dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), params)
     opt = OPT.init_opt_state(params, run)
     compressed = run.grad_compression == "int8"
     err = COMP.init_error_state(params) if compressed else None

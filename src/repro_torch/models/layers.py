@@ -1,7 +1,8 @@
 """Core transformer layers (port of ``repro/models/layers.py``): the
 RMS, layer and non-parametric norms, RoPE, embeddings, GQA attention and
-its decode step, the MLPs.  Training differentiates them with autograd;
-attention's backward is the hand-written kernel behind
+its decode step, the MLPs.  Training differentiates them with autograd,
+but for the RMS norm's dtype-keeping VJP (:class:`RMSNorm`) and
+attention's backward, the hand-written kernel behind
 :func:`repro_torch.kernels.ops.attention`.
 
 Parameters are plain dicts of tensors with the reference's names and
@@ -51,20 +52,55 @@ def init_norm(cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     raise ValueError(cfg.norm)
 
 
+def _rms_stats(x, eps: float):
+    """(..., 1) f32 ``rsqrt(mean(x**2) + eps)``, one f32 sum a row."""
+    xf = x.float()
+    ms = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    return torch.rsqrt(ms + eps)
+
+
+class RMSNorm(torch.autograd.Function):
+    """The RMS norm with the reference's dtype-keeping VJP (``_rms_core``,
+    ``_rms_fwd``, ``_rms_bwd``): the per-row statistics ``inv`` and
+    ``dot`` are f32, each one f32-accumulated sum; every full-width
+    tensor stays in x's dtype; ``dscale`` is summed in f32 over every
+    leading axis, then cast to the scale's dtype.  It saves x, the scale
+    and ``inv``, never an f32 copy of x (autograd of the plain formula
+    would keep ``x.float()`` for the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        inv = _rms_stats(x, eps)
+        ctx.save_for_backward(x, scale, inv)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, inv = ctx.saved_tensors
+        dt, d = x.dtype, x.shape[-1]
+        g = dy * scale.to(dt)
+        # the reference's two f32-accumulated einsums: each a product in
+        # f32 (exact for bf16 operands) summed in sequence
+        dot = torch.einsum("...d,...d->...", g.float(), x.float())[..., None]
+        coef = inv ** 3 * (dot / d)
+        dx = g * inv.to(dt) - x * coef.to(dt)
+        dscale = torch.einsum("...d,...d->d", dy.float(),
+                              (x * inv.to(dt)).float())
+        return dx, dscale.to(scale.dtype), None
+
+
 def apply_norm(params, x, kind: str, eps: float = 1e-5):
-    """Statistics in f32, full-width tensors in x's dtype (``apply_norm``
-    and ``_rms_fwd``).  Autograd differentiates this directly; the
-    reference's dtype-keeping RMS VJP (``_rms_bwd``) is not ported yet
-    (ROADMAP item 11)."""
+    """Statistics in f32, full-width tensors in x's dtype (``apply_norm``).
+    The RMS norm differentiates through :class:`RMSNorm`; the layer and
+    non-parametric norms through autograd."""
     dt = x.dtype
     d = x.shape[-1]
-    xf = x.float()
-    ms = (xf * xf).sum(dim=-1, keepdim=True) / d
     if kind == "rms":
-        inv = torch.rsqrt(ms + eps)
-        return x * inv.to(dt) * params["scale"].to(dt)
+        return RMSNorm.apply(x, params["scale"], eps)
     if kind not in ("layer", "nonparam"):
         raise ValueError(kind)
+    xf = x.float()
+    ms = (xf * xf).sum(dim=-1, keepdim=True) / d
     mean = xf.sum(dim=-1, keepdim=True) / d
     inv = torch.rsqrt(ms - mean * mean + eps)
     out = (x - mean.to(dt)) * inv.to(dt)

@@ -3,8 +3,11 @@ clipping (port of ``repro/optim/optimizer.py``): functions over the
 port's parameter trees, leaf by leaf in the reference's order, with the
 reference's formula and casts.  Moments are kept in
 ``run.opt_state_dtype``; updates are made in f32 and cast back to each
-parameter's dtype.  Nothing is updated in place: each call returns new
-trees.
+parameter's dtype.  :func:`adamw_update` returns new trees, or with
+``inplace=True`` writes the parameters and moments over the old ones
+(the port's counterpart of the reference's train loop donating them to
+its jitted step: the moments then exist once, not twice, at the update),
+with the same values.
 """
 from __future__ import annotations
 
@@ -70,8 +73,11 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt: OptState, run: RunConfig):
-    """One AdamW step.  Returns (new_params, new_opt, metrics)."""
+def adamw_update(params, grads, opt: OptState, run: RunConfig, *,
+                 inplace: bool = False):
+    """One AdamW step.  Returns (new_params, new_opt, metrics); with
+    ``inplace`` the parameter and moment tensors are updated in place
+    and returned (the caller's trees see the step)."""
     grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
     step = opt.step + 1
     lr = schedule(run, step)
@@ -81,10 +87,15 @@ def adamw_update(params, grads, opt: OptState, run: RunConfig):
 
     def upd(p, g, m, v):
         gf = g.to(m.dtype)
-        m = b1 * m + (1 - b1) * gf
-        v = b2 * v + (1 - b2) * gf * gf
+        if inplace:         # the same operations, each result written over
+            m.mul_(b1).add_((1 - b1) * gf)
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+        else:
+            m = b1 * m + (1 - b1) * gf
+            v = b2 * v + (1 - b2) * gf * gf
         delta = (m / c1) / (torch.sqrt(v / c2) + eps) + wd * p.to(m.dtype)
-        return (p.to(m.dtype) - lr * delta).to(p.dtype), m, v
+        new = (p.to(m.dtype) - lr * delta).to(p.dtype)
+        return (p.copy_(new) if inplace else new), m, v
 
     out = [upd(p, g, m, v) for p, g, m, v in zip(
         leaves(params), leaves(grads), leaves(opt.mu), leaves(opt.nu))]

@@ -14,43 +14,47 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+# The walks are module functions, not closures: a recursive closure
+# refers to itself through its cell, and the cycle would keep the leaves
+# it holds (whole parameter trees) alive until the cyclic collector runs.
+
+def _walk(node, out: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], out)
+    elif isinstance(node, (list, tuple)):
+        for item in node:
+            _walk(item, out)
+    else:
+        out.append(node)
+
+
 def leaves(tree) -> list:
     """The leaves of ``tree`` in order."""
     out = []
-
-    def walk(node):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key])
-        elif isinstance(node, (list, tuple)):
-            for item in node:
-                walk(item)
-        else:
-            out.append(node)
-
-    walk(tree)
+    _walk(tree, out)
     return out
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        built = {key: _build(node[key], it) for key in sorted(node)}
+        return {key: built[key] for key in node}
+    if _is_namedtuple(node):
+        return type(node)(*[_build(item, it) for item in node])
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(item, it) for item in node)
+    return next(it)
 
 
 def unflatten(example, new_leaves) -> object:
     """A tree shaped as ``example`` holding ``new_leaves`` in order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            built = {key: build(node[key]) for key in sorted(node)}
-            return {key: built[key] for key in node}
-        if _is_namedtuple(node):
-            return type(node)(*[build(item) for item in node])
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(item) for item in node)
-        return next(it)
-
-    out = build(example)
+    out = _build(example, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the example tree holds")
     return out

@@ -190,9 +190,9 @@ def test_bwd_refuses_what_the_kernel_cannot_take():
 
 
 def test_selective_scan_cpu_stays_differentiable():
-    """On the CPU the scan's plain version carries the gradient (the CUDA
-    route refuses an input that requires grad: chip_smoke.py phase
-    ``lm_train_small``)."""
+    """On the CPU the scan's gradient is its plain backward, through
+    ``SelectiveScan`` (on the card the backward kernel: chip_smoke.py
+    phases ``k3_bwd`` and ``lm_train_small``)."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn((1, 6, 4), generator=g, requires_grad=True)
     dt = torch.rand((1, 6, 4), generator=g) * 0.5

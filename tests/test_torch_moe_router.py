@@ -26,8 +26,8 @@ CASES = ("zero_router", "zero_row")
 
 
 def _port_cfg(ref_cfg):
-    """The port's ModelConfig twin of a reference config (the port's
-    registry does not list the MoE families yet)."""
+    """The port's ModelConfig twin of a reference config, built field
+    for field (the reduced config of any family, registered or not)."""
     fields = dataclasses.asdict(ref_cfg)
     fields["moe"] = TBASE.MoEConfig(**fields["moe"])
     fields["ssm"] = (TBASE.SSMConfig(**fields["ssm"])

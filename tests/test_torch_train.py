@@ -17,6 +17,8 @@ a small share of it); the int8 run quantizes both sides' gradients, where
 a value on a quantization step's edge may round either way and move its
 weight by a different ~lr, so it is held to 3e-3 (three such moves).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,13 +216,31 @@ def test_train_steps_match_reference(ref_params, batches, ref_runs, name,
     assert int(opt.step) == 3
 
 
-def test_make_train_step_refuses_unported_families():
-    for arch in ("jamba_v01_52b",):
-        cfg = reduced_config(get_config(arch))
+# every ported family with an SSM or MoE layer builds a train step; a
+# vision (or enc-dec) config is still refused
+TRAINABLE = ("falcon_mamba_7b", "deepseek_moe_16b", "mixtral_8x22b",
+             "jamba_v01_52b")
+
+
+@pytest.mark.parametrize("case", [*TRAINABLE, "jamba_v01_52b:vision"])
+def test_make_train_step_refuses_unported_families(case):
+    arch, _, frontend = case.partition(":")
+    cfg = reduced_config(get_config(arch))
+    if frontend:
+        cfg = dataclasses.replace(cfg, frontend=frontend)
         for dev in ("cpu", None):
             with pytest.raises(NotImplementedError,
-                               match="ROADMAP item 11.2"):
+                               match="ROADMAP item 11"):
                 TSTEPS.make_train_step(cfg, RunConfig(), device=dev)
+        return
+    assert cfg.ssm is not None or cfg.moe is not None
+    assert callable(TSTEPS.make_train_step(cfg, RunConfig(), device="cpu"))
+    if torch.cuda.is_available():
+        assert callable(TSTEPS.make_train_step(cfg, RunConfig()))
+    else:
+        # past the family check, the default device (the card) is refused
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TSTEPS.make_train_step(cfg, RunConfig())
 
 
 def test_opt_state_from_reference(ref_params):
