@@ -19,6 +19,10 @@ any failure ends the run with a non-zero exit:
             registers and spills, and for each instance of
             K1's warp kernel its ``REDUX`` and ``BAR`` instructions:
             at least one ``REDUX``, no ``BAR``, no spills, no stack;
+            and for each instance of the scan's backward
+            ``ssm_scan_bwd`` its ``MUFU.EX2`` count (at most one a
+            recomputed state-step: none in the walk back) and no
+            spills;
 3. k1       the mapper's two kernels (warp and block) against its plain
             torch version on the card, at the ``scheduler_overhead``
             shapes (m=256, k in {1, 8, 16, 32, 256}, T=100), random
@@ -40,8 +44,12 @@ any failure ends the run with a non-zero exit:
             tests' cases, on lengths and widths that are not multiples
             of the kernel's 64-step runs and channel blocks (and rows
             that are not whole 16-byte chunks), and at Jamba's shape
-            (B=2, S=4096, Di=8192, N=16, f32 A); kernel, plain and bound
-            times;
+            (B=2, S=4096, Di=8192, N=16, f32 A); its training variant
+            (``with_states``) must give K3's y bit for bit and the
+            plain version's run-start states (within 1e-4 of their
+            largest magnitude, f32 in both dtypes) on every case; the
+            kernel's and the training variant's times (in turns), plain
+            times and bounds (the variant's with its states' bytes);
 6. golden   the frozen golden grid and single-app anchor;
 7. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
             interference seed 1) at sim_len 1e6 (13,824 events; the
@@ -104,8 +112,8 @@ any failure ends the run with a non-zero exit:
             sim_len 2e4 equal to the linear queue leaf for leaf (but
             the queue's own leaves), and with batch_pop 64 at 1e5
             equal to ``goldens.FABRICS``; the tree queue with batch_pop
-            64 at k=32 on ``hier_tree`` and ``mesh2d`` at 1e5 equal to
-            ``goldens.FABRICS``; the tier's cut points: k=1 at 2.5e5
+            64 at k=32 on ``hier_tree`` and ``mesh2d`` at 5e4 (cut from
+            1e5 for the time limit) equal to ``goldens.FABRICS``; the tier's cut points: k=1 at 2.5e5
             (linear queue), and k=256 (32,768 slots, tree/64) on
             ``hier_tree`` and ``mesh2d`` at 1e5, equal to
             ``goldens.CUTS``; conservation and
@@ -117,7 +125,8 @@ any failure ends the run with a non-zero exit:
             busy time and host reads a step, split by step kind;
 14. faults  fault injection and the failure detector through the lane
             loop at the same tier (k=16, linear queue, 2 lanes a group,
-            sim_len 1e5, the fault times scaled to it; the groups of
+            sim_len 5e4 (cut from 1e5 for the time limit), the fault
+            times scaled to it; the groups of
             ``goldens.fault_specs``): ``hier_tree`` under no fault,
             Poisson link failures, a partition and GMN churn, ``mesh2d``
             under the partition, and the detector tier under a
@@ -125,8 +134,8 @@ any failure ends the run with a non-zero exit:
             ``suspect_weighted`` under periodic beacons,
             ``avoid_suspected`` under heartbeat) against
             ``goldens.FAULTS``; the no-fault group also against
-            ``goldens.FABRICS`` (and its events/s against phase 12's
-            no-fault probe on the same lanes); ``beacons_rx + msgs_lost
+            ``goldens.FABRICS`` (and its events/s beside phase 12's
+            no-fault probe on the same lanes at 1e5); ``beacons_rx + msgs_lost
             == (k-1) * beacons_tx + retries_tx`` on drop-free lanes,
             every arrived application complete, the partition's outage
             exactly in ``downtime``; seed 1 of the partition group in
@@ -173,14 +182,18 @@ any failure ends the run with a non-zero exit:
             bf16 ``dout`` that is not 16-byte aligned must raise; K2 at
             the prefill shape with ``lse`` off and on, in turns;
 20. k3_bwd     the scan's backward (``csrc/selective_scan_bwd.cu``)
-            against its plain version in f32 and bf16 (f32 A), on the
-            JAX tests' scan cases, S and Di that are not multiples of
-            its 16-step runs or channel blocks, N in {1, 4, 16, 64}, B =
-            1 and falcon_mamba_7b's training shape (B=4, S=2048,
-            Di=8192, N=16): each gradient within 1e-4 (f32) or 2e-2
-            (bf16) of its largest magnitude, two launches bit-equal;
-            kernel, plain and bound times and each of its two kernels'
-            device time at the training shape;
+            from the forward's run-start states, against its plain
+            version in f32 and bf16 (f32 A), on the JAX tests' scan
+            cases, S and Di that are not multiples of its runs, stages,
+            channel blocks or clusters, N in {1, 4, 16, 64}, B = 1 and
+            falcon_mamba_7b's training shape (B=4, S=2048, Di=8192,
+            N=16): each gradient within 1e-4 (f32) or 2e-2 (bf16) of its
+            largest magnitude, two launches bit-equal (the second
+            without states, which makes them first); kernel, plain and
+            bound times, each of its two kernels' device time, its run,
+            stage, cluster size, shared memory a block, resident blocks
+            an SM and clusters, and phase 2's registers and
+            ``MUFU.EX2`` counts, at the training shape;
 21. lm_train_small  the reduced olmo of tests/test_train_loop.py in f32:
             three ``make_train_step`` steps (plain, microbatches=2,
             int8) on the card against the same steps on the CPU; then
@@ -193,8 +206,9 @@ any failure ends the run with a non-zero exit:
             losses, the last below the first; ms per step, tokens/s,
             peak memory, device time by kernel group of one more step;
 23. lm_train_ssm  falcon_mamba_7b at full width cut to 16 of 64 layers
-            (2.22 B parameters), the same run: 32 K3 and 16 scan
-            backward launches a step, no K2;
+            (2.22 B parameters), the same run: 32 launches of K3's
+            training variant and 16 of the scan's backward a step, no
+            K2;
 24. lm_train_moe  deepseek_moe_16b at full width cut to 6 of 28 layers
             (3.44 B parameters), the same run: 11 K2 and 6 backward
             launches a step (layer 0 is outside remat); the router's
@@ -208,7 +222,9 @@ launch counts, zeroed just before it and read just after: the TLM path
 the faults (phase 14) and the trace (phase 15), which launch none of the
 three kernels, the prefill (phase 17: K2, K3), ``serve()`` (phase 18,
 whose decode steps are plain torch) and the three training runs (phases
-22-24: K2 and its backward, K3 and its backward).  The comparison
+22-24: K2 and its backward, K3's training variant and the scan's
+backward); the ``kernels`` line gives K3 and its training variant a row
+each.  The comparison
 launches of phases 3-5, 16, 19, 20 and 21 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
@@ -322,6 +338,7 @@ def _ptxas(log: str, demangle) -> dict:
 def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import selective_scan as SS
     bin_dir = Path(_build.nvcc_path()).parent
 
     def timed(name):
@@ -377,15 +394,30 @@ def phase_build():
         raise AssertionError(f"K1's warp kernel: want REDUX, no BAR, no "
                              f"spills and no stack in every instance, got "
                              f"{k1_warp}")
+    # the scan's backward: no instance may spill; each one's MUFU.EX2
+    # (the exponential's SFU op) count, against one a recomputed
+    # state-step of its unrolled run (RUN x 4 states) and none in the walk
+    # back
+    k3_bwd = {}
+    for fn, lines in _sass(bin_dir, built["selective_scan_bwd"][0],
+                           demangle).items():
+        if fn.startswith("ssm_scan_bwd<"):
+            k3_bwd[fn] = {**kernels.get(fn, {}), "MUFU.EX2": sum(
+                "MUFU.EX2" in ln for ln in lines), "recomputed": 4 * SS.RUN}
+    if not k3_bwd or any(v.get("spill_bytes") != 0
+                         or v["MUFU.EX2"] > v["recomputed"]
+                         for v in k3_bwd.values()):
+        raise AssertionError(f"the scan's backward: want no spills and at "
+                             f"most one MUFU.EX2 a recomputed state-step in "
+                             f"every ssm_scan_bwd instance, got {k3_bwd}")
     emit({"phase": "build", "libraries": {n: b[0] for n, b in built.items()},
           "seconds": {n: b[1] for n, b in built.items()}, "wall_s": wall,
-          "ptxas": kernels, "k3_bwd": {
-              fn: v for fn, v in kernels.items()
-              if fn.startswith("ssm_scan_bwd")},
+          "ptxas": kernels, "k3_bwd": k3_bwd,
           "k2_hgmma_instructions": hgmma,
           "k2_bwd_bf16": bwd_tc, "k1_warp": k1_warp,
           "spill_free": all(k.get("spill_bytes", 0) == 0
                             for k in kernels.values())})
+    return k3_bwd
 
 
 def _sass(bin_dir: Path, lib: str, demangle) -> dict:
@@ -902,8 +934,9 @@ def phase_sweep() -> int:
 # --------------------------------------------------------------------------
 
 FABRIC_BUDGET_S = 150.0        # the phase's share of TIME_LIMIT_S
-# the k=16 hier_tree probe, and the horizon of phase queues' runs and of
-# phase faults: 1e5 keeps the script under TIME_LIMIT_S on slow hosts
+# the k=16 hier_tree probe, and the horizon of phase queues' k=16 runs:
+# 1e5 keeps the script under TIME_LIMIT_S on slow hosts (phase faults
+# and the k=32 queue runs are cut further, to 5e4)
 FABRIC_PROBE_SIM_LEN = 1e5
 FABRIC_CUT_SIM_LEN = 1e5       # the other runs where 1e6 does not fit
 FABRIC_COUNT_SIM_LEN = 2e4     # the horizon kernels per step are split at
@@ -1193,6 +1226,8 @@ QUEUE_COUNT_SIM_LEN = FABRIC_COUNT_SIM_LEN   # linear/1's count is fabrics'
 # would take about 140 s more on the slowest host seen
 QUEUE_CUT_SIM_LEN = 1e5
 QUEUE_K1_SIM_LEN = 2.5e5        # k=1's (its only golden: a few seconds)
+# the tree queue at k=32: 5e4 (1e5 took 51 s on the slowest host seen)
+QUEUE_K32_SIM_LEN = 5e4
 
 
 class _Steps:
@@ -1334,12 +1369,13 @@ def phase_queues(linear):
             bad.append((k, topo, qi, "transport gates"))
     # the tree queue at k=32 on two fabrics
     for topo32 in ("hier_tree", "mesh2d"):
-        run = _queue_group(32, topo32, FABRIC_PROBE_SIM_LEN, "tree",
+        run = _queue_group(32, topo32, QUEUE_K32_SIM_LEN, "tree",
                            QUEUE_BATCH)
         st = run[0]
-        rows.append(_queue_row(32, topo32, FABRIC_PROBE_SIM_LEN, "tree",
+        rows.append(_queue_row(32, topo32, QUEUE_K32_SIM_LEN, "tree",
                                QUEUE_BATCH, run))
-        check((32, topo32), G.state_digest(st), want[32][topo32])
+        check((32, topo32), G.state_digest(st),
+              G.FABRICS[QUEUE_K32_SIM_LEN][32][topo32])
         if not _queue_gates(st, 32, topo32):
             bad.append((32, topo32, "transport gates"))
 
@@ -1429,8 +1465,9 @@ def phase_faults(linear):
     ``topology_frontier``'s paper tier (``goldens.fault_specs``): every
     group against the JAX reference's frozen digests
     (``goldens.FAULTS``), the no-fault group also against
-    ``goldens.FABRICS`` and, for its cost, against phase ``fabrics``'
-    no-fault probe on the same lanes (``linear``), conservation with
+    ``goldens.FABRICS`` and, for its cost, beside phase ``fabrics``'
+    no-fault probe on the same lanes (``linear``, a longer horizon:
+    events/s are not the same mix), conservation with
     losses and retries, completion, the partition's downtime, a seq run
     equal to its vmap lane, and kernels, busy time and reads a step."""
     import torch
@@ -1550,6 +1587,8 @@ def phase_faults(linear):
               "fault_aware_steps": none_row["steps"],
               "ratio": none_row["events_per_s"]
               / (base["events"] / base["wall_s"]),
+              "no_fault_sim_len": FABRIC_PROBE_SIM_LEN,
+              "fault_aware_sim_len": sim_len,
               "source": "phase fabrics' probe"},
           "count": {"sim_len": sl, **counts,
                     "no_fault_linear_1": linear["count"]},
@@ -1777,6 +1816,10 @@ K3_MODEL = (2, 4096, 8192, 16)                    # (B, S, Di, N)
 # <= 2**-7 of the value (outputs reach ~100 at the model shape).
 K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K3_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 2.0 ** -7)}
+# K3's training variant's run-start states against the plain version's:
+# f32 on both sides from the same inputs in either dtype, so f32's share
+# of the largest magnitude (h kept at bf16 would be ~4e-3 off)
+K3_STATES_TOL = 1e-4
 LM_SMALL_TOL = 1e-3     # f32 logits of order 5, card vs CPU sum orders
 LM_SMALL_TOKENS = (2, 256)
 PREFILL_B, PREFILL_S, PREFILL_LAYERS = 2, 4096, 16
@@ -1807,12 +1850,17 @@ def k2_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, elem_bytes):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def k3_bound_ms(B, S, Di, N, elem_bytes):
+def k3_bound_ms(B, S, Di, N, elem_bytes, with_states=False):
     """Least time for the scan: the larger of its bytes (x, dt, B, C in,
-    y out; A, D f32 in) over the memory rate and its f32 operations (per
-    state element: the dt*A product, the exponential, three products
-    and two sums; per channel step three more) over the f32 peak."""
+    y out; A, D f32 in; with ``with_states``, the training variant's f32
+    run-start states, (B, Di, ceil(S / RUN), N), out too) over the
+    memory rate and its f32 operations (per state element: the dt*A
+    product, the exponential, three products and two sums; per channel
+    step three more) over the f32 peak."""
+    from repro_torch.kernels import selective_scan as SS
     nbytes = (3 * B * S * Di + 2 * B * S * N) * elem_bytes + 4 * (Di * N + Di)
+    if with_states:
+        nbytes += 4 * B * Di * SS.n_runs(S) * N
     ops = 7.0 * B * S * Di * N + 3.0 * B * S * Di
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -1904,16 +1952,28 @@ def _k3_inputs(case, dtype, gen):
 
 
 def phase_k3():
+    """K3 against its plain version; its training variant (``with_states``)
+    gives K3's y bit for bit and the plain version's run-start states
+    (f32 on both sides: within ``K3_STATES_TOL`` of their largest
+    magnitude in both dtypes); times of both at the model shape, in
+    turns, each beside its own bound and plain time.  -> (K3's row, the
+    variant's row) of the ``kernels`` line."""
     import torch
     from repro_torch.kernels import selective_scan as SS
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, worst = [], 0.0
+    rows, worst, worst_train = [], 0.0, 0.0
     for case in K3_CASES + [K3_MODEL]:
         for name, dtype in _dtypes().items():
             args = _k3_inputs(case, dtype, gen)
-            got = SS.selective_scan(*args).float()
-            want = SS.selective_scan_plain(*args).float()
+            y = SS.selective_scan(*args)
+            y_train, states = SS.selective_scan(*args, with_states=True)
+            want, want_states = SS.selective_scan_plain(*args,
+                                                        with_states=True)
             torch.cuda.synchronize()
+            if not torch.equal(y, y_train):
+                raise AssertionError(f"k3 {case} {name}: the training "
+                                     f"variant's y differs from K3's")
+            got, want = y.float(), want.float()
             atol, rtol = K3_TOL[name]
             diff = (got - want).abs()
             err = float(diff.max())
@@ -1921,21 +1981,57 @@ def phase_k3():
                 raise AssertionError(f"k3 {case} {name}: kernel vs plain "
                                      f"max abs err {err} beyond {atol} + "
                                      f"{rtol} |plain|")
+            if states.shape != want_states.shape:
+                raise AssertionError(f"k3 {case} {name}: states "
+                                     f"{tuple(states.shape)} vs plain "
+                                     f"{tuple(want_states.shape)}")
+            st_abs = float((states - want_states).abs().max())
+            st_err = st_abs / max(float(want_states.abs().max()), 1e-30)
+            if not st_err <= K3_STATES_TOL:
+                raise AssertionError(f"k3 {case} {name}: states {st_err} "
+                                     f"of the largest > {K3_STATES_TOL}")
             worst = max(worst, err)
+            worst_train = max(worst_train, err, st_abs)
             rows.append({"case": list(case), "dtype": name,
                          "max_abs_err": err,
-                         "max_abs_plain": float(want.abs().max())})
+                         "max_abs_plain": float(want.abs().max()),
+                         "train_y_same_bits": True,
+                         "states_max_abs_err": st_abs,
+                         "states_err_of_max": st_err})
+            del args, y, y_train, states, want, want_states
     args = _k3_inputs(K3_MODEL, torch.bfloat16, gen)
-    ms = cuda_ms(lambda: SS.selective_scan(*args), rounds=10)
+
+    def k3():
+        return SS.selective_scan(*args)
+
+    def k3_train():
+        return SS.selective_scan(*args, with_states=True)
+    turns = [cuda_ms(fn, rounds=10) for fn in (k3, k3_train, k3_train, k3)]
+    ms, train_ms = statistics.mean(turns[::3]), statistics.mean(turns[1:3])
     plain_ms = cuda_ms(lambda: SS.selective_scan_plain(*args), rounds=2,
                        warmup=1)
+    train_plain_ms = cuda_ms(lambda: SS.selective_scan_plain(
+        *args, with_states=True), rounds=2, warmup=0)
     bound, by = k3_bound_ms(*K3_MODEL, elem_bytes=2)
+    train_bound, train_by = k3_bound_ms(*K3_MODEL, elem_bytes=2,
+                                        with_states=True)
     emit({"phase": "k3", "cases": rows, "all_match": True,
+          "states_tol_of_max": K3_STATES_TOL,
+          "states_err_of_max_worst": max(r["states_err_of_max"]
+                                         for r in rows),
           "model_shape": list(K3_MODEL), "dtype": "bfloat16", "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-          "library_ms": None})
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+          "in_turns_ms": turns, "plain_ms": plain_ms, "bound_ms": bound,
+          "bound_by": by, "library_ms": None,
+          "train_variant": {"run": SS.RUN, "ms": train_ms,
+                            "plain_ms": train_plain_ms,
+                            "bound_ms": train_bound, "bound_by": train_by,
+                            "states_bytes": 4 * K3_MODEL[0] * K3_MODEL[2]
+                            * SS.n_runs(K3_MODEL[1]) * K3_MODEL[3]}})
+    return ({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None},
+            {"max_abs_err": worst_train, "ms": train_ms,
+             "plain_ms": train_plain_ms, "bound_ms": train_bound,
+             "bound_by": train_by, "library_ms": None})
 
 
 def _jamba(n_layers=None):
@@ -2395,10 +2491,13 @@ def k3_bwd_bound_ms(B, S, Di, N, elem_bytes):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def phase_k3_bwd():
+def phase_k3_bwd(build):
     """The scan's backward kernel against its plain version in f32 and
-    bf16 (f32 A), two launches bit for bit, and times at falcon_mamba_7b's
-    training shape."""
+    bf16 (f32 A), from the forward's run-start states, two launches bit
+    for bit (and the call without states, which makes them first, the
+    same bits); at falcon_mamba_7b's training shape its times, the
+    device split, the launch facts (run, cluster, shared memory, resident
+    blocks and clusters) and ``build``'s ptxas and MUFU.EX2 counts."""
     import torch
     from repro_torch.kernels import selective_scan as SS
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2408,7 +2507,8 @@ def phase_k3_bwd():
             args = _k3_inputs(case, dtype, gen)
             dy = torch.randn(args[0].shape, generator=gen,
                              device="cuda").to(dtype)
-            got = SS.selective_scan_bwd(*args, dy)
+            _, states = SS.selective_scan(*args, with_states=True)
+            got = SS.selective_scan_bwd(*args, dy, states)
             again = SS.selective_scan_bwd(*args, dy)
             want = SS.selective_scan_bwd_plain(*args, dy)
             torch.cuda.synchronize()
@@ -2433,14 +2533,15 @@ def phase_k3_bwd():
             worst = max(worst, *(errs[g] for g in K3_BWD_GRADS))
             rows.append({"case": list(case), "dtype": name, **errs,
                          "same_bits": True})
-            del args, dy, got, again, want
+            del args, dy, states, got, again, want
     torch.cuda.empty_cache()
     args = _k3_inputs(K3_BWD_TRAIN, torch.bfloat16, gen)
     dy = torch.randn(args[0].shape, generator=gen,
                      device="cuda").to(torch.bfloat16)
+    _, states = SS.selective_scan(*args, with_states=True)
 
     def bwd():
-        return SS.selective_scan_bwd(*args, dy)
+        return SS.selective_scan_bwd(*args, dy, states)
     ms = cuda_ms(bwd, rounds=5)
     # the plain version ran at this shape above: no warm-up call
     plain_ms = cuda_ms(lambda: SS.selective_scan_bwd_plain(*args, dy),
@@ -2448,13 +2549,18 @@ def phase_k3_bwd():
     fwd_ms = cuda_ms(lambda: SS.selective_scan(*args), rounds=5)
     device_ms = _bwd_device_ms(bwd, reps=3, names=K3_BWD_KERNEL_NAMES)
     bound, by = k3_bwd_bound_ms(*K3_BWD_TRAIN, elem_bytes=2)
-    del args, dy
+    info = SS.bwd_launch_info(K3_BWD_TRAIN[3], torch.bfloat16)
+    if info["active_clusters"] < 1:
+        raise AssertionError(f"k3_bwd: no cluster of the backward fits "
+                             f"the card: {info}")
+    del args, dy, states
     torch.cuda.empty_cache()
     emit({"phase": "k3_bwd", "cases": rows, "all_match": True,
           "tol_of_max": K3_BWD_TOL, "train_shape": list(K3_BWD_TRAIN),
           "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
           "bound_ms": bound, "bound_by": by, "k3_fwd_ms": fwd_ms,
-          "device_ms_by_kernel": device_ms})
+          "device_ms_by_kernel": device_ms, "launch": info,
+          "instances": build})
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -2582,7 +2688,7 @@ def _lm_train_path(phase, cfg, want_per_step):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     FA.launches = FA.bwd_launches = SS.launches = SS.bwd_launches = 0
-    HM.launches = 0
+    SS.states_launches = HM.launches = 0
     t0 = time.perf_counter()                   # the training path starts
     params, opt, losses = train(cfg, run, steps=LM_TRAIN_STEPS,
                                 batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
@@ -2592,6 +2698,7 @@ def _lm_train_path(phase, cfg, want_per_step):
     launches = {"flash_attention": FA.launches,  # ... and ends here
                 "flash_attention_bwd": FA.bwd_launches,
                 "selective_scan": SS.launches,
+                "selective_scan_states": SS.states_launches,
                 "selective_scan_bwd": SS.bwd_launches,
                 "hier_minsearch": HM.launches}
     want = {k: n * LM_TRAIN_STEPS for k, n in want_per_step.items()}
@@ -2642,21 +2749,22 @@ def phase_lm_train():
     launches, _, report = _lm_train_path("lm_train", cfg, {
         "flash_attention": 2 * cfg.n_layers,
         "flash_attention_bwd": cfg.n_layers, "selective_scan": 0,
-        "selective_scan_bwd": 0, "hier_minsearch": 0})
+        "selective_scan_states": 0, "selective_scan_bwd": 0,
+        "hier_minsearch": 0})
     emit(report)
     return launches
 
 
 def phase_lm_train_ssm():
     """falcon_mamba_7b at full width cut to 16 layers in bf16: every layer
-    is a super-block under full remat, so 32 K3 and 16 scan backward
-    launches a step; no attention."""
+    is a super-block under full remat, so 32 launches of K3's training
+    variant and 16 of the scan's backward a step; no attention."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
                               n_layers=LM_TRAIN_SSM_LAYERS)
     launches, _, report = _lm_train_path("lm_train_ssm", cfg, {
         "flash_attention": 0, "flash_attention_bwd": 0,
-        "selective_scan": 2 * cfg.n_layers,
+        "selective_scan": 0, "selective_scan_states": 2 * cfg.n_layers,
         "selective_scan_bwd": cfg.n_layers, "hier_minsearch": 0})
     emit(report)
     return launches
@@ -2674,7 +2782,8 @@ def phase_lm_train_moe():
     launches, metrics, report = _lm_train_path("lm_train_moe", cfg, {
         "flash_attention": cfg.moe.first_dense + 2 * n_moe,
         "flash_attention_bwd": cfg.n_layers, "selective_scan": 0,
-        "selective_scan_bwd": 0, "hier_minsearch": 0})
+        "selective_scan_states": 0, "selective_scan_bwd": 0,
+        "hier_minsearch": 0})
     # the router's statistics of the last step run (the profiled one),
     # each summed over the MoE layers as lm_loss sums them
     emit({**report, "moe_layers": n_moe,
@@ -2706,10 +2815,10 @@ def main() -> int:
         return out
 
     timed(phase_device)
-    timed(phase_build)
+    k3_bwd_build = timed(phase_build)
     k1 = timed(phase_k1)
     k2 = timed(phase_k2)
-    k3 = timed(phase_k3)
+    k3, k3_states = timed(phase_k3)
     timed(phase_golden)
     FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
     paper_off = timed(phase_paper)
@@ -2752,7 +2861,7 @@ def main() -> int:
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
     k2_bwd = timed(phase_k2_bwd)
-    k3_bwd = timed(phase_k3_bwd)
+    k3_bwd = timed(phase_k3_bwd, k3_bwd_build)
     timed(phase_lm_train_small)
     trained = timed(phase_lm_train)
     trained_ssm = timed(phase_lm_train_ssm)
@@ -2763,8 +2872,8 @@ def main() -> int:
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
     # K2 runs on three main paths (the prefill, olmo_1b's and
-    # deepseek_moe_16b's training), K3 on two (the prefill, falcon_mamba_7b's
-    # training)
+    # deepseek_moe_16b's training), K3 on the prefill and its training
+    # variant on falcon_mamba_7b's training
     trains = (trained, trained_ssm, trained_moe)
     rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
              tlm_launches + sweep_launches, k1),
@@ -2772,6 +2881,8 @@ def main() -> int:
              + sum(t["flash_attention"] for t in trains), k2),
             (SS.NAME, SS.SOURCE, SS.REPLACES, prefill["selective_scan"]
              + sum(t["selective_scan"] for t in trains), k3),
+            (SS.STATES_NAME, SS.SOURCE, SS.REPLACES,
+             sum(t["selective_scan_states"] for t in trains), k3_states),
             (FA.BWD_NAME, FA.BWD_SOURCE, FA.BWD_REPLACES,
              sum(t["flash_attention_bwd"] for t in trains), k2_bwd),
             (SS.BWD_NAME, SS.BWD_SOURCE, SS.BWD_REPLACES,

@@ -25,8 +25,9 @@ without JAX (``chip_smoke.py``):
   (m=256, n_childs=100, max_apps=64, queue_cap=8192, c_s=8, dn_th=4,
   interference seeds (1, 2) at pair_period 14,000, k in (16, 32), the
   linear queue) at sim_len 1e6, at 2.5e5 (34 of the 64 applications;
-  every one arrives before 4.5e5, so 5e5 would cut nothing) and at 1e5,
-  the card's horizons: per (k, fabric) the per-seed
+  every one arrives before 4.5e5, so 5e5 would cut nothing), at 1e5
+  and at 5e4 (the fault groups' and the k=32 queue runs'), the card's
+  horizons: per (k, fabric) the per-seed
   ``events_processed``, ``beacons_tx``, ``beacons_rx``, ``evq_peak``,
   ``dropped`` and ``mgmt_latency``, and the ``app_done`` sha256
   (:func:`fabric_digest`);
@@ -36,7 +37,8 @@ without JAX (``chip_smoke.py``):
   ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5 and at 1e5,
   the card's fallback (:func:`cut_digest`, keyed as FABRICS);
 - the fault groups of the card's phase ``faults`` (:func:`fault_specs`:
-  the tier above at k=16 on the linear queue, sim_len 1e5, under no
+  the tier above at k=16 on the linear queue, sim_len 5e4 (cut from 1e5
+  for the card script's time limit), under no
   fault, Poisson link failures, a partition and GMN churn on
   ``hier_tree``, the partition on ``mesh2d``, and the detector tier
   under a manager outage): per group the per-seed counters, the
@@ -121,7 +123,7 @@ TABLE5 = {
 FABRIC_KS = (16, 32)
 FABRIC_SEEDS = (1, 2)
 FABRIC_PAIR_PERIOD = 14_000.0
-FABRIC_SIM_LENS = (1e6, 2.5e5, 1e5)
+FABRIC_SIM_LENS = (1e6, 2.5e5, 1e5, 5e4)
 FABRIC_PARAMS = dict(m=256, n_childs=100, max_apps=64, queue_cap=8192)
 FABRIC_KNOBS = {"dn_th": 4, "c_s": 8.0}
 FABRIC_TOPOLOGIES = ("ideal", "shared_bus", "hier_tree", "mesh2d")
@@ -370,6 +372,84 @@ FABRICS = {
                                 "1ebd1794df7c3430c18f0f48d5c34ac8"},
         },
     },
+    50000.0: {
+        16: {
+            "ideal": {
+                "events_processed": [648, 648],
+                "beacons_tx": [183, 177],
+                "beacons_rx": [0, 0],
+                "evq_peak": [402, 303],
+                "dropped": [0, 0],
+                "mgmt_latency": [310031.28125, 160784.5],
+                "app_done_sha": "22b5e51cc4f3b1319ea51bd34e88d1ac"
+                                "fbdb89f21928b7e5606ef96c2edc49ab"},
+            "shared_bus": {
+                "events_processed": [3393, 3378],
+                "beacons_tx": [183, 182],
+                "beacons_rx": [2745, 2730],
+                "evq_peak": [625, 555],
+                "dropped": [0, 0],
+                "mgmt_latency": [2122755.5, 2363347.0],
+                "app_done_sha": "e18f8db7879f3d750702c938b287d9b1"
+                                "4ee76ad5ed9c684b152048a61e17edaf"},
+            "hier_tree": {
+                "events_processed": [3348, 3303],
+                "beacons_tx": [180, 177],
+                "beacons_rx": [2700, 2655],
+                "evq_peak": [507, 408],
+                "dropped": [0, 0],
+                "mgmt_latency": [337322.3125, 331671.1875],
+                "app_done_sha": "0596c9026b54cf64e40b715992c986d6"
+                                "a9cef211168d64a53c9e5b44449ca4a2"},
+            "mesh2d": {
+                "events_processed": [3363, 3303],
+                "beacons_tx": [181, 177],
+                "beacons_rx": [2715, 2655],
+                "evq_peak": [511, 408],
+                "dropped": [0, 0],
+                "mgmt_latency": [66738.640625, 59747.71875],
+                "app_done_sha": "a34b1078f5f3836ee9bdd27e68d0a133"
+                                "c28fc8ae89ed08832cd774594025283f"},
+        },
+        32: {
+            "ideal": {
+                "events_processed": [684, 684],
+                "beacons_tx": [219, 215],
+                "beacons_rx": [0, 0],
+                "evq_peak": [402, 303],
+                "dropped": [0, 0],
+                "mgmt_latency": [575536.625, 639958.125],
+                "app_done_sha": "0a172f748ba3fb3ae31b40d27e62a453"
+                                "c4100df5b0a16c5948523ce083af3487"},
+            "shared_bus": {
+                "events_processed": [7442, 7287],
+                "beacons_tx": [218, 213],
+                "beacons_rx": [6758, 6603],
+                "evq_peak": [1620, 1456],
+                "dropped": [0, 0],
+                "mgmt_latency": [20067676.0, 18179828.0],
+                "app_done_sha": "51796d7e0a7efa51f499c33ff8f8886c"
+                                "724f828ae4fa6fc3a1a9a306644cc6d8"},
+            "hier_tree": {
+                "events_processed": [7442, 7349],
+                "beacons_tx": [218, 215],
+                "beacons_rx": [6758, 6665],
+                "evq_peak": [805, 706],
+                "dropped": [0, 0],
+                "mgmt_latency": [371002.34375, 400524.21875],
+                "app_done_sha": "a739792fa69d8d560dd09466bc424faa"
+                                "c513ecbcbf0ad2022c5dd797f0f5ed63"},
+            "mesh2d": {
+                "events_processed": [7442, 7349],
+                "beacons_tx": [218, 215],
+                "beacons_rx": [6758, 6665],
+                "evq_peak": [805, 706],
+                "dropped": [0, 0],
+                "mgmt_latency": [152006.921875, 148707.21875],
+                "app_done_sha": "f94caae2841a6856d65f3f5cf269477e"
+                                "00bc033959eab5f2de4165eada72c2a7"},
+        },
+    },
 }
 
 CUT_KS = (1, 256)
@@ -446,7 +526,7 @@ CUTS = {
 }
 
 FAULT_K = 16
-FAULT_SIM_LEN = 1e5
+FAULT_SIM_LEN = 5e4
 # the detector tier's knobs (fault_frontier's): a raised c_b makes the
 # messages to dead managers a first-order cost
 DETECTOR_KNOBS = dict(FABRIC_KNOBS, T_b=2000.0, susp_mult=8.0,
@@ -459,113 +539,113 @@ DETECTOR_KNOBS = dict(FABRIC_KNOBS, T_b=2000.0, susp_mult=8.0,
 #   G.fault_specs(ExperimentSpec, WorkloadSpec, SimParams, FaultSpec)]))"
 FAULTS = {
     "hier_tree/min_search/threshold/none": {
-        "events_processed": [6831, 6756],
-        "beacons_tx": [369, 364],
-        "beacons_rx": [5535, 5460],
+        "events_processed": [3348, 3303],
+        "beacons_tx": [180, 177],
+        "beacons_rx": [2700, 2655],
         "msgs_lost": [0, 0],
         "reroutes": [0, 0],
         "retries_tx": [0, 0],
-        "susp_false_pos": [2022, 2126],
+        "susp_false_pos": [951, 1005],
         "downtime": [0.0, 0.0],
-        "susp_onsets": [2022, 2126],
-        "app_done_sha": "b5a43fe699c8c99cd1cbf498c851fb28"
-                        "27dd37d082f0474cbb78ff0de1a3d638"},
+        "susp_onsets": [951, 1005],
+        "app_done_sha": "0596c9026b54cf64e40b715992c986d6"
+                        "a9cef211168d64a53c9e5b44449ca4a2"},
     "hier_tree/min_search/threshold/poisson_links": {
-        "events_processed": [6646, 6648],
-        "beacons_tx": [367, 365],
-        "beacons_rx": [5224, 5226],
-        "msgs_lost": [281, 249],
-        "reroutes": [40, 46],
+        "events_processed": [3269, 3242],
+        "beacons_tx": [180, 177],
+        "beacons_rx": [2563, 2536],
+        "msgs_lost": [137, 119],
+        "reroutes": [17, 15],
         "retries_tx": [0, 0],
-        "susp_false_pos": [2191, 2105],
-        "downtime": [1080000.0, 1080000.0],
-        "susp_onsets": [2214, 2132],
-        "app_done_sha": "24bb9781c472f6e745e07fc20c01bb82"
-                        "76c709be42a892ad0d601ec68ff04caf"},
+        "susp_false_pos": [905, 953],
+        "downtime": [400000.0, 400000.0],
+        "susp_onsets": [913, 967],
+        "app_done_sha": "9ad096d4f5783b7f1d65dfde4ad2b4b1"
+                        "23f531cc2fd90f796b9a9b94dc40cc65"},
     "hier_tree/min_search/threshold/partition": {
-        "events_processed": [6104, 5934],
-        "beacons_tx": [368, 362],
-        "beacons_rx": [4552, 4382],
-        "msgs_lost": [968, 1048],
-        "reroutes": [191, 188],
+        "events_processed": [3204, 3111],
+        "beacons_tx": [180, 177],
+        "beacons_rx": [2300, 2207],
+        "msgs_lost": [400, 448],
+        "reroutes": [116, 105],
         "retries_tx": [0, 0],
-        "susp_false_pos": [1707, 1577],
-        "downtime": [3840000.0, 3840000.0],
-        "susp_onsets": [1771, 1633],
-        "app_done_sha": "2bf99d9f6cf5d7189c7e946fd9a81984"
-                        "dad5a531c0ca5f79bcd71f59ce729496"},
+        "susp_false_pos": [747, 821],
+        "downtime": [1920000.0, 1920000.0],
+        "susp_onsets": [819, 877],
+        "app_done_sha": "724892478e87b99351fe5b51e4efd51e"
+                        "b61cb1a86a15ee1213595d988502ec03"},
     "hier_tree/min_search/threshold/gmn_churn": {
-        "events_processed": [6373, 6367],
-        "beacons_tx": [358, 354],
-        "beacons_rx": [5072, 5066],
-        "msgs_lost": [298, 244],
-        "reroutes": [43, 12],
+        "events_processed": [3179, 3200],
+        "beacons_tx": [176, 175],
+        "beacons_rx": [2529, 2550],
+        "msgs_lost": [111, 75],
+        "reroutes": [41, 0],
         "retries_tx": [0, 0],
-        "susp_false_pos": [1905, 1990],
-        "downtime": [60000.0, 60000.0],
-        "susp_onsets": [1905, 2019],
-        "app_done_sha": "aa57d5a6ecc6b42b6860b1d73e55a0de"
-                        "07e5937bab67b754dcb05c67ec3a18ba"},
+        "susp_false_pos": [922, 928],
+        "downtime": [30000.0, 30000.0],
+        "susp_onsets": [922, 943],
+        "app_done_sha": "e0d569309242f39cdcb720901caa218c"
+                        "6560e49e6c09a5d2212b7797c5882883"},
     "mesh2d/min_search/threshold/partition": {
-        "events_processed": [6018, 5880],
-        "beacons_tx": [366, 360],
-        "beacons_rx": [4466, 4328],
-        "msgs_lost": [1024, 1072],
-        "reroutes": [204, 199],
+        "events_processed": [3201, 3087],
+        "beacons_tx": [183, 177],
+        "beacons_rx": [2297, 2183],
+        "msgs_lost": [448, 472],
+        "reroutes": [122, 116],
         "retries_tx": [0, 0],
-        "susp_false_pos": [1646, 1644],
-        "downtime": [3840000.0, 3840000.0],
-        "susp_onsets": [1718, 1716],
-        "app_done_sha": "e6a3c3cb3b2ca9d573e6ec1576a35f5f"
-                        "a485c3fada99899c65a35864016b98f5"},
+        "susp_false_pos": [762, 821],
+        "downtime": [1920000.0, 1920000.0],
+        "susp_onsets": [834, 877],
+        "app_done_sha": "400e8bb57a2975ece227087cf3a2899e"
+                        "bf6d0966679e29aabf69e30e17fac758"},
     "hier_tree/min_search/periodic/gmn_outage": {
-        "events_processed": [5302, 5332],
-        "beacons_tx": [266, 268],
-        "beacons_rx": [3646, 3700],
-        "msgs_lost": [884, 796],
-        "reroutes": [351, 70],
-        "retries_tx": [540, 476],
-        "susp_false_pos": [164, 328],
-        "downtime": [400000.0, 400000.0],
-        "susp_onsets": [228, 400],
-        "app_done_sha": "513d3ecb349dd842d56434ff0676ad06"
-                        "182cc3c407f7ad9a8bb580c00353b8f4"},
+        "events_processed": [2809, 2854],
+        "beacons_tx": [143, 146],
+        "beacons_rx": [1953, 1886],
+        "msgs_lost": [540, 924],
+        "reroutes": [308, 9],
+        "retries_tx": [348, 620],
+        "susp_false_pos": [36, 42],
+        "downtime": [200000.0, 200000.0],
+        "susp_onsets": [111, 106],
+        "app_done_sha": "8e03d188c253f4b0581cc002814ecd0f"
+                        "e892fed8f7bca8964ff72ce6136815d9"},
     "hier_tree/avoid_suspected/periodic/gmn_outage": {
-        "events_processed": [4612, 5257],
-        "beacons_tx": [220, 263],
-        "beacons_rx": [2996, 3649],
-        "msgs_lost": [700, 756],
-        "reroutes": [293, 58],
-        "retries_tx": [396, 460],
-        "susp_false_pos": [183, 268],
-        "downtime": [400000.0, 400000.0],
-        "susp_onsets": [247, 340],
-        "app_done_sha": "a922d4dc20037aa5a3eb76ea16940284"
-                        "1b86803fa98bf6d76a8361890f8fd0bf"},
+        "events_processed": [2389, 2569],
+        "beacons_tx": [115, 127],
+        "beacons_rx": [1533, 1601],
+        "msgs_lost": [540, 908],
+        "reroutes": [308, 6],
+        "retries_tx": [348, 604],
+        "susp_false_pos": [36, 42],
+        "downtime": [200000.0, 200000.0],
+        "susp_onsets": [111, 106],
+        "app_done_sha": "f1f93ae7e9299f6af8ce7db786c2b1d6"
+                        "99037de2acacf420a72dcd5f248ac508"},
     "hier_tree/suspect_weighted/periodic/gmn_outage": {
-        "events_processed": [4672, 4807],
-        "beacons_tx": [224, 233],
-        "beacons_rx": [3056, 3247],
-        "msgs_lost": [708, 708],
-        "reroutes": [290, 84],
-        "retries_tx": [404, 460],
-        "susp_false_pos": [185, 199],
-        "downtime": [400000.0, 400000.0],
-        "susp_onsets": [249, 279],
-        "app_done_sha": "89cd42e608561db5d1590cfd20e90d5d"
-                        "9e50f0210e1662703ef1df14f920b835"},
+        "events_processed": [2434, 2494],
+        "beacons_tx": [118, 122],
+        "beacons_rx": [1578, 1526],
+        "msgs_lost": [540, 852],
+        "reroutes": [308, 5],
+        "retries_tx": [348, 548],
+        "susp_false_pos": [36, 36],
+        "downtime": [200000.0, 200000.0],
+        "susp_onsets": [111, 100],
+        "app_done_sha": "25641104d7939a86afbfecb63a83428c"
+                        "e143cc5764ebfa1af29f7caab5d2444b"},
     "hier_tree/avoid_suspected/heartbeat/gmn_outage": {
-        "events_processed": [6431, 6506],
-        "beacons_tx": [289, 294],
-        "beacons_rx": [4007, 4122],
-        "msgs_lost": [748, 724],
-        "reroutes": [274, 54],
-        "retries_tx": [420, 436],
-        "susp_false_pos": [77, 77],
-        "downtime": [400000.0, 400000.0],
-        "susp_onsets": [141, 141],
-        "app_done_sha": "184f3ab08f09663ca0dab33a9ec8fcf7"
-                        "f3ea95d4937688436e348fd08551468c"},
+        "events_processed": [3373, 3433],
+        "beacons_tx": [155, 159],
+        "beacons_rx": [2133, 2057],
+        "msgs_lost": [556, 860],
+        "reroutes": [313, 6],
+        "retries_tx": [364, 532],
+        "susp_false_pos": [35, 0],
+        "downtime": [200000.0, 200000.0],
+        "susp_onsets": [99, 64],
+        "app_done_sha": "1fb743f7e0f3e90f81e6b2e68986acbf"
+                        "317b382085a29f88bc15acb85b3b2405"},
 }
 
 

@@ -42,9 +42,18 @@
 // the last run are masked.  Nothing carries between blocks: the TPU's
 // sequential chunk grid and its VMEM carry become the loop over runs
 // inside the block.
+//
+// Training variant (SRUN = scan::STATE_RUN, `states` given): the same
+// walk also keeps h at the start of every run of the backward
+// (csrc/selective_scan_bwd.cu), i.e. h_{t-1} at every t % SRUN == 0, as
+// states (B, Di, ceil(S / SRUN), N) f32: one store of the lane's states
+// between two unrolled groups every SRUN steps, nothing else changed, so
+// y keeps its bits and the backward starts each run from the h this walk
+// computed.
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "selective_scan.cuh"
 
 namespace {
 
@@ -129,14 +138,16 @@ __device__ __forceinline__ void stage_run(
   }
 }
 
-template <typename T, int L>
+template <typename T, int L, int SRUN>
 __global__ void __launch_bounds__(THREADS)
 ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
              const float* __restrict__ A, const T* __restrict__ Bc,
              const T* __restrict__ Cc, const float* __restrict__ Dskip,
-             T* __restrict__ y, int S, int Di, int N, int vec_x,
-             int vec_bc) {
+             T* __restrict__ y, float* __restrict__ states, int S, int Di,
+             int N, int vec_x, int vec_bc) {
   using C = Cfg<T, L>;
+  static_assert(SRUN == 0 || (RUN % SRUN == 0 && SRUN % UNROLL == 0),
+                "the backward's runs start on an unrolled group");
   constexpr bool WIDE = !std::is_same<T, float>::value;   // convert runs
   extern __shared__ __align__(16) uint8_t smem_raw[];
   // f32 runs (bf16 input only), then the raw double buffers, then y
@@ -226,14 +237,32 @@ ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
       if (sub == 0) ys[i * C::CB + ch] = from_f<T>(acc + dsk * xt);
     };
+    // the training variant: h_{t-1} at the start of each backward run
+    // (t0 is a multiple of SRUN, so step i starts one when i % SRUN == 0)
+    auto keep = [&](int i) {
+      if constexpr (SRUN > 0) {
+        if (live && i % SRUN == 0) {
+          const int nr = (S + SRUN - 1) / SRUN;
+          float* const st =
+              states + (((int64_t)b * Di + d) * nr + (t0 + i) / SRUN) * N;
+#pragma unroll
+          for (int j = 0; j < NPER; ++j)
+            if (sub * NPER + j < N) st[sub * NPER + j] = h[j];
+        }
+      }
+    };
     // steps in groups of UNROLL: only h carries from step to step, so
     // the loads, exponentials and y sums of a group overlap
     int i = 0;
     for (; i + UNROLL <= len; i += UNROLL) {
+      keep(i);
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) step(i + u);
     }
-    for (; i < len; ++i) step(i);
+    for (; i < len; ++i) {
+      keep(i);
+      step(i);
+    }
     __syncthreads();             // the run's y is complete
     if (vec_x) {
       constexpr int CPR = C::CB / C::E;
@@ -254,38 +283,50 @@ ssm_scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-template <typename T, int L>
+template <typename T, int L, int SRUN>
 cudaError_t launch(const void* x, const void* dt, const float* A,
                    const void* Bc, const void* Cc, const float* D, void* y,
-                   int B, int S, int Di, int N, cudaStream_t stream) {
+                   float* states, int B, int S, int Di, int N,
+                   cudaStream_t stream) {
   using C = Cfg<T, L>;
   const int vec_x = Di % C::E == 0 && aligned16(x) && aligned16(dt)
                     && aligned16(y);
   const int vec_bc = N % C::E == 0 && aligned16(Bc) && aligned16(Cc);
   cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_fwd<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssm_scan_fwd<T, L, SRUN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Di + C::CB - 1) / C::CB, B);
-  ssm_scan_fwd<T, L><<<grid, THREADS, C::SMEM, stream>>>(
+  ssm_scan_fwd<T, L, SRUN><<<grid, THREADS, C::SMEM, stream>>>(
       (const T*)x, (const T*)dt, A, (const T*)Bc, (const T*)Cc, D, (T*)y,
-      S, Di, N, vec_x, vec_bc);
+      states, S, Di, N, vec_x, vec_bc);
   return cudaGetLastError();
+}
+
+template <typename T, int L>
+cudaError_t dispatch_states(const void* x, const void* dt, const float* A,
+                            const void* Bc, const void* Cc, const float* D,
+                            void* y, float* states, int B, int S, int Di,
+                            int N, int with_states, cudaStream_t stream) {
+#define SSF_ARGS x, dt, A, Bc, Cc, D, y, states, B, S, Di, N, stream
+  if (with_states) return launch<T, L, scan::STATE_RUN>(SSF_ARGS);
+  return launch<T, L, 0>(SSF_ARGS);
+#undef SSF_ARGS
 }
 
 template <typename T>
 cudaError_t dispatch_n(const void* x, const void* dt, const float* A,
                        const void* Bc, const void* Cc, const float* D,
-                       void* y, int B, int S, int Di, int N,
-                       cudaStream_t stream) {
-  if (N <= 4) return launch<T, 1>(x, dt, A, Bc, Cc, D, y, B, S, Di, N, stream);
-  if (N <= 8) return launch<T, 2>(x, dt, A, Bc, Cc, D, y, B, S, Di, N, stream);
-  if (N <= 16)
-    return launch<T, 4>(x, dt, A, Bc, Cc, D, y, B, S, Di, N, stream);
-  if (N <= 32)
-    return launch<T, 8>(x, dt, A, Bc, Cc, D, y, B, S, Di, N, stream);
-  if (N <= 64)
-    return launch<T, 16>(x, dt, A, Bc, Cc, D, y, B, S, Di, N, stream);
+                       void* y, float* states, int B, int S, int Di, int N,
+                       int with_states, cudaStream_t stream) {
+#define SSF_ARGS x, dt, A, Bc, Cc, D, y, states, B, S, Di, N, with_states, \
+                 stream
+  if (N <= 4) return dispatch_states<T, 1>(SSF_ARGS);
+  if (N <= 8) return dispatch_states<T, 2>(SSF_ARGS);
+  if (N <= 16) return dispatch_states<T, 4>(SSF_ARGS);
+  if (N <= 32) return dispatch_states<T, 8>(SSF_ARGS);
+  if (N <= 64) return dispatch_states<T, 16>(SSF_ARGS);
+#undef SSF_ARGS
   return cudaErrorInvalidValue;
 }
 
@@ -295,20 +336,25 @@ extern "C" {
 
 // x, dt, y (B, S, Di); Bc, Cc (B, S, N) in `dtype` (0 = float32,
 // 1 = bfloat16); A (Di, N) and D (Di,) float32; all contiguous;
-// 1 <= N <= 64.  Returns the launch's cudaError_t.
+// 1 <= N <= 64.  with_states = 0: y alone (states unused); otherwise
+// also states (B, Di, ceil(S / scan::STATE_RUN), N) float32, h_{t-1} at
+// every t % scan::STATE_RUN == 0 (the backward's run starts).  Returns
+// the launch's cudaError_t.
 int selective_scan_fwd(const void* x, const void* dt, const void* A,
                        const void* Bc, const void* Cc, const void* D,
-                       void* y, int B, int S, int Di, int N, int dtype,
-                       void* stream) {
+                       void* y, void* states, int B, int S, int Di, int N,
+                       int dtype, int with_states, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (N < 1) return (int)cudaErrorInvalidValue;
+  if (N < 1 || (with_states && states == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)dispatch_n<float>(x, dt, (const float*)A, Bc, Cc,
-                                  (const float*)D, y, B, S, Di, N, s);
+                                  (const float*)D, y, (float*)states, B, S,
+                                  Di, N, with_states, s);
   if (dtype == 1)
     return (int)dispatch_n<__nv_bfloat16>(x, dt, (const float*)A, Bc, Cc,
-                                          (const float*)D, y, B, S, Di, N,
-                                          s);
+                                          (const float*)D, y, (float*)states,
+                                          B, S, Di, N, with_states, s);
   return (int)cudaErrorInvalidValue;
 }
 

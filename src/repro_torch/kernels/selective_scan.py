@@ -21,15 +21,23 @@ element copies in the same kernel.
 takes :func:`selective_scan_plain` (the sequential loop of
 ``repro/kernels/ref.py:selective_scan_ref``), a CUDA tensor launches the
 kernel or raises — there is no fallback from one to the other.
-``launches`` counts kernel launches.
+``launches`` counts the kernel's launches, ``states_launches`` those of
+its training variant (below).
 
 The backward (:func:`selective_scan_bwd`, a kernel that replaces no TPU
 kernel: the reference differentiates ``ops._chunked_selective_scan`` with
 XLA autodiff) dispatches the same way, between
 :func:`selective_scan_bwd_plain` (an explicit reverse-time loop) and
-``csrc/selective_scan_bwd.cu`` (its source note gives the design);
-``bwd_launches`` counts its launches.  :class:`SelectiveScan` is the
-autograd function over the two.
+``csrc/selective_scan_bwd.cu``; ``bwd_launches`` counts its launches.
+It starts every run of :data:`RUN` steps from the h that the forward's
+training variant (``selective_scan(..., with_states=True)``, the same
+kernel with one store every RUN steps and y's bits unchanged) kept
+there, recomputes the run's h in registers with one exponential a
+state-step, walks it back, and sums dB and dC across a thread-block
+cluster of 8 blocks before one partial a cluster reaches device memory;
+its source note says what bounds it.  :class:`SelectiveScan` is the
+autograd function over the two: its forward is the training variant and
+saves the states for the backward.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.kernels import _build
 NAME = "selective_scan"
 SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 REPLACES = "src/repro/kernels/selective_scan.py:26"
+STATES_NAME = "selective_scan_states"   # the training variant
 BWD_NAME = "selective_scan_bwd"
 BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
 # not a TPU kernel: the reference differentiates its XLA scan by autodiff
@@ -49,8 +58,15 @@ BWD_REPLACES = "src/repro/kernels/ops.py:217"
 
 MAX_STATE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The backward's run (time steps recomputed into registers and walked
+# back at a time; ``scan::STATE_RUN`` in ``csrc/selective_scan.cuh``,
+# which both kernels include; the backward's library reports it and is
+# checked against this): the forward's training variant keeps h at the
+# start of every run, and the backward starts each run from it.
+RUN = 8
 
 launches = 0        # forward kernel launches (the plain version never counts)
+states_launches = 0  # the forward's training variant's (``with_states``)
 bwd_launches = 0    # backward launches (the kernel and its partials' sum)
 
 
@@ -58,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     if lib.selective_scan_fwd.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.selective_scan_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.selective_scan_fwd.argtypes = [vp] * 8 + [ci] * 6 + [vp]
         lib.selective_scan_fwd.restype = ci
     return lib
 
@@ -69,29 +85,68 @@ def _acc_dtype(x):
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def selective_scan_plain(x, dt, A, Bc, Cc, D_skip):
-    """The scan as a sequential torch loop over time, in f32."""
+def n_runs(S: int) -> int:
+    """The backward's runs over S steps: ceil(S / RUN)."""
+    return -(-S // RUN)
+
+
+def selective_scan_plain(x, dt, A, Bc, Cc, D_skip, *, with_states=False):
+    """The scan as a sequential torch loop over time, in f32.  With
+    ``with_states``: -> (y, states), states (B, Di, ceil(S / RUN), N) in
+    f32 (f64 for f64 inputs) the h before every step t with t % RUN == 0,
+    as the kernel's training variant writes them."""
     Bsz, S, Di = x.shape
     N = A.shape[1]
     f = _acc_dtype(x)
     xf, dtf = x.to(f), dt.to(f)
     Bf, Cf, Af = Bc.to(f), Cc.to(f), A.to(f)
     h = torch.zeros((Bsz, Di, N), dtype=f, device=x.device)
-    ys = []
+    ys, kept = [], []
     for t in range(S):
+        if with_states and t % RUN == 0:
+            kept.append(h)
         da = torch.exp(dtf[:, t, :, None] * Af[None])
         dbx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
         h = da * h + dbx
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = (torch.stack(ys, dim=1) if ys else torch.zeros_like(xf)) \
         + xf * D_skip.to(f)[None, None]
-    return y.to(x.dtype)
+    if not with_states:
+        return y.to(x.dtype)
+    states = (torch.stack(kept, dim=2) if kept
+              else torch.zeros((Bsz, Di, 0, N), dtype=f, device=x.device))
+    return y.to(x.dtype), states
 
 
-def selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy):
+def plain_walk(x, dt, A, Bc, states=None):
+    """The plain backward's forward walk: -> [h_{-1} = 0, h_0, ...,
+    h_{S-1}] in f32 (f64 for f64 inputs); given ``states`` (as
+    :func:`selective_scan_plain` returns them), h_{t-1} is taken from
+    them at every t % RUN == 0."""
+    Bsz, S, Di = x.shape
+    N = A.shape[1]
+    f = _acc_dtype(x)
+    xf, dtf, Bf, Af = x.to(f), dt.to(f), Bc.to(f), A.to(f)
+    if states is not None and states.shape != (Bsz, Di, n_runs(S), N):
+        raise ValueError(f"selective_scan_bwd: states {tuple(states.shape)}"
+                         f", want {(Bsz, Di, n_runs(S), N)}")
+    hs = [torch.zeros((Bsz, Di, N), dtype=f, device=x.device)]  # h_{-1}
+    for t in range(S):
+        if states is not None and t % RUN == 0:
+            hs[-1] = states[:, :, t // RUN].to(f)
+        da = torch.exp(dtf[:, t, :, None] * Af[None])
+        hs.append(da * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    return hs
+
+
+def selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy, states=None):
     """The scan's VJP as an explicit reverse-time loop in f32: the
-    forward walk keeps every h, then with g_t = dy[:, t] and the adjoint
-    lam_t = a_{t+1} lam_{t+1} + g_t C_t (a_t = exp(dt_t A)):
+    forward walk keeps every h (given ``states``, as
+    :func:`selective_scan_plain` returns them, the walk restarts from
+    them at every run's start, as the kernel does), then with g_t =
+    dy[:, t] and the adjoint lam_t = a_{t+1} lam_{t+1} + g_t C_t (a_t =
+    exp(dt_t A)):
 
         dx_t  = D g_t + dt_t sum_n lam_t B_t
         ddt_t = sum_n lam_t (x_t B_t + A a_t h_{t-1})
@@ -106,11 +161,7 @@ def selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy):
     f = _acc_dtype(x)
     xf, dtf, gf = x.to(f), dt.to(f), dy.to(f)
     Bf, Cf, Af = Bc.to(f), Cc.to(f), A.to(f)
-    hs = [torch.zeros((Bsz, Di, N), dtype=f, device=x.device)]  # h_{-1}
-    for t in range(S):
-        da = torch.exp(dtf[:, t, :, None] * Af[None])
-        hs.append(da * hs[-1]
-                  + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    hs = plain_walk(x, dt, A, Bc, states)
     dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
     dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
     dA = torch.zeros_like(Af)
@@ -193,29 +244,40 @@ def _device(x, name):
     return x.device.type
 
 
-def selective_scan(x, dt, A, Bc, Cc, D_skip):
+def selective_scan(x, dt, A, Bc, Cc, D_skip, *, with_states=False):
     """The Mamba-1 scan (see the module note).  CPU tensors take the
     plain version; CUDA tensors launch the Hopper kernel or raise.  A and
-    D are read as f32; x, dt, B and C must share a dtype."""
-    global launches
+    D are read as f32; x, dt, B and C must share a dtype.  With
+    ``with_states`` (the training variant): -> (y, states), states the h
+    at the start of every run of the backward (:func:`selective_scan_plain`),
+    y the same bits as without."""
+    global launches, states_launches
     _check(x, dt, A, Bc, Cc, D_skip)
     if _device(x, "selective_scan") == "cpu":
-        return selective_scan_plain(x, dt, A, Bc, Cc, D_skip)
+        return selective_scan_plain(x, dt, A, Bc, Cc, D_skip,
+                                    with_states=with_states)
     Bsz, S, Di = x.shape
     N = A.shape[1]
     Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     y = torch.empty_like(x)
+    states = (torch.empty((Bsz, Di, n_runs(S), N), dtype=torch.float32,
+                          device=x.device) if with_states else None)
     if y.numel() == 0:
-        return y
+        return (y, states) if with_states else y
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.selective_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D_skip.data_ptr(), y.data_ptr(), Bsz, S, Di, N,
-            _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+            Cc.data_ptr(), D_skip.data_ptr(), y.data_ptr(),
+            states.data_ptr() if with_states else None, Bsz, S, Di, N,
+            _DTYPES[x.dtype], int(with_states),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"cudaError {err}")
+    if with_states:
+        states_launches += 1
+        return y, states
     launches += 1
     return y
 
@@ -224,19 +286,40 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(BWD_NAME)
     if lib.selective_scan_bwd.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.selective_scan_bwd.argtypes = [vp] * 14 + [ci] * 5 + [vp]
+        lib.selective_scan_bwd.argtypes = [vp] * 15 + [ci] * 5 + [vp]
         lib.selective_scan_bwd.restype = ci
         lib.selective_scan_bwd_workspace.argtypes = [ci] * 4
         lib.selective_scan_bwd_workspace.restype = ctypes.c_longlong
+        lib.selective_scan_bwd_info.argtypes = [ci] * 2 + [vp]
+        lib.selective_scan_bwd_info.restype = ci
+        if lib.selective_scan_bwd_run() != RUN:
+            raise RuntimeError(f"selective_scan_bwd: the kernel's run "
+                               f"{lib.selective_scan_bwd_run()} is not "
+                               f"RUN = {RUN}")
     return lib
 
 
-def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy):
+def bwd_launch_info(N: int, dtype=torch.bfloat16) -> dict:
+    """What the backward kernel runs with for N states in ``dtype`` (on
+    the current card): its run, stage, cluster size, shared memory a
+    block, and resident blocks an SM and clusters on the card as the CUDA
+    occupancy calculator gives them."""
+    out = (ctypes.c_int * 6)()
+    err = _bwd_lib().selective_scan_bwd_info(N, _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd_info: cudaError {err}")
+    return dict(zip(("run", "stage", "cluster", "smem_bytes",
+                     "blocks_per_sm", "active_clusters"), list(out)))
+
+
+def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy, states=None):
     """The scan's VJP at dy (B, S, Di) -> (dx, ddt, dA, dB, dC, dD), as
-    :func:`selective_scan_bwd_plain` returns them.  CPU tensors take the
-    plain version; CUDA tensors launch the backward kernel
-    (``csrc/selective_scan_bwd.cu``) or raise.  On the card dy must be
-    contiguous and of x's dtype."""
+    :func:`selective_scan_bwd_plain` returns them; ``states`` are the
+    forward's run-start states (``selective_scan(..., with_states=True)``).
+    CPU tensors take the plain version; CUDA tensors launch the backward
+    kernel (``csrc/selective_scan_bwd.cu``) or raise, after the forward's
+    training variant when no states are given (one more K3 launch).  On
+    the card dy must be contiguous and of x's dtype."""
     global bwd_launches
     _check(x, dt, A, Bc, Cc, D_skip)
     if dy.shape != x.shape or dy.device != x.device:
@@ -244,14 +327,17 @@ def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy):
                          f"{dy.device} does not match x {tuple(x.shape)} "
                          f"on {x.device}")
     if _device(x, "selective_scan_bwd") == "cpu":
-        return selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy)
+        return selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy,
+                                        states)
     Bsz, S, Di = x.shape
     N = A.shape[1]
     D_dtype = D_skip.dtype
-    Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     if dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError(f"selective_scan_bwd kernel takes a contiguous dy "
                          f"of x's dtype {x.dtype}, got {dy.dtype}")
+    if states is None and x.numel():
+        _, states = selective_scan(x, dt, A, Bc, Cc, D_skip, with_states=True)
+    Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
     dA = torch.empty_like(A)
@@ -259,15 +345,23 @@ def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy):
     if x.numel() == 0:      # no step or no channel: nothing to launch
         return (dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(),
                 dD.zero_().to(D_dtype))
+    want = (Bsz, Di, n_runs(S), N)
+    if states.shape != want or states.dtype != torch.float32 \
+            or states.device != x.device or not states.is_contiguous():
+        raise ValueError(f"selective_scan_bwd kernel takes contiguous f32 "
+                         f"states {want} on {x.device}, got "
+                         f"{states.dtype} {tuple(states.shape)} on "
+                         f"{states.device}")
     lib = _bwd_lib()
     ws = torch.empty(lib.selective_scan_bwd_workspace(Bsz, S, Di, N),
                      dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.selective_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D_skip.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-            dD.data_ptr(), ws.data_ptr(), Bsz, S, Di, N, _DTYPES[x.dtype],
+            Cc.data_ptr(), D_skip.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), ws.data_ptr(), Bsz,
+            S, Di, N, _DTYPES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: "
@@ -277,19 +371,24 @@ def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy):
 
 
 class SelectiveScan(torch.autograd.Function):
-    """The scan with the hand-written backward: the forward is
-    :func:`selective_scan` and saves its six inputs (no h: the backward
-    recomputes it); the backward makes dy contiguous in x's dtype and
-    runs :func:`selective_scan_bwd`.  Under activation checkpointing the
-    forward runs again in the backward pass."""
+    """The scan with the hand-written backward: the forward is the
+    training variant of :func:`selective_scan` and saves its six inputs
+    and the run-start states (f32, (B, Di, ceil(S / RUN), N): 536 MB a
+    Mamba layer at falcon_mamba_7b's training shape; the backward
+    recomputes the h between them); the backward makes dy contiguous in
+    x's dtype and runs :func:`selective_scan_bwd` from those states.
+    Under activation checkpointing the forward runs again in the backward
+    pass, and the states live only from there to the backward."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bc, Cc, D_skip):
-        ctx.save_for_backward(x, dt, A, Bc, Cc, D_skip)
-        return selective_scan(x, dt, A, Bc, Cc, D_skip)
+        y, states = selective_scan(x, dt, A, Bc, Cc, D_skip,
+                                   with_states=True)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D_skip, states)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, dt, A, Bc, Cc, D_skip = ctx.saved_tensors
+        x, dt, A, Bc, Cc, D_skip, states = ctx.saved_tensors
         return selective_scan_bwd(x, dt, A, Bc, Cc, D_skip,
-                                  dy.to(x.dtype).contiguous())
+                                  dy.to(x.dtype).contiguous(), states)
