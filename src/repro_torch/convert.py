@@ -13,8 +13,9 @@ dicts, or objects read by attribute.
   the port's ``MapperState``.
 - :func:`model_params_from_reference`: a reference LM parameter tree
   (``repro.models.model.init_model``, leaves as numpy arrays) -> the
-  port's parameter dict, the stacked super-blocks sliced into a list
-  (also a gradient or moment tree of the same shape).
+  port's parameter dict, the stacked super-blocks, encoder layers and
+  cross attentions sliced into lists (also a gradient or moment tree of
+  the same shape).
 - :func:`opt_state_from_reference`: a reference ``OptState`` (step,
   mu, nu) -> the port's ``OptState``.
 """
@@ -83,20 +84,31 @@ def _leaf_tensor(leaf, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
 
+# the reference's subtrees stacked along a leading axis (scanned over)
+_STACKED = ("blocks", "enc_blocks", "cross_blocks")
+
+
 def model_params_from_reference(tree, device=None) -> dict:
     """The port's LM parameters from a reference ``init_model`` tree
     whose leaves are numpy arrays (or anything ``np.asarray`` takes), in
     their own dtypes, on ``device`` (default: the card).  The reference
-    stacks its periodic super-blocks along a leading axis of every
-    ``blocks`` leaf; the port keeps one dict per super-block."""
+    stacks its periodic super-blocks (``blocks``), an encoder-decoder's
+    encoder layers (``enc_blocks``) and cross attentions
+    (``cross_blocks``) along a leading axis of every leaf; the port keeps
+    a list of one dict per entry.  ``blocks`` is always a list (empty for
+    a reference's ``{}``); the others are present when the tree has
+    them."""
     dev = resolve_device(device)
     out = {k: tree_map(lambda a: _leaf_tensor(a, dev), v)
-           for k, v in tree.items() if k != "blocks"}
-    blocks = tree.get("blocks") or {}
-    stacked = leaves(blocks)
-    n_super = int(np.asarray(stacked[0]).shape[0]) if stacked else 0
-    out["blocks"] = [tree_map(lambda a, i=i: _leaf_tensor(
-        np.asarray(a)[i], dev), blocks) for i in range(n_super)]
+           for k, v in tree.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key not in tree and key != "blocks":
+            continue
+        sub = tree.get(key) or {}
+        stacked = leaves(sub)
+        n = int(np.asarray(stacked[0]).shape[0]) if stacked else 0
+        out[key] = [tree_map(lambda a, i=i: _leaf_tensor(
+            np.asarray(a)[i], dev), sub) for i in range(n)]
     return out
 
 

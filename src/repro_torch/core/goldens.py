@@ -18,7 +18,8 @@ without JAX (``chip_smoke.py``):
   the sha256 of the (6, 1, 128) f32 ``app_done``;
 - Table 5 at the paper's widths (m=256, n_childs=100, max_apps=512,
   queue_cap=2048, dn_th=4, k in (1, 8, 16, 256), interference seeds
-  (1, 2, 3)) cut to sim_len 2.5e5: per k, ``beacons_tx`` and
+  (1, 2, 3)) cut to sim_len 1e5 (2.5e5 until the card script took in
+  the last five model families): per k, ``beacons_tx`` and
   ``events_processed`` per seed, the ``app_done`` sha256 and each lane's
   speedup as the bits of its float32 value (:func:`table5_digest`);
 - the paper tier of ``benchmarks/topology_frontier.py`` on every fabric
@@ -34,8 +35,8 @@ without JAX (``chip_smoke.py``):
 - the two cut points of that tier (the same widths, knobs, seeds and
   stimulus): k=1 on the linear queue (queue_cap 8,192) on ``ideal`` at
   sim_len 2.5e5, and k=256 with the tier's 32,768-slot tree queue and
-  ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5 and at 1e5,
-  the card's fallback (:func:`cut_digest`, keyed as FABRICS);
+  ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5, at 1e5 and
+  at 5e4, the card's horizon (:func:`cut_digest`, keyed as FABRICS);
 - the fault groups of the card's phase ``faults`` (:func:`fault_specs`:
   the tier above at k=16 on the linear queue, sim_len 5e4 (cut from 1e5
   for the card script's time limit), under no
@@ -87,7 +88,7 @@ FIG3B_APP_DONE_SHA = \
 
 TABLE5_KS = (1, 8, 16, 256)
 TABLE5_SEEDS = (1, 2, 3)
-TABLE5_SIM_LEN = 2.5e5     # cut for the card script's time limit
+TABLE5_SIM_LEN = 1e5       # cut for the card script's time limit
 TABLE5_PARAMS = dict(m=256, n_childs=100, max_apps=512, queue_cap=2048)
 # The JAX reference's run of that spec on the CPU (seq mode), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
@@ -99,25 +100,25 @@ TABLE5_PARAMS = dict(m=256, n_childs=100, max_apps=512, queue_cap=2048)
 #   .run()))"
 TABLE5 = {
     1: {"beacons_tx": [0, 0, 0],
-        "events_processed": [3264, 3264, 3264],
-        "app_done_sha": "349eb8b6923278d5b55db43a1aa3a03a"
-                        "9039c0d5244e54b3b2d6eb0577356a3e",
-        "speedup_f32_bits": [1109609050, 1110074721, 1109469447]},
-    8: {"beacons_tx": [901, 894, 894],
-        "events_processed": [3360, 3360, 3360],
-        "app_done_sha": "2593cfea7b845e7dd03abe2fad0b2f7d"
-                        "eb8c1b413d231a4e3d4546e647cb0f76",
-        "speedup_f32_bits": [1113580914, 1114055027, 1113652364]},
-    16: {"beacons_tx": [977, 971, 980],
-         "events_processed": [3456, 3456, 3456],
-         "app_done_sha": "68377727efe15c681400b3106a67519f"
-                         "bf59049e1b1fd5cff3ae8b37f4d29a21",
-         "speedup_f32_bits": [1112794244, 1114050773, 1113350044]},
-    256: {"beacons_tx": [612, 224, 204],
-          "events_processed": [6432, 6432, 6432],
-          "app_done_sha": "c795be0de366d0f95a7f749aea39eb73"
-                          "1d6ccd06fbeb5e2f800c08e371a577d9",
-          "speedup_f32_bits": [1108514464, 1109297876, 1109213258]},
+        "events_processed": [1224, 1224, 1224],
+        "app_done_sha": "0b8f07e636cdad54da03273b2ec99c36"
+                        "73aebde6acd4a8728f0a39c33f70d30d",
+        "speedup_f32_bits": [1112220667, 1111765315, 1111358429]},
+    8: {"beacons_tx": [340, 333, 336],
+        "events_processed": [1260, 1260, 1260],
+        "app_done_sha": "03c4cfa3ee90d20a641b1ea5bf866b15"
+                        "edd4cfc9c01fcecda6afa1a1729a67de",
+        "speedup_f32_bits": [1116154803, 1116918660, 1116352677]},
+    16: {"beacons_tx": [364, 366, 363],
+         "events_processed": [1296, 1296, 1296],
+         "app_done_sha": "3c82578a4f6a37095238a6dda6e33a11"
+                         "f70ed8fbf46b39df40a58edacb7ef0d6",
+         "speedup_f32_bits": [1115725683, 1116330728, 1115782839]},
+    256: {"beacons_tx": [190, 14, 66],
+          "events_processed": [2412, 2412, 2412],
+          "app_done_sha": "4ab76f64e094f937b9dde7084bd22280"
+                          "53e5e48316ccd9073f9646227904c90e",
+          "speedup_f32_bits": [1110578943, 1111649820, 1110796393]},
 }
 
 FABRIC_KS = (16, 32)
@@ -456,7 +457,7 @@ CUT_KS = (1, 256)
 CUT_QUEUES = {1: dict(queue_cap=8192, queue_impl="linear", batch_pop=1),
               256: dict(queue_cap=32768, queue_impl="tree", batch_pop=64)}
 CUT_TOPOLOGIES = {1: ("ideal",), 256: ("hier_tree", "mesh2d")}
-CUT_SIM_LENS = {1: (2.5e5,), 256: (2.5e5, 1e5)}
+CUT_SIM_LENS = {1: (2.5e5,), 256: (2.5e5, 1e5, 5e4)}
 # The JAX reference's run of those points on the CPU (~25 s), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
 #   import ExperimentSpec, WorkloadSpec; from repro.core.sim import
@@ -466,7 +467,7 @@ CUT_SIM_LENS = {1: (2.5e5,), 256: (2.5e5, 1e5)}
 #   workloads=(WorkloadSpec.make('interference', seeds=G.FABRIC_SEEDS,
 #   pair_periods=(G.FABRIC_PAIR_PERIOD,)),), sim_len=sl, mode='seq')
 #   .run(), k) for k in G.CUT_KS if sl in G.CUT_SIM_LENS[k]} for sl in
-#   (2.5e5, 1e5)})"
+#   (2.5e5, 1e5, 5e4)})"
 CUTS = {
     250000.0: {
         1: {
@@ -521,6 +522,28 @@ CUTS = {
                 "mgmt_latency": [2239336.5, 683251.75],
                 "app_done_sha": "b1f26c33726841c8867d14a5cadf31fe"
                                 "892c6bc56efb514ce8033dad44110199"},
+        },
+    },
+    50000.0: {
+        256: {
+            "hier_tree": {
+                "events_processed": [26196, 1206],
+                "beacons_tx": [98, 0],
+                "beacons_rx": [24990, 0],
+                "evq_peak": [12897, 352],
+                "dropped": [0, 0],
+                "mgmt_latency": [10525292.0, 303776.75],
+                "app_done_sha": "580ffb913f18025d2569e37b8fdcf6dc"
+                                "17d89a5dcfe1afb35ffc84598d48c34b"},
+            "mesh2d": {
+                "events_processed": [26196, 1206],
+                "beacons_tx": [98, 0],
+                "beacons_rx": [24990, 0],
+                "evq_peak": [2448, 352],
+                "dropped": [0, 0],
+                "mgmt_latency": [1209492.0, 279304.0],
+                "app_done_sha": "8de41efd87b5dcd2b32f3b5cc749240d"
+                                "3b3a56a7df346b436dca790219bd2d67"},
         },
     },
 }

@@ -45,10 +45,15 @@ raises — there is no fallback from one to the other.  ``launches`` and
 ``bwd_launches`` count kernel launches (one backward launch is the
 entry point's three kernels).
 
-Sq > Skv is refused.  The TPU kernel's output for a row with no key
-at all depends on its block size there (its finite sentinel averages V
-over a needed block), and ``attention_ref`` gives NaN; the model never
-asks for it (ROADMAP §3).
+Sq > Skv is taken without a mask (every row sees every key: the
+encoder-decoder's cross attention, ``flash_attention_xla``'s case) and
+refused under a causal mask or a window, where the first Sq - Skv rows
+see no key.  The TPU kernel's output for such a row depends on its block
+size there (its finite sentinel averages V over a needed block), and
+``attention_ref`` gives NaN; the model never asks for it (ROADMAP §3).
+Both kernels read ``Skv - Sq`` only inside the mask tests and the
+causal and window tile bounds, so a negative offset is inert without a
+mask.
 """
 from __future__ import annotations
 
@@ -162,7 +167,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
             dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal, sliding_window):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -174,9 +179,10 @@ def _check(q, k, v):
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match (same B and D, Hq a multiple of Hkv)")
-    if Sq > Skv:
-        raise ValueError(f"flash_attention needs Sq <= Skv (got Sq={Sq}, "
-                         f"Skv={Skv}): rows with no key are undefined")
+    if Sq > Skv and (causal or sliding_window):
+        raise ValueError(f"flash_attention under a causal mask or a window "
+                         f"needs Sq <= Skv (got Sq={Sq}, Skv={Skv}): rows "
+                         f"with no key are undefined")
 
 
 def _check_kernel(q, k, v, *more):
@@ -204,7 +210,7 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
     take the plain version; CUDA tensors launch the Hopper kernel or
     raise."""
     global launches
-    _check(q, k, v)
+    _check(q, k, v, causal, sliding_window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sliding_window=sliding_window,
@@ -249,7 +255,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     tensors take the plain version; CUDA tensors launch the backward
     kernels or raise."""
     global bwd_launches
-    _check(q, k, v)
+    _check(q, k, v, causal, sliding_window)
     if not (out.shape == dout.shape == q.shape
             and lse.shape == (q.shape[0], q.shape[2], q.shape[1])):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "

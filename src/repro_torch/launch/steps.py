@@ -1,8 +1,10 @@
 """Step factories: train, prefill and decode (port of
 ``repro/launch/steps.py``; the sharded cell assembly is ROADMAP item 12).
 Every family that ``models/model.py`` builds trains: the dense, MoE, SSM
-and hybrid decoders (attention and the scan differentiate through their
-hand-written backward kernels on the card).
+and hybrid decoders, the encoder-decoder and the vision frontend
+(attention and the scan differentiate through their hand-written
+backward kernels on the card).  A batch's entries besides ``tokens`` and
+``labels`` (``patches``, ``frames``) are the model's ``extra``.
 
 Each builder resolves its device when it is made (default: the card, and
 it raises without one); the step moves host token arrays there.  PyTorch
@@ -24,18 +26,25 @@ from repro_torch.pytree import leaves, tree_map, unflatten
 
 
 def _value_and_grad(params, cfg: ModelConfig, run: RunConfig, tokens,
-                    labels):
+                    labels, extra):
     """-> (loss, metrics, grads in the parameters' dtypes) of
     ``lm_loss`` at ``params``."""
     req = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
         loss, metrics = MDL.lm_loss(unflatten(params, req), cfg, tokens,
-                                    labels, remat=run.remat)
+                                    labels, extra=extra, remat=run.remat)
         grads = torch.autograd.grad(loss, req, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(req, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten(params, grads))
+
+
+def _extra(batch, dev, skip) -> dict:
+    """The batch's frontend inputs (every entry not in ``skip``) on
+    ``dev``."""
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k not in skip}
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
@@ -48,17 +57,16 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
     with error feedback (microbatches ignored, as in the reference).
     With ``donate`` the step writes the new parameters and moments over
     the ones it is given (as the reference's train loop donates them to
-    its jitted step), so a step holds the moments once.  Refuses, as
-    ``models/model.py`` does, the families it cannot build."""
-    MDL._require_ported(cfg)
+    its jitted step), so a step holds the moments once."""
     dev = resolve_device(device)
 
     def batch_of(batch):
         return (torch.as_tensor(batch["tokens"], device=dev),
-                torch.as_tensor(batch["labels"], device=dev))
+                torch.as_tensor(batch["labels"], device=dev),
+                _extra(batch, dev, ("tokens", "labels")))
 
     def train_step(params, opt, batch):
-        tokens, labels = batch_of(batch)
+        tokens, labels, extra = batch_of(batch)
         if run.microbatches > 1:
             n = run.microbatches
             Bm = tokens.shape[0] // n
@@ -68,8 +76,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
             metrics = None
             for i in range(n):
                 sl = slice(i * Bm, (i + 1) * Bm)
-                loss, m, g = _value_and_grad(params, cfg, run, tokens[sl],
-                                             labels[sl])
+                loss, m, g = _value_and_grad(
+                    params, cfg, run, tokens[sl], labels[sl],
+                    {k: v[sl] for k, v in extra.items()})
                 grads = tree_map(torch.add, grads, g)
                 m = {"loss": loss, **m}
                 metrics = m if metrics is None else \
@@ -79,15 +88,14 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
             loss = metrics.pop("loss")
         else:
             loss, metrics, grads = _value_and_grad(params, cfg, run, tokens,
-                                                   labels)
+                                                   labels, extra)
         params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run,
                                                     inplace=donate)
         return params, opt, {"loss": loss, **metrics, **opt_metrics}
 
     def train_step_compressed(params, opt, err, batch):
-        tokens, labels = batch_of(batch)
-        loss, metrics, grads = _value_and_grad(params, cfg, run, tokens,
-                                               labels)
+        loss, metrics, grads = _value_and_grad(params, cfg, run,
+                                               *batch_of(batch))
         grads, err = COMP.compress_grads(grads, err)
         params, opt, opt_metrics = OPT.adamw_update(params, grads, opt, run,
                                                     inplace=donate)
@@ -100,13 +108,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, device=None, *,
 
 def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
     """``prefill_step(params, batch)`` -> next-token logits (B, V) of
-    ``batch["tokens"]`` (B, S); full (B, S, V) logits are never made."""
+    ``batch["tokens"]`` (B, S) and its extras; full (B, S, V) logits are
+    never made."""
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        hidden, _ = MDL.forward(params, cfg, tokens, remat="none",
-                                return_hidden=True)
+        hidden, _ = MDL.forward(params, cfg, tokens,
+                                extra=_extra(batch, dev, ("tokens", "labels")),
+                                remat="none", return_hidden=True)
         return L.unembed(params["embed"], hidden[:, -1:])[:, 0]
 
     return prefill_step

@@ -1,6 +1,6 @@
 """Core transformer layers (port of ``repro/models/layers.py``): the
-RMS, layer and non-parametric norms, RoPE, embeddings, GQA attention and
-its decode step, the MLPs.  Training differentiates them with autograd,
+RMS, layer and non-parametric norms, RoPE, embeddings, GQA self and
+cross attention and its decode step, the SwiGLU and GELU MLPs.  Training differentiates them with autograd,
 but for the RMS norm's dtype-keeping VJP (:class:`RMSNorm`) and
 attention's backward, the hand-written kernel behind
 :func:`repro_torch.kernels.ops.attention`.
@@ -175,34 +175,51 @@ def init_attention(gen, cfg: ModelConfig, dtype, device):
     return p
 
 
-def qkv_proj(params, cfg: ModelConfig, x):
-    """Project to (q, k, v) with shapes (B, S, n, hd)."""
+def qkv_proj(params, cfg: ModelConfig, x, kv_input=None):
+    """Project to (q, k, v) with shapes (B, S, n, hd): q from x, k and v
+    from ``kv_input`` (cross attention) or x."""
     B, S, _ = x.shape
+    kv_input = x if kv_input is None else kv_input
+    Skv = kv_input.shape[1]
+    # the weights in x's dtype, k and v in its type promoted with
+    # kv_input's, as jnp.matmul promotes (a bf16 encoder output under f32
+    # weights gives f32)
+    kt = torch.promote_types(kv_input.dtype, x.dtype)
+    kv_input = kv_input.to(kt)
     q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    k = kv_input @ params["wk"].to(x.dtype).to(kt)
+    v = kv_input @ params["wv"].to(x.dtype).to(kt)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
     return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+            k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim))
 
 
 def attention_block(params, cfg: ModelConfig, x, *, positions=None,
-                    causal=True):
-    """Self-attention sub-layer: projections, RoPE, K2, out projection."""
+                    causal=True, kv_input=None, kv_positions=None):
+    """Attention sub-layer: projections, RoPE, K2, out projection.  With
+    ``kv_input`` it is cross attention (keys and values from it, RoPE at
+    ``kv_positions`` or 0.., never causal, as in the reference)."""
     B, S, _ = x.shape
-    q, k, v = qkv_proj(params, cfg, x)
+    q, k, v = qkv_proj(params, cfg, x, kv_input)
     if cfg.rope_theta:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
         q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if kv_input is None:
+            k = apply_rope(k, cos, sin)
+        else:
+            kvp = kv_positions if kv_positions is not None \
+                else torch.arange(k.shape[1], device=x.device)
+            k = apply_rope(k, *rope_freqs(cfg.head_dim, cfg.rope_theta,
+                                          kvp))
     out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal, sliding_window=cfg.sliding_window)
+                        causal=causal and kv_input is None,
+                        sliding_window=cfg.sliding_window)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"].to(x.dtype)
 
@@ -265,6 +282,16 @@ def apply_mlp(params, cfg: ModelConfig, x):
         h = F.silu(x @ params["wg"].to(x.dtype)) * (x @ params["wu"]
                                                     .to(x.dtype))
     else:
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["wu"].to(x.dtype), approximate="tanh")
+        h = _gelu_tanh(x @ params["wu"].to(x.dtype))
     return h @ params["wd"].to(x.dtype)
+
+
+def _gelu_tanh(x):
+    """``jax.nn.gelu`` (its default tanh approximation) op by op, each
+    result rounded to x's dtype as the reference rounds it in bf16 (the
+    fused ``F.gelu`` rounds once, and in bf16 half its outputs land a
+    step away); the constants in x's dtype, as the reference casts
+    them."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))

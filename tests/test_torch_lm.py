@@ -25,7 +25,7 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.launch import steps as RS
 from repro.models import model as RM
 from repro_torch import convert
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.launch import steps as TS
 from repro_torch.models import model as TM
 
@@ -71,8 +71,15 @@ def test_config_and_plan_match_reference(cfgs):
 
 
 def test_unported_arch_names_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP item 11"):
-        get_config("qwen2_72b")
+    """Every architecture of the reference resolves (fuzzy ids too), to
+    its reference twin; an unknown name still raises ``KeyError``."""
+    for name in ARCH_IDS:
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
+            ref_get_config(name))
+    assert len(ARCH_IDS) == 10
+    assert get_config("qwen2-72b").name == "qwen2_72b"
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gpt_two")
 
 
 def test_converted_tree_keeps_every_leaf(models):

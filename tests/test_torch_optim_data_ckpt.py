@@ -172,10 +172,21 @@ def test_synth_batch_bit_for_bit(reduced):
 
 
 def test_synth_batch_refuses_unported_frontends():
-    cfg = reduced_config(get_config("olmo_1b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11.2"):
-        DATA.synth_batch(dataclasses.replace(cfg, frontend="vision"), 1, 8,
-                         DATA.DataConfig(), 0)
+    """A vision frontend on the reduced olmo: the extras (the patches,
+    and the text cut to the tokens after them) equal the reference's."""
+    tcfg = dataclasses.replace(reduced_config(get_config("olmo_1b")),
+                               frontend="vision", vision_tokens=3)
+    rcfg = dataclasses.replace(ref_reduced(ref_get("olmo_1b")),
+                               frontend="vision", vision_tokens=3)
+    got = DATA.synth_batch(tcfg, 1, 8, DATA.DataConfig(), 0)
+    want = RDATA.synth_batch(rcfg, 1, 8, RDATA.DataConfig(), 0)
+    assert set(got) == set(want) == {"tokens", "labels", "patches"}
+    assert got["tokens"].shape == (1, 5)
+    for k in ("tokens", "labels"):
+        assert np.array_equal(got[k], np.asarray(want[k]))
+    assert np.array_equal(
+        got["patches"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(want["patches"]).view(np.uint16))
 
 
 def test_iterator_restart_continuity():

@@ -216,22 +216,18 @@ def test_train_steps_match_reference(ref_params, batches, ref_runs, name,
     assert int(opt.step) == 3
 
 
-# every ported family with an SSM or MoE layer builds a train step; a
-# vision (or enc-dec) config is still refused
+# every family with an SSM or MoE layer builds a train step; so does the
+# hybrid with a vision frontend, whose step equals the reference's
 TRAINABLE = ("falcon_mamba_7b", "deepseek_moe_16b", "mixtral_8x22b",
              "jamba_v01_52b")
 
 
 @pytest.mark.parametrize("case", [*TRAINABLE, "jamba_v01_52b:vision"])
-def test_make_train_step_refuses_unported_families(case):
+def test_make_train_step_refuses_unported_families(case, threads):
     arch, _, frontend = case.partition(":")
     cfg = reduced_config(get_config(arch))
     if frontend:
-        cfg = dataclasses.replace(cfg, frontend=frontend)
-        for dev in ("cpu", None):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP item 11"):
-                TSTEPS.make_train_step(cfg, RunConfig(), device=dev)
+        _vision_step_matches_reference(arch)
         return
     assert cfg.ssm is not None or cfg.moe is not None
     assert callable(TSTEPS.make_train_step(cfg, RunConfig(), device="cpu"))
@@ -241,6 +237,35 @@ def test_make_train_step_refuses_unported_families(case):
         # past the family check, the default device (the card) is refused
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TSTEPS.make_train_step(cfg, RunConfig())
+
+
+def _vision_step_matches_reference(arch):
+    """The reduced ``arch`` with 4 vision tokens: one f32 step of the
+    port on ``synth_batch``'s batch (bf16 patches, 28 text tokens)
+    against the reference's step, at the plain run's tolerances."""
+    rcfg = dataclasses.replace(ref_reduced(ref_get(arch)), frontend="vision",
+                               vision_tokens=4)
+    tcfg = dataclasses.replace(reduced_config(get_config(arch)),
+                               frontend="vision", vision_tokens=4)
+    rp = _np(RMDL.init_model(jax.random.PRNGKey(0), rcfg, jnp.float32))
+    assert rp["vision_adapter"].shape == (tcfg.d_model, tcfg.d_model)
+    batch = synth_batch(tcfg, 4, 32, DataConfig(), 0)
+    assert batch["tokens"].shape == (4, 28)
+    ref_batch = {**batch, "patches": jnp.asarray(
+        batch["patches"].view(torch.int16).numpy()).view(jnp.bfloat16)}
+    rrun, trun = RefRun(**BASE), RunConfig(**BASE)
+    want_params, _, want = jax.jit(RSTEPS.make_train_step(rcfg, rrun))(
+        rp, ROPT.init_opt_state(rp, rrun), ref_batch)
+    params = _port_params(rp)
+    step = TSTEPS.make_train_step(tcfg, trun, device="cpu")
+    params, opt, got = step(params, TOPT.init_opt_state(params, trun), batch)
+    assert abs(float(got["loss"]) - float(want["loss"])) \
+        <= 1e-5 * float(want["loss"])
+    want_p = convert.model_params_from_reference(_np(want_params),
+                                                 device="cpu")
+    err = max(float((a - w).abs().max())
+              for a, w in zip(leaves(params), leaves(want_p), strict=True))
+    assert err <= STEP_TOL["plain"][0], err
 
 
 def test_opt_state_from_reference(ref_params):
