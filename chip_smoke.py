@@ -60,10 +60,11 @@ any failure ends the run with a non-zero exit:
             against the frozen digests;
 8. mapper   ``mapping.map_batch``/``map_one`` on a cuda ``MapperState``
             at m=256, k=16, T=100, against the plain version;
-9. profile  the paper point at sim_len 1e6 run again under
-            ``torch.profiler``: kernels per event and device kernel time
-            against phase 7's wall time (the event loop's device busy
-            share);
+9. profile  the paper point at sim_len 2.5e5 (cut from 1e6 in PR 25
+            for the script's time; the JAX reference's digest), timed,
+            then run again under ``torch.profiler``: kernels per event
+            and device kernel time against the timed run's wall (the
+            event loop's device busy share);
 10. syncs   the profiled run, under torch's sync debug mode as well,
             which warns at every call that waits for the card: all but a
             few set-up syncs must come from the loop's one packed read
@@ -236,6 +237,21 @@ any failure ends the run with a non-zero exit:
             (256 patch tokens and 1,792 text tokens) and whisper_medium
             (2,048 text tokens against 1,500 frames): each forward K2
             launch twice a step under remat ``full``, each backward once;
+26. shard      the sharded cell (``launch/steps.build_cell``) on the
+            card: a one-rank NCCL group on an in-memory store and
+            ``make_host_mesh`` (1x1); three olmo_1b training steps at
+            full width (bf16, remat ``full``, batch 4 x 2048) through the
+            cell's step on DTensor parameters, the losses and every
+            parameter after step 3 equal to the unsharded
+            ``make_train_step``'s bit for bit, K2 and its backward
+            launched 32 and 16 times a step, the last step counted by
+            ``launch/op_cost``; beside it, in two subprocesses, the dry
+            run (``launch/dryrun``) of that cell on a 1x1 mesh and of
+            olmo_1b ``decode_32k`` on 16x16: the 1x1 prediction's peak
+            within 25% of ``torch.cuda.max_memory_allocated`` over the
+            sharded steps, its FLOPs equal to the real step's count;
+            predicted terms, peak and FLOPs of both cells beside the
+            card's name and power limit;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
@@ -246,8 +262,9 @@ the faults (phase 14) and the trace (phase 15), which launch none of the
 three kernels, the prefill (phase 17: K2, K3), ``serve()`` (phase 18,
 whose decode steps are plain torch), the three training runs (phases
 22-24: K2 and its backward, K3's training variant and the scan's
-backward) and each family's prefill, decode and training in phase 25
-(K2 and its backward); the ``kernels`` line gives K3 and its training
+backward), each family's prefill, decode and training in phase 25
+(K2 and its backward) and the sharded steps of phase 26 (K2 and its
+backward); the ``kernels`` line gives K3 and its training
 variant a row each.  The comparison
 launches of phases 3-5, 16, 19, 20 and 21 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -258,6 +275,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -636,6 +654,9 @@ def phase_golden():
 
 
 PROFILE_SIM_LEN = 1e6     # the paper point's --fast horizon, 13,824 events
+# phase profile's horizon (3,456 events): cut from 1e6 in PR 25 for the
+# script's time, with its own untraced timed run
+PROFILE_CUT_SIM_LEN = 2.5e5
 
 
 def _paper_run(sim_len: float):
@@ -703,26 +724,31 @@ def phase_mapper():
           "T": K1_T, "kernel_launches": HM.launches - before})
 
 
-def phase_profile(paper):
+def phase_profile():
     """Device busy share of the event loop at the paper point (sim_len
-    1e6): CUDA kernel time over wall time, against phase ``paper``'s
-    run of it timed without the profiler.  The profiled run is also
-    under torch's sync debug mode: returns its events and host syncs by
-    line for :func:`phase_syncs`."""
+    PROFILE_CUT_SIM_LEN): CUDA kernel time over wall time, against a run
+    of it timed without the profiler.  The profiled run is also under
+    torch's sync debug mode: returns its events and host syncs by line
+    for :func:`phase_syncs`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sim import run
-    p, wl = _paper_run(PROFILE_SIM_LEN)
-    wall, events = paper["wall_s"], paper["events"]
+    p, wl = _paper_run(PROFILE_CUT_SIM_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(p, *wl, PROFILE_CUT_SIM_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = _check_paper(st, PROFILE_CUT_SIM_LEN, "profile")
 
     def profiled():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            st = run(p, *wl, PROFILE_SIM_LEN)
+            st = run(p, *wl, PROFILE_CUT_SIM_LEN)
             torch.cuda.synchronize()
             return st, prof, time.perf_counter() - t0
     (st, prof, wall_prof), lines = _sync_lines(profiled)
-    _check_paper(st, PROFILE_SIM_LEN, "profile")
+    _check_paper(st, PROFILE_CUT_SIM_LEN, "profile")
     # the raw kineto records: millions of them, too many to build the
     # profiler's Python event tree from
     busy_ns, n_dev, by_name = 0, 0, {}
@@ -735,7 +761,8 @@ def phase_profile(paper):
         name = e.name()[:60]
         by_name[name] = by_name.get(name, 0) + ns
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    emit({"phase": "profile", "sim_len": PROFILE_SIM_LEN, "events": events,
+    emit({"phase": "profile", "sim_len": PROFILE_CUT_SIM_LEN,
+          "events": events,
           "wall_s": wall, "events_per_s": events / wall,
           "wall_s_profiled": wall_prof, "device_kernels": n_dev,
           "kernels_per_event": n_dev / events,
@@ -767,16 +794,17 @@ def _sync_lines(run):
 
 
 def phase_syncs(events: int, lines):
-    """Host syncs of the paper point's event loop (sim_len 1e6, phase
-    profile's profiled run) under torch's sync debug mode, which warns
-    at every call that waits for the card."""
+    """Host syncs of the paper point's event loop (phase profile's
+    profiled run, sim_len PROFILE_CUT_SIM_LEN) under torch's sync debug
+    mode, which warns at every call that waits for the card."""
     read_line, per_read = lines.most_common(1)[0]
     others = sum(lines.values()) - per_read
     # one read per iteration, the last one seeing the empty queue
     if per_read != events + 1 or others > SETUP_SYNCS_MAX:
         raise AssertionError(f"host syncs per line {dict(lines)} for "
                              f"{events} events")
-    emit({"phase": "syncs", "sim_len": PROFILE_SIM_LEN, "events": events,
+    emit({"phase": "syncs", "sim_len": PROFILE_CUT_SIM_LEN,
+          "events": events,
           "packed_read": read_line, "packed_reads": per_read,
           "other_syncs": others, "by_line": dict(lines)})
 
@@ -3039,6 +3067,196 @@ def phase_lm_families():
     return total
 
 
+# phase shard: the sharded cell on the card's 1x1 mesh against the
+# unsharded step, and the dry run's prediction of it
+SHARD_STEPS = 3
+SHARD_PEAK_TOL = 0.25          # predicted peak within 25% of the measured
+SHARD_DRYRUN_TIMEOUT_S = 300
+
+
+def _whole(t):
+    """A DTensor's full value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _dryrun(out, *args):
+    """Start ``launch.dryrun`` for olmo_1b in a subprocess writing to
+    ``out``."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "olmo_1b", *args, "--out", str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+
+
+def _dryrun_row(proc, out, deadline) -> dict:
+    try:
+        _, err = proc.communicate(timeout=max(1.0, deadline
+                                              - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"shard: dry run {out.name} timed out")
+    if proc.returncode != 0:
+        raise AssertionError(f"shard: dry run {out.name} failed: "
+                             f"{err[-2000:]}")
+    row = json.loads(out.read_text())[0]
+    if row.get("status") != "ok":
+        raise AssertionError(f"shard: dry run {out.name}: {row}")
+    return row
+
+
+def _terms(row) -> dict:
+    keys = ("cell", "mesh", "flops_per_chip", "bytes_per_chip",
+            "collective_bytes_per_chip", "t_compute_s", "t_memory_s",
+            "t_collective_s", "bottleneck", "peak_bytes_per_chip",
+            "fits_80gb", "microbatches", "trace_s")
+    return {k: row[k] for k in keys}
+
+
+def phase_shard(smi):
+    """(a) A one-rank NCCL group (in-memory store) and ``make_host_mesh``
+    (1x1): three olmo_1b training steps at full width (bf16, remat
+    ``full``, batch 4 x 2048) through ``build_cell(...).step`` on DTensor
+    parameters, whose losses and parameters after step 3 must equal the
+    unsharded ``make_train_step``'s from the same seed and batches bit
+    for bit, with K2 and its backward launched 32 and 16 times a step;
+    the last step runs under ``launch/op_cost``.  (b) The dry run in two
+    subprocesses (started first; CPU work beside (a)): that cell on a 1x1
+    mesh and olmo_1b ``decode_32k`` on 16x16.  The 1x1 prediction's peak
+    must be within 25% of ``torch.cuda.max_memory_allocated`` over (a)'s
+    sharded steps and its FLOPs equal to the count of (a)'s real step.
+    -> (a)'s launches (its own main path: zeroed before, read after)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import init_single_rank, make_host_mesh
+    from repro_torch.launch.steps import (build_cell, make_train_step, place,
+                                          place_cell)
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import optimizer as OPT
+    from repro_torch.pytree import leaves
+    t0 = time.perf_counter()
+    out_dir = REPO / "chiprun_out" / "shard"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    procs = [(_dryrun(out_dir / "host.json", "--shape", "train_4k",
+                      "--mesh", "host", "--batch", str(B), "--seq", str(S)),
+              out_dir / "host.json"),
+             (_dryrun(out_dir / "decode.json", "--shape", "decode_32k",
+                      "--mesh", "single"), out_dir / "decode.json")]
+    try:
+        cfg = _olmo(reduced=False)
+        run = _lm_train_run()
+        dt = getattr(torch, run.param_dtype)
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                    synth_batch(cfg, B, S, DataConfig(), s).items()}
+                   for s in range(SHARD_STEPS)]
+        # the unsharded step: its losses, and its parameters on the host
+        torch.cuda.empty_cache()
+        params = MDL.init_model(cfg, dt, seed=run.seed)
+        opt = OPT.init_opt_state(params, run)
+        step = make_train_step(cfg, run, donate=True)
+        want_losses = []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            want_losses.append(float(m["loss"]))
+        want = [p.cpu() for p in leaves(params)]
+        del params, opt, step, m
+        torch.cuda.empty_cache()
+        # the cell on the 1x1 mesh: the parameters are the DTensors' own
+        # storage (a 1-rank shard is the whole tensor, no copy)
+        init_single_rank("cuda")
+        mesh = make_host_mesh("cuda")
+        cell = build_cell(cfg, ShapeConfig(f"train_{B}x{S}", S, B, "train"),
+                          mesh, run)
+        params = MDL.init_model(cfg, dt, seed=run.seed)
+        opt = OPT.init_opt_state(params, run)
+        p_d, o_d, _ = place_cell(cell, (params, opt, batches[0]))
+        del params, opt
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.launches = FA.bwd_launches = SS.launches = SS.bwd_launches = 0
+        SS.states_launches = HM.launches = 0      # the shard path starts
+        losses, per_step, step_s = [], [], []
+        for i, b in enumerate(batches):
+            bd = place(b, cell.in_specs[2], mesh)
+            before = (FA.launches, FA.bwd_launches)
+            ts = time.perf_counter()
+            if i == SHARD_STEPS - 1:
+                (p_d, o_d, m), real = op_cost.measure(cell.step, p_d, o_d,
+                                                      bd, mesh=mesh)
+            else:
+                p_d, o_d, m = cell.step(p_d, o_d, bd)
+            losses.append(float(_whole(m["loss"])))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            per_step.append([FA.launches - before[0],
+                             FA.bwd_launches - before[1]])
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": FA.launches,   # ... and ends here
+                    "flash_attention_bwd": FA.bwd_launches,
+                    "selective_scan": SS.launches,
+                    "selective_scan_states": SS.states_launches,
+                    "selective_scan_bwd": SS.bwd_launches,
+                    "hier_minsearch": HM.launches}
+        want_k2 = [2 * cfg.n_layers, cfg.n_layers]
+        others = ("selective_scan", "selective_scan_states",
+                  "selective_scan_bwd", "hier_minsearch")
+        if any(n != want_k2 for n in per_step) or any(launches[k]
+                                                      for k in others):
+            raise AssertionError(f"shard launches {per_step} a step, "
+                                 f"{launches}; want {want_k2}")
+        if losses != want_losses:
+            raise AssertionError(f"shard losses {losses} != unsharded "
+                                 f"{want_losses}")
+        got = [_whole(p).cpu() for p in leaves(p_d)]
+        unequal = sum(not torch.equal(a, w) for a, w in zip(got, want))
+        if len(got) != len(want) or unequal:
+            raise AssertionError(f"shard: {unequal} of {len(want)} "
+                                 f"parameters differ from the unsharded "
+                                 f"step's after step {SHARD_STEPS}")
+        del p_d, o_d, got, want, m
+        torch.cuda.empty_cache()
+        deadline = time.perf_counter() + SHARD_DRYRUN_TIMEOUT_S
+        host, decode = (_dryrun_row(p, o, deadline) for p, o in procs)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ratio = host["peak_bytes_per_chip"] / peak
+    if abs(ratio - 1.0) > SHARD_PEAK_TOL:
+        raise AssertionError(f"shard: predicted peak "
+                             f"{host['peak_bytes_per_chip']} B is {ratio:.3f}"
+                             f" of the measured {peak} B")
+    if host["flops_per_chip"] != real.flops:
+        raise AssertionError(f"shard: predicted FLOPs "
+                             f"{host['flops_per_chip']} != the real step's "
+                             f"{real.flops}")
+    emit({"phase": "shard", "nvidia_smi": smi, "config": cfg.name,
+          "mesh": "1x1", "dtype": run.param_dtype, "remat": run.remat,
+          "batch": B, "seq": S, "steps": SHARD_STEPS,
+          "losses": losses, "losses_unsharded": want_losses,
+          "bitwise": True, "params_compared": len(leaves(cell.args[0])),
+          "launches_per_step": per_step, "step_ms": [1e3 * t for t in step_s],
+          "peak_bytes_measured": peak,
+          "peak_bytes_predicted": host["peak_bytes_per_chip"],
+          "peak_ratio": ratio,
+          "flops_real_step": real.flops,
+          "flops_predicted": host["flops_per_chip"],
+          "real_step_counted_peak_bytes": real.peak_bytes,
+          "real_step_hbm_bytes": real.hbm_bytes,
+          "dryrun_1x1": _terms(host),
+          "dryrun_decode_32k_16x16": _terms(decode),
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3061,7 +3279,7 @@ def main() -> int:
             time.perf_counter() - t0
         return out
 
-    timed(phase_device)
+    smi = timed(phase_device)
     k3_bwd_build = timed(phase_build)
     k1 = timed(phase_k1)
     k2 = timed(phase_k2)
@@ -3073,7 +3291,7 @@ def main() -> int:
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
-    timed(phase_syncs, *timed(phase_profile, paper_off))
+    timed(phase_syncs, *timed(phase_profile))
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
     sweep_launches = timed(phase_sweep)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
@@ -3114,6 +3332,7 @@ def main() -> int:
     trained_ssm = timed(phase_lm_train_ssm)
     trained_moe = timed(phase_lm_train_moe)
     families = timed(phase_lm_families)
+    sharded = timed(phase_shard, smi)
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))
@@ -3128,14 +3347,15 @@ def main() -> int:
              tlm_launches + sweep_launches, k1),
             (FA.NAME, FA.SOURCE, FA.REPLACES, prefill["flash_attention"]
              + sum(t["flash_attention"] for t in trains)
-             + families["flash_attention"], k2),
+             + families["flash_attention"] + sharded["flash_attention"], k2),
             (SS.NAME, SS.SOURCE, SS.REPLACES, prefill["selective_scan"]
              + sum(t["selective_scan"] for t in trains), k3),
             (SS.STATES_NAME, SS.SOURCE, SS.REPLACES,
              sum(t["selective_scan_states"] for t in trains), k3_states),
             (FA.BWD_NAME, FA.BWD_SOURCE, FA.BWD_REPLACES,
              sum(t["flash_attention_bwd"] for t in trains)
-             + families["flash_attention_bwd"], k2_bwd),
+             + families["flash_attention_bwd"]
+             + sharded["flash_attention_bwd"], k2_bwd),
             (SS.BWD_NAME, SS.BWD_SOURCE, SS.BWD_REPLACES,
              sum(t["selective_scan_bwd"] for t in trains), k3_bwd)]
     emit({"kernels": [{

@@ -166,11 +166,23 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+def shape_supported(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether an (arch x shape) cell is runnable (a 500k context needs
+    a sub-quadratic mixer)."""
+    if shape.name == "long_500k":
+        return model.supports_long_context
+    return True
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """Training hyperparameters (the reference's ``RunConfig``, field for
-    field).  ``layout`` (the sharded cell's layout) is carried but has no
-    effect on one card: sharding is ROADMAP item 12."""
+    field).  ``layout`` picks a sharded cell's layout
+    (``launch/steps.build_cell``): ``tp_fsdp`` tensor-parallel parameters
+    over "model" with FSDP over the dp axes, ``zero3`` no tensor
+    parallelism (every parameter over all axes, the batch over all
+    axes), ``sp`` as ``tp_fsdp`` with the saved (B,S,d) activations
+    sequence-sharded over "model".  An unsharded step ignores it."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9
@@ -186,7 +198,7 @@ class RunConfig:
     remat: str = "full"            # none | full | dots
     microbatches: int = 1          # gradient accumulation
     grad_compression: str = "none"  # none | int8
-    layout: str = "tp_fsdp"        # tp_fsdp | zero3 (ROADMAP item 12)
+    layout: str = "tp_fsdp"        # tp_fsdp | zero3 | sp (sharded cells)
     seed: int = 0
 
 
@@ -225,6 +237,13 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{name}")
     return _REGISTRY[name]
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """Every architecture's config, by name."""
+    for arch in ARCH_IDS:
+        get_config(arch)
+    return {a: _REGISTRY[a] for a in ARCH_IDS}
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:

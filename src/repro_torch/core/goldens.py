@@ -989,6 +989,12 @@ PAPER_POINT = {
           "app_done_sha": "795a787605b3ebe23d5258f8fab5273d"
                           "3cbc11131e7b284fc8ac06af1e07fa2d",
           "mean_response": 32177.28125},
+    # chip_smoke.py phase profile's horizon (PR 25), from the JAX
+    # reference's repro.core.sim.run on the CPU
+    2.5e5: {"events_processed": 3456, "beacons_tx": 977, "evq_peak": 508,
+            "app_done_sha": "71f73b08c5e0c543dba3dddd1cd7770f"
+                            "3c0262e139255d7d0dcecef712966805",
+            "mean_response": 30932.041015625},
 }
 
 

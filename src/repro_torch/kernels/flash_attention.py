@@ -43,7 +43,11 @@ softmax of ``repro/kernels/ref.py:attention_ref``) or
 :func:`flash_attention_bwd_plain`, a CUDA tensor launches the kernel or
 raises — there is no fallback from one to the other.  ``launches`` and
 ``bwd_launches`` count kernel launches (one backward launch is the
-entry point's three kernels).
+entry point's three kernels).  A meta tensor (the dry run,
+``launch/dryrun``) is checked as the kernels check theirs and gives
+empty outputs of the kernels' shapes and dtypes; no path reaches the
+plain version from it.  Every path reports the kernel's work by its
+formula (``kernels/cost``).
 
 Sq > Skv is taken without a mask (every row sees every key: the
 encoder-decoder's cross attention, ``flash_attention_xla``'s case) and
@@ -62,7 +66,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -187,8 +191,8 @@ def _check(q, k, v, causal, sliding_window):
 
 def _check_kernel(q, k, v, *more):
     """Raise on what the CUDA kernels do not take."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     D = q.shape[3]
     if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in (k, v,
@@ -208,16 +212,31 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
     """Attention of q over k/v (see the module note), and with
     ``return_lse`` each row's log-sum-exp (f32, (B, Hq, Sq)).  CPU tensors
     take the plain version; CUDA tensors launch the Hopper kernel or
-    raise."""
-    global launches
+    raise; meta tensors (the dry run) take what the kernel takes and give
+    empty outputs.  Each path reports the kernel's work (``cost``)."""
     _check(q, k, v, causal, sliding_window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sliding_window=sliding_window,
-                                     return_lse=return_lse)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    work = cost.attention(B, Sq, Skv, Hq, Hkv, D, causal, sliding_window,
+                          q.element_size(), return_lse)
+    with cost.kernel(NAME, *work):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         sliding_window=sliding_window,
+                                         return_lse=return_lse)
+        return _launch(q, k, v, causal, sliding_window, return_lse)
+
+
+def _launch(q, k, v, causal, sliding_window, return_lse):
+    global launches
     _check_kernel(q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.device.type == "meta":
+        return (out, lse) if return_lse else out
     if q.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("flash_attention bf16 kernel copies 16-byte "
@@ -230,9 +249,6 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
         grid_ok = max(B, Hq) <= 65535 and math.ceil(Sq / 64) <= 2**31 - 1
     if not grid_ok:
         raise ValueError(f"grid too large for B={B}, Hq={Hq}, Sq={Sq}")
-    out = torch.empty_like(q)
-    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     fn = _entry(NAME, _ENTRY, q.dtype, 5)
@@ -253,8 +269,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     """(dq, dk, dv) of attention from the forward's ``out`` and ``lse``
     and the output's gradient ``dout`` (see the module note).  CPU
     tensors take the plain version; CUDA tensors launch the backward
-    kernels or raise."""
-    global bwd_launches
+    kernels or raise; meta tensors give empty gradients.  Each path
+    reports the kernels' work (``cost``)."""
     _check(q, k, v, causal, sliding_window)
     if not (out.shape == dout.shape == q.shape
             and lse.shape == (q.shape[0], q.shape[2], q.shape[1])):
@@ -262,15 +278,28 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                          f"dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal,
-                                         sliding_window=sliding_window)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    work = cost.attention_bwd(B, Sq, Skv, Hq, Hkv, D, causal,
+                              sliding_window, q.element_size())
+    with cost.kernel(BWD_NAME, *work):
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                             causal=causal,
+                                             sliding_window=sliding_window)
+        return _launch_bwd(q, k, v, out, lse, dout, causal, sliding_window)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, sliding_window):
+    global bwd_launches
     _check_kernel(q, k, v, out, dout)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd takes a contiguous float32 lse")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.device.type == "meta":
+        return dq, dk, dv
     if q.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
             raise ValueError("flash_attention_bwd bf16 kernels copy 16-byte "
@@ -285,7 +314,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     if not grid_ok:
         raise ValueError(f"grid too large for B={B}, Hq={Hq}, Sq={Sq}, "
                          f"Skv={Skv}")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)

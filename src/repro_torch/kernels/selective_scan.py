@@ -22,7 +22,9 @@ takes :func:`selective_scan_plain` (the sequential loop of
 ``repro/kernels/ref.py:selective_scan_ref``), a CUDA tensor launches the
 kernel or raises — there is no fallback from one to the other.
 ``launches`` counts the kernel's launches, ``states_launches`` those of
-its training variant (below).
+its training variant (below).  A meta tensor (the dry run) is checked as
+the kernel checks its inputs and gives empty outputs; every path reports
+the kernel's work by its formula (``kernels/cost``).
 
 The backward (:func:`selective_scan_bwd`, a kernel that replaces no TPU
 kernel: the reference differentiates ``ops._chunked_selective_scan`` with
@@ -45,7 +47,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 NAME = "selective_scan"
 SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
@@ -239,8 +241,9 @@ def _kernel_inputs(x, dt, A, Bc, Cc, D_skip):
 
 
 def _device(x, name):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     return x.device.type
 
 
@@ -251,18 +254,28 @@ def selective_scan(x, dt, A, Bc, Cc, D_skip, *, with_states=False):
     ``with_states`` (the training variant): -> (y, states), states the h
     at the start of every run of the backward (:func:`selective_scan_plain`),
     y the same bits as without."""
-    global launches, states_launches
     _check(x, dt, A, Bc, Cc, D_skip)
-    if _device(x, "selective_scan") == "cpu":
-        return selective_scan_plain(x, dt, A, Bc, Cc, D_skip,
-                                    with_states=with_states)
+    dev = _device(x, "selective_scan")
+    Bsz, S, Di = x.shape
+    N = A.shape[1]
+    work = cost.scan(Bsz, S, Di, N, x.element_size(),
+                     4 * Bsz * Di * n_runs(S) * N if with_states else 0)
+    with cost.kernel(STATES_NAME if with_states else NAME, *work):
+        if dev == "cpu":
+            return selective_scan_plain(x, dt, A, Bc, Cc, D_skip,
+                                        with_states=with_states)
+        return _launch(x, dt, A, Bc, Cc, D_skip, with_states)
+
+
+def _launch(x, dt, A, Bc, Cc, D_skip, with_states):
+    global launches, states_launches
     Bsz, S, Di = x.shape
     N = A.shape[1]
     Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     y = torch.empty_like(x)
     states = (torch.empty((Bsz, Di, n_runs(S), N), dtype=torch.float32,
                           device=x.device) if with_states else None)
-    if y.numel() == 0:
+    if y.numel() == 0 or x.device.type == "meta":
         return (y, states) if with_states else y
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -320,23 +333,32 @@ def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy, states=None):
     kernel (``csrc/selective_scan_bwd.cu``) or raise, after the forward's
     training variant when no states are given (one more K3 launch).  On
     the card dy must be contiguous and of x's dtype."""
-    global bwd_launches
     _check(x, dt, A, Bc, Cc, D_skip)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)} on "
                          f"{dy.device} does not match x {tuple(x.shape)} "
                          f"on {x.device}")
-    if _device(x, "selective_scan_bwd") == "cpu":
-        return selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy,
-                                        states)
+    dev = _device(x, "selective_scan_bwd")
+    if dev != "cpu" and (dy.dtype != x.dtype or not dy.is_contiguous()):
+        raise ValueError(f"selective_scan_bwd kernel takes a contiguous dy "
+                         f"of x's dtype {x.dtype}, got {dy.dtype}")
+    if dev != "cpu" and states is None and x.numel():
+        # the training variant first (one more K3 launch, its own work)
+        _, states = selective_scan(x, dt, A, Bc, Cc, D_skip, with_states=True)
+    Bsz, S, Di = x.shape
+    with cost.kernel(BWD_NAME, *cost.scan_bwd(Bsz, S, Di, A.shape[1],
+                                              x.element_size())):
+        if dev == "cpu":
+            return selective_scan_bwd_plain(x, dt, A, Bc, Cc, D_skip, dy,
+                                            states)
+        return _launch_bwd(x, dt, A, Bc, Cc, D_skip, dy, states)
+
+
+def _launch_bwd(x, dt, A, Bc, Cc, D_skip, dy, states):
+    global bwd_launches
     Bsz, S, Di = x.shape
     N = A.shape[1]
     D_dtype = D_skip.dtype
-    if dy.dtype != x.dtype or not dy.is_contiguous():
-        raise ValueError(f"selective_scan_bwd kernel takes a contiguous dy "
-                         f"of x's dtype {x.dtype}, got {dy.dtype}")
-    if states is None and x.numel():
-        _, states = selective_scan(x, dt, A, Bc, Cc, D_skip, with_states=True)
     Bc, Cc, A, D_skip = _kernel_inputs(x, dt, A, Bc, Cc, D_skip)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
@@ -352,6 +374,8 @@ def selective_scan_bwd(x, dt, A, Bc, Cc, D_skip, dy, states=None):
                          f"states {want} on {x.device}, got "
                          f"{states.dtype} {tuple(states.shape)} on "
                          f"{states.device}")
+    if x.device.type == "meta":
+        return dx, ddt, dA, dB, dC, dD.to(D_dtype)
     lib = _bwd_lib()
     ws = torch.empty(lib.selective_scan_bwd_workspace(Bsz, S, Di, N),
                      dtype=torch.float32, device=x.device)

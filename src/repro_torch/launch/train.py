@@ -1,11 +1,14 @@
 """Fault-tolerant training loop (port of ``repro/launch/train.py``).
 
-Trains on one device (default: the card): checkpoint every N steps
-(snapshot, write on a thread, atomic commit), resume from the latest
-committed step, deterministic data so a restart needs only the step
-counter (``data/pipeline.py``), optional int8 gradient compression with
-error feedback.  The reference's mesh and sharding rules are ROADMAP
-item 12.
+Trains on one device (default: the card) under the host's mesh and
+the default activation rules, as the reference does (``make_host_mesh``
+starts a one-rank process group if none runs; the parameters are whole
+tensors, so every hint is the identity and the losses are the unsharded
+step's): checkpoint every N steps (snapshot, write on a thread, atomic
+commit), resume from the latest committed step, deterministic data so a
+restart needs only the step counter (``data/pipeline.py``), optional
+int8 gradient compression with error feedback.  Sharded training over
+several ranks goes through ``launch/steps.build_cell``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b \\
       --steps 200 --reduced --ckpt-dir /tmp/ckpt [--resume] \\
@@ -24,10 +27,12 @@ from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.configs.base import RunConfig, get_config, reduced_config
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as MDL
 from repro_torch.optim import optimizer as OPT
 from repro_torch.parallel import compression as COMP
+from repro_torch.parallel.ctx import activation_rules, sharding_rules
 from repro_torch.pytree import tree_map
 
 
@@ -65,29 +70,31 @@ def train(cfg, run: RunConfig, *, steps: int, batch: int, seq: int,
                         start_step=start)
     losses = []
     pending = None
+    mesh = make_host_mesh(dev.type)
     t0 = time.time()
     try:
-        for s in range(start, steps):
-            if s == fail_at:
-                raise RuntimeError(f"injected failure at step {s}")
-            b = next(data)
-            if compressed:
-                params, opt, err, metrics = step_fn(params, opt, err, b)
-            else:
-                params, opt, metrics = step_fn(params, opt, b)
-            if (s + 1) % log_every == 0 or s + 1 == steps:
-                loss = float(metrics["loss"])
-                losses.append((s + 1, loss))
-                verbose(f"[train] step {s+1}/{steps} loss={loss:.4f} "
-                        f"lr={float(metrics['lr']):.2e} "
-                        f"gnorm={float(metrics['grad_norm']):.2f} "
-                        f"({(time.time()-t0):.1f}s)")
-            if ckpt_dir and (s + 1) % ckpt_every == 0:
-                if pending is not None:
-                    pending.join()
-                _, pending = CKPT.save(
-                    ckpt_dir, s + 1,
-                    (params, opt.mu, opt.nu, opt.step), async_=True)
+        with sharding_rules(mesh, activation_rules()):
+            for s in range(start, steps):
+                if s == fail_at:
+                    raise RuntimeError(f"injected failure at step {s}")
+                b = next(data)
+                if compressed:
+                    params, opt, err, metrics = step_fn(params, opt, err, b)
+                else:
+                    params, opt, metrics = step_fn(params, opt, b)
+                if (s + 1) % log_every == 0 or s + 1 == steps:
+                    loss = float(metrics["loss"])
+                    losses.append((s + 1, loss))
+                    verbose(f"[train] step {s+1}/{steps} loss={loss:.4f} "
+                            f"lr={float(metrics['lr']):.2e} "
+                            f"gnorm={float(metrics['grad_norm']):.2f} "
+                            f"({(time.time()-t0):.1f}s)")
+                if ckpt_dir and (s + 1) % ckpt_every == 0:
+                    if pending is not None:
+                        pending.join()
+                    _, pending = CKPT.save(
+                        ckpt_dir, s + 1,
+                        (params, opt.mu, opt.nu, opt.step), async_=True)
     finally:
         # the last write finishes (also after a failure), so no thread
         # outlives the run

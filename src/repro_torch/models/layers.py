@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.parallel.ctx import is_dtensor, shard_hint, tp_input
 
 
 def normal(shape, gen, dtype, device, scale):
@@ -149,10 +150,54 @@ def init_embedding(gen, cfg: ModelConfig, dtype, device):
 
 
 def embed(params, tokens):
-    return params["tok"][tokens]
+    tok = params["tok"]
+    if is_dtensor(tok):
+        return _embed_sharded(tok, tokens)
+    return tok[tokens]
+
+
+def _embed_sharded(tok, tokens):
+    """The lookup on each rank's shard of a DTensor table (V, d), vocab-
+    parallel where the vocab is split: a rank looks up the tokens in its
+    rows and zeroes the rest, and the output sums over those ranks
+    (``Partial``).  The table's d is gathered first; the tokens are
+    whole over the vocab's axes and keep their batch split, which the
+    output follows; the table's gradient sums over the batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tok.device_mesh
+    V = tok.shape[0]
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tp, kp, op, gp = [], [], [], []
+    for i in range(mesh.ndim):
+        vocab = tok.placements[i].is_shard(0)
+        batch = tokens.placements[i].is_shard(0) and not vocab
+        tp.append(Shard(0) if vocab else Replicate())
+        kp.append(Shard(0) if batch else Replicate())
+        op.append(Partial() if vocab else kp[-1])
+        gp.append(Partial() if batch else tp[-1])
+    tok = tok.redistribute(mesh, tp)
+    tokens = tokens.redistribute(mesh, kp)
+    _, off = compute_local_shape_and_global_offset(tok.shape, mesh, tp)
+
+    def look(tl, kl):
+        if tl.shape[0] == V:
+            return tl[kl]
+        idx = kl - off[0]
+        ok = (idx >= 0) & (idx < tl.shape[0])
+        return tl[idx.clamp(0, tl.shape[0] - 1)] * ok[..., None].to(tl.dtype)
+
+    return local_map(look, out_placements=op, in_placements=(tp, kp),
+                     in_grad_placements=(gp, kp),
+                     device_mesh=mesh)(tok, tokens)
 
 
 def unembed(params, x):
+    x = tp_input(x)
     w = params.get("out")
     if w is None:
         w = params["tok"].T
@@ -179,7 +224,8 @@ def qkv_proj(params, cfg: ModelConfig, x, kv_input=None):
     """Project to (q, k, v) with shapes (B, S, n, hd): q from x, k and v
     from ``kv_input`` (cross attention) or x."""
     B, S, _ = x.shape
-    kv_input = x if kv_input is None else kv_input
+    x = tp_input(x)
+    kv_input = x if kv_input is None else tp_input(kv_input)
     Skv = kv_input.shape[1]
     # the weights in x's dtype, k and v in its type promoted with
     # kv_input's, as jnp.matmul promotes (a bf16 encoder output under f32
@@ -193,9 +239,11 @@ def qkv_proj(params, cfg: ModelConfig, x, kv_input=None):
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim))
+    return (shard_hint(q.reshape(B, S, cfg.n_heads, cfg.head_dim), "act_q"),
+            shard_hint(k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
+                       "act_kv"),
+            shard_hint(v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
+                       "act_kv"))
 
 
 def attention_block(params, cfg: ModelConfig, x, *, positions=None,
@@ -233,6 +281,7 @@ def decode_attention(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     """Single-token decode: x (B, 1, d); the new token's k/v are already
     in the cache at ``pos``.  Returns (B, 1, d)."""
     B = x.shape[0]
+    x = tp_input(x)
     q = x @ params["wq"].to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
@@ -249,6 +298,7 @@ def decode_attention(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
 def project_kv_token(params, cfg: ModelConfig, x, pos):
     """One token's k/v for cache insertion, with RoPE at ``pos``."""
     B = x.shape[0]
+    x = tp_input(x)
     k = x @ params["wk"].to(x.dtype)
     v = x @ params["wv"].to(x.dtype)
     if "bk" in params:
@@ -278,11 +328,14 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: int, dtype, device):
 
 
 def apply_mlp(params, cfg: ModelConfig, x):
+    x = tp_input(x)
     if cfg.act == "swiglu":
         h = F.silu(x @ params["wg"].to(x.dtype)) * (x @ params["wu"]
                                                     .to(x.dtype))
     else:
         h = _gelu_tanh(x @ params["wu"].to(x.dtype))
+    if h.dim() == 3:
+        h = shard_hint(h, "act_btf")     # keep the FFN hidden TP-sharded
     return h @ params["wd"].to(x.dtype)
 
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal
+from repro_torch.parallel.ctx import tp_input
 
 
 def _dims(cfg: ModelConfig):
@@ -66,6 +67,7 @@ def apply_mamba(params, cfg: ModelConfig, x):
     """Full-sequence forward: x (B,S,d) -> (B,S,d)."""
     S = x.shape[1]
     d_conv = _dims(cfg)[3]
+    x = tp_input(x)
     xc = x @ params["in_x"].to(x.dtype)                    # (B,S,d_in)
     z = x @ params["in_z"].to(x.dtype)
     # depthwise causal conv1d along S, summed tap by tap as the reference
@@ -93,6 +95,7 @@ def init_mamba_state(cfg: ModelConfig, batch, dtype=torch.float32,
 
 def decode_mamba(params, cfg: ModelConfig, state, x):
     """One decode step: x (B,1,d) -> (new state, (B,1,d))."""
+    x = tp_input(x)
     xc = x[:, 0] @ params["in_x"].to(x.dtype)              # (B, d_in)
     z = x[:, 0] @ params["in_z"].to(x.dtype)
     hist = torch.cat([state["conv"], xc[:, None]], dim=1)  # (B,d_conv,d_in)

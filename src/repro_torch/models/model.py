@@ -35,6 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.moe import moe_layer_indices
+from repro_torch.parallel.ctx import gather_fsdp, is_dtensor, shard_hint
 
 # --------------------------------------------------------------------------
 # Layer planning
@@ -126,9 +127,12 @@ def init_model(cfg: ModelConfig, dtype=torch.bfloat16, *, seed: int = 0,
     from a ``torch.Generator`` seeded with ``seed``, with the reference's
     distributions and scales.  The same seed gives the same weights on
     the same device type; the reference's ``jax.random`` bits are not
-    reproduced (carry them with ``convert.model_params_from_reference``)."""
+    reproduced (carry them with ``convert.model_params_from_reference``).
+    On ``device="meta"`` (the dry run's abstract parameters) nothing is
+    drawn: the leaves have the real draw's shapes and dtypes."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" \
+        else torch.Generator(device=dev).manual_seed(seed)
     prefix, period, n_super = plan_layers(cfg)
     params = {
         "embed": L.init_embedding(gen, cfg, dtype, dev),
@@ -158,6 +162,7 @@ def init_model(cfg: ModelConfig, dtype=torch.bfloat16, *, seed: int = 0,
 
 def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
                  cross_p=None, enc_out=None):
+    p, cross_p = gather_fsdp(p), gather_fsdp(cross_p)
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
@@ -177,7 +182,7 @@ def _apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
         x = x + out
         aux = aux + torch.stack([moe_aux["load_balance"],
                                  moe_aux["dropped_frac"]])
-    return x, aux
+    return shard_hint(x, "act_btd"), aux
 
 
 def _super_block(blk, cfg: ModelConfig, period, x, positions, cross_p=None,
@@ -195,10 +200,11 @@ def _super_block(blk, cfg: ModelConfig, period, x, positions, cross_p=None,
 
 def _enc_layer(blk, cfg: ModelConfig, x):
     """One encoder layer (the reference's ``_encode`` scan body)."""
+    blk = gather_fsdp(blk)
     h = L.apply_norm(blk["norm1"], x, cfg.norm)
     x = x + L.attention_block(blk["attn"], cfg, h, causal=False)
     h = L.apply_norm(blk["norm2"], x, cfg.norm)
-    return x + L.apply_mlp(blk["mlp"], cfg, h)
+    return shard_hint(x + L.apply_mlp(blk["mlp"], cfg, h), "act_btd")
 
 
 # matmuls with no batch dimension (``aten.mm`` / ``aten.addmm``): what the
@@ -240,14 +246,16 @@ def forward(params, cfg: ModelConfig, tokens, *,
     super-block and encoder layer runs under ``remat`` (the prefix
     layers never do, as in the reference's scans)."""
     prefix, period, _ = plan_layers(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(gather_fsdp(params["embed"]), tokens)
     extra = extra or {}
     if cfg.frontend == "vision" and "patches" in extra:
         patches = torch.as_tensor(extra["patches"], device=x.device)
-        vis = patches.to(x.dtype) @ params["vision_adapter"].to(x.dtype)
+        vis = patches.to(x.dtype) @ gather_fsdp(
+            params["vision_adapter"]).to(x.dtype)
         x = torch.cat([vis, x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
+    x = shard_hint(x, "act_btd")
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _encode(params, cfg, torch.as_tensor(extra["frames"],
@@ -263,10 +271,11 @@ def forward(params, cfg: ModelConfig, tokens, *,
     for blk, cp in zip(params["blocks"], cross, strict=True):
         x, a = body(blk, cfg, period, x, positions, cp, enc_out)
         aux = aux + a
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    x = L.apply_norm(gather_fsdp(params["final_norm"]), x, cfg.norm)
     if return_hidden:
         return x, aux
-    return L.unembed(params["embed"], x), aux
+    return shard_hint(L.unembed(gather_fsdp(params["embed"]), x),
+                      "logits"), aux
 
 
 def _encode(params, cfg: ModelConfig, frames, *, remat="full"):
@@ -275,10 +284,11 @@ def _encode(params, cfg: ModelConfig, frames, *, remat="full"):
     ``remat``."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
                            frames.device)
+    x = shard_hint(x, "act_btd")
     body = _remat(_enc_layer, remat)
     for blk in params["enc_blocks"]:
         x = body(blk, cfg, x)
-    return L.apply_norm(params["enc_final_norm"], x, cfg.norm)
+    return L.apply_norm(gather_fsdp(params["enc_final_norm"]), x, cfg.norm)
 
 
 @functools.lru_cache(maxsize=8)
@@ -321,6 +331,44 @@ def _xent_chunk(xc, yc, w, transpose: bool):
     return (torch.logsumexp(lg, dim=-1) - gold).sum()
 
 
+def _nll_sum(x, y, w, transpose: bool, xent_chunk: int):
+    """Summed cross-entropy of tokens x (T, d) with labels y (T,), chunk
+    by chunk of ``xent_chunk`` tokens (all T when T is not a multiple),
+    each chunk under checkpoint."""
+    T = x.shape[0]
+    chunk = min(xent_chunk, T)
+    if T % chunk:
+        chunk = T
+    body = (functools.partial(CK.checkpoint, _xent_chunk, use_reentrant=False)
+            if torch.is_grad_enabled() else _xent_chunk)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, chunk):
+        nll_sum = nll_sum + body(x[i:i + chunk], y[i:i + chunk], w,
+                                 transpose)
+    return nll_sum
+
+
+def _nll_sum_sharded(x, y, w, transpose: bool, xent_chunk: int):
+    """:func:`_nll_sum` of DTensors: the tokens spread over every mesh
+    axis, the unembedding gathered whole on each rank (its gradient
+    summed back), each rank's own tokens chunked as one device chunks
+    them -> the sum, ``Partial`` over the mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    every, whole = [Shard(0)] * mesh.ndim, [Replicate()] * mesh.ndim
+    x = x.redistribute(mesh, every)
+    y = y.redistribute(mesh, every)
+    w = w.redistribute(mesh, whole)
+    return local_map(
+        functools.partial(_nll_sum, transpose=transpose,
+                          xent_chunk=xent_chunk),
+        out_placements=[Partial()] * mesh.ndim,
+        in_placements=(every, every, whole),
+        in_grad_placements=(every, every, [Partial()] * mesh.ndim),
+        device_mesh=mesh)(x, y, w)
+
+
 def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
             extra: Optional[dict] = None, remat: str = "full",
             moe_loss_weight: float = 0.01, xent_chunk: int = 8192):
@@ -341,17 +389,13 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, *,
     transpose = w is None
     if transpose:
         w = params["embed"]["tok"]                  # (V, d), tied
-    x = hidden.reshape(T, d)
+    # the loss-entry layout: tokens over dp, d over model
+    x = shard_hint(hidden.reshape(T, d), "xent_in")
     y = torch.as_tensor(labels, device=x.device).reshape(T).long()
-    chunk = min(xent_chunk, T)
-    if T % chunk:
-        chunk = T
-    body = (functools.partial(CK.checkpoint, _xent_chunk, use_reentrant=False)
-            if torch.is_grad_enabled() else _xent_chunk)
-    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(0, T, chunk):
-        nll_sum = nll_sum + body(x[i:i + chunk], y[i:i + chunk], w,
-                                 transpose)
+    if is_dtensor(x):
+        nll_sum = _nll_sum_sharded(x, y, w, transpose, xent_chunk)
+    else:
+        nll_sum = _nll_sum(x, y, w, transpose, xent_chunk)
     nll = nll_sum / T
     loss = nll + moe_loss_weight * aux[0]
     return loss, {"nll": nll, "load_balance": aux[0], "dropped_frac": aux[1]}
@@ -407,6 +451,7 @@ def encode(params, cfg: ModelConfig, frames):
 
 def _decode_layer(p, cfg: ModelConfig, spec: LayerSpec, lcache, x, pos,
                   cross_p=None, ccache=None):
+    p, cross_p = gather_fsdp(p), gather_fsdp(cross_p)
     h = L.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
         W = cfg.sliding_window
@@ -415,8 +460,8 @@ def _decode_layer(p, cfg: ModelConfig, spec: LayerSpec, lcache, x, pos,
             slot = slot % W
         k_new, v_new = L.project_kv_token(p["attn"], cfg, h, pos)
         # the cache is updated in place (the reference returns a copy)
-        ck = lcache["k"].index_copy_(1, slot, k_new)
-        cv = lcache["v"].index_copy_(1, slot, v_new)
+        ck = ops.cache_write(lcache["k"], slot, k_new)
+        cv = ops.cache_write(lcache["v"], slot, v_new)
         lengths = None
         if W:
             # ring buffer: every slot < min(pos+1, W) is live; RoPE was
@@ -462,9 +507,11 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
     caches are written in place, Mamba states replaced, an
     encoder-decoder's cross keys and values kept."""
     prefix, period, _ = plan_layers(cfg)
-    x = L.embed(params["embed"], token)
+    embed = gather_fsdp(params["embed"])
+    x = L.embed(embed, token)
     if cfg.family == "encdec":
         x = x + _sinusoid_at(pos, cfg.d_model, x.dtype, x.device)
+    x = shard_hint(x, "act_btd_decode")
     new_prefix = []
     for p, spec, lc in zip(params["prefix"], prefix, cache["prefix"]):
         lc, x = _decode_layer(p, cfg, spec, lc, x, pos)
@@ -481,6 +528,6 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos):
                 cross_p=cp if j == 0 else None,
                 ccache=cc if j == 0 else None)
         new_blocks.append(nb)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = L.unembed(params["embed"], x)
+    x = L.apply_norm(gather_fsdp(params["final_norm"]), x, cfg.norm)
+    logits = L.unembed(embed, x)
     return logits, {**cache, "prefix": new_prefix, "blocks": new_blocks}

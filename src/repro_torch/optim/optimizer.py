@@ -30,8 +30,9 @@ def init_opt_state(params, run: RunConfig) -> OptState:
     dt = getattr(torch, run.opt_state_dtype)
     dev = leaves(params)[0].device
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):       # placed as p when p is a DTensor
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))

@@ -14,8 +14,9 @@ from repro_torch.pytree import leaves, tree_map, unflatten
 
 
 def init_error_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def quantize(g, err):

@@ -180,10 +180,17 @@ def test_ops_attention_takes_the_function_under_grad():
 
 
 def test_bwd_refuses_what_the_kernel_cannot_take():
+    # a meta tensor (the dry run) is held to the kernels' checks and
+    # gives empty gradients, launching nothing
     q = torch.zeros((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        FA.flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 4),
-                                                       device="meta"), q)
+    lse = torch.zeros((1, 2, 4), device="meta")
+    before = FA.bwd_launches
+    grads = FA.flash_attention_bwd(q, q, q, q, lse, q)
+    assert [(g.device.type, g.shape) for g in grads] == [("meta", q.shape)] * 3
+    assert FA.bwd_launches == before
+    q12 = torch.zeros((1, 4, 2, 12), device="meta")
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention_bwd(q12, q12, q12, q12, lse, q12)
     c = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError, match="do not match"):
         FA.flash_attention_bwd(c, c, c, c, torch.zeros((1, 4, 2)), c)

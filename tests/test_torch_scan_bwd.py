@@ -129,8 +129,20 @@ def test_bwd_refuses_what_it_cannot_take():
     A = torch.zeros((8, 2), device="meta")
     bc = torch.zeros((1, 4, 2), device="meta")
     D = torch.zeros((8,), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        SS.selective_scan_bwd(x, x, A, bc, bc, D, x)
+    # a meta tensor (the dry run) is held to the kernel's checks and gives
+    # empty gradients, launching nothing
+    before = (SS.bwd_launches, SS.states_launches)
+    grads = SS.selective_scan_bwd(x, x, A, bc, bc, D, x)
+    assert [g.shape for g in grads] == [x.shape, x.shape, A.shape, bc.shape,
+                                        bc.shape, D.shape]
+    assert all(g.device.type == "meta" for g in grads)
+    assert (SS.bwd_launches, SS.states_launches) == before
+    with pytest.raises(ValueError, match="contiguous dy"):
+        SS.selective_scan_bwd(x, x, A, bc, bc, D, x.to(torch.float64))
+    wide = torch.zeros((8, SS.MAX_STATE + 1), device="meta")
+    wbc = torch.zeros((1, 4, SS.MAX_STATE + 1), device="meta")
+    with pytest.raises(ValueError, match="N <="):
+        SS.selective_scan_bwd(x, x, wide, wbc, wbc, D, x)
     c = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="does not match"):
         SS.selective_scan_bwd(c, c, torch.zeros((8, 2)),
