@@ -68,7 +68,12 @@ any failure ends the run with a non-zero exit:
 10. syncs   the profiled run, under torch's sync debug mode as well,
             which warns at every call that waits for the card: all but a
             few set-up syncs must come from the loop's one packed read
-            per event;
+            per event; held against the static guard
+            (``analysis.lint.lint_paths`` over the port's core and
+            serving files, which must find nothing): the packed read's
+            line carries the lint's ``allow(host-sync)`` pragma and
+            every other line that synced lies outside the loop path the
+            lint computes;
 11. sweep   the design-space engine, every sweep in ``"vmap"`` mode
             (the lane-batched loop of ``core/lanes.py``): the golden
             grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
@@ -152,7 +157,8 @@ any failure ends the run with a non-zero exit:
 15. trace   the in-loop trace (``core/trace``) with ``trace_report``'s
             TraceSpec (ring 16,384, stride 64, 512 samples, 64 bins, 4
             per octave), 60 s budget: (a) the paper point through
-            ``sim.run`` at sim_len 1e6 against phase 7's untraced run;
+            ``sim.run`` at sim_len 2.5e5 (1e6 until the script took
+            phase 27) against phase 9's untraced timed run;
             (b) the k=16 ``hier_tree`` group of phase 12's tier (linear
             queue, seeds 1-2) at 1e5 through the lane loop against
             phase 12's untraced probe; (c) k=16 ``hier_tree`` on the
@@ -252,20 +258,28 @@ any failure ends the run with a non-zero exit:
             sharded steps, its FLOPs equal to the real step's count;
             predicted terms, peak and FLOPs of both cells beside the
             card's name and power limit;
+27. loop_copy  ``analysis.loop_copy.lint_combo`` at the analysis CLI's
+            ``paper`` combos (m=256, k=256, ``hier_tree``, queue_cap
+            32,768, batch_pop 64, tree and calendar queues, one lane):
+            lane steps 21-60 under a ``TorchDispatchMode`` that records
+            every copy and factory op and under ``torch.profiler``; no
+            finding (no copy of >= queue_cap or k*k elements, copied
+            bytes a step within the reference's copy budget), copy
+            kernels, their device time and bytes a step, in at most 15 s;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
 launch counts, zeroed just before it and read just after: the TLM path
 (phases 7-8: K1), the sweep (phase 11: K1, from
 ``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13),
-the faults (phase 14) and the trace (phase 15), which launch none of the
-three kernels, the prefill (phase 17: K2, K3), ``serve()`` (phase 18,
-whose decode steps are plain torch), the three training runs (phases
-22-24: K2 and its backward, K3's training variant and the scan's
-backward), each family's prefill, decode and training in phase 25
-(K2 and its backward) and the sharded steps of phase 26 (K2 and its
-backward); the ``kernels`` line gives K3 and its training
-variant a row each.  The comparison
+the faults (phase 14), the trace (phase 15) and the loop-copy check
+(phase 27), which launch none of the three kernels, the prefill (phase
+17: K2, K3), ``serve()`` (phase 18, whose decode steps are plain
+torch), the three training runs (phases 22-24: K2 and its backward,
+K3's training variant and the scan's backward), each family's
+prefill, decode and training in phase 25 (K2 and its backward) and the
+sharded steps of phase 26 (K2 and its backward); the ``kernels`` line
+gives K3 and its training variant a row each.  The comparison
 launches of phases 3-5, 16, 19, 20 and 21 do not count.  Float32
 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False) so the f32
@@ -729,7 +743,8 @@ def phase_profile():
     PROFILE_CUT_SIM_LEN): CUDA kernel time over wall time, against a run
     of it timed without the profiler.  The profiled run is also under
     torch's sync debug mode: returns its events and host syncs by line
-    for :func:`phase_syncs`."""
+    for :func:`phase_syncs`, and its timed run (state, wall, events) for
+    phase ``trace``'s untraced baseline."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sim import run
@@ -740,6 +755,7 @@ def phase_profile():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = _check_paper(st, PROFILE_CUT_SIM_LEN, "profile")
+    timed_run = {"state": st, "wall_s": wall, "events": events}
 
     def profiled():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -771,7 +787,7 @@ def phase_profile():
           "device_busy_share": busy_ns / 1e9 / wall,
           "device_busy_share_profiled": busy_ns / 1e9 / wall_prof,
           "top_kernels_us": [[n, ns / 1e3] for n, ns in top]})
-    return events, lines
+    return events, lines, timed_run
 
 
 def _sync_lines(run):
@@ -793,20 +809,57 @@ def _sync_lines(run):
                         if "synchronizing" in str(r.message))
 
 
+def _lint_guard(lines):
+    """The static guard against the card's count of host syncs by line
+    (``file.py:N``): ``analysis.lint`` finds nothing in the port's core
+    and serving files, the most frequent line (the packed read) carries
+    its ``allow(host-sync)`` pragma, and every other line lies outside
+    the loop path the lint computes.  Returns (loop-path lines, the
+    lines checked outside it)."""
+    from repro_torch.analysis import lint as L
+    from repro_torch.analysis.__main__ import lint_files
+    files = lint_files()
+    findings = L.lint_paths(files)
+    if findings:
+        raise AssertionError("syncs: the lint finds "
+                             f"{[f.to_dict() for f in findings]}")
+    path = L.loop_path(files)
+    on_path = {f"{Path(f).name}:{n}" for f, ns in path.items() for n in ns}
+    src = {Path(f).name: Path(f).read_text().splitlines() for f in files}
+    read_line = lines.most_common(1)[0][0]
+    name, n = read_line.rsplit(":", 1)
+    text = src.get(name, [""] * int(n))[int(n) - 1]
+    if read_line not in on_path \
+            or not L.PRAGMA_RE.search(text) \
+            or "host-sync" not in L.PRAGMA_RE.search(text).group(1):
+        raise AssertionError(f"syncs: the packed read {read_line} is not "
+                             "an allowed host sync on the lint's loop path")
+    inside = [ln for ln in lines if ln != read_line and ln in on_path]
+    if inside:
+        raise AssertionError(f"syncs: host syncs on the loop path the "
+                             f"lint passed: {inside}")
+    return len(on_path), sorted(ln for ln in lines if ln != read_line)
+
+
 def phase_syncs(events: int, lines):
     """Host syncs of the paper point's event loop (phase profile's
     profiled run, sim_len PROFILE_CUT_SIM_LEN) under torch's sync debug
-    mode, which warns at every call that waits for the card."""
+    mode, which warns at every call that waits for the card, held
+    against the lint's static guard (:func:`_lint_guard`)."""
     read_line, per_read = lines.most_common(1)[0]
     others = sum(lines.values()) - per_read
     # one read per iteration, the last one seeing the empty queue
     if per_read != events + 1 or others > SETUP_SYNCS_MAX:
         raise AssertionError(f"host syncs per line {dict(lines)} for "
                              f"{events} events")
+    n_path, outside = _lint_guard(lines)
     emit({"phase": "syncs", "sim_len": PROFILE_CUT_SIM_LEN,
           "events": events,
           "packed_read": read_line, "packed_reads": per_read,
-          "other_syncs": others, "by_line": dict(lines)})
+          "other_syncs": others, "by_line": dict(lines),
+          "lint": {"findings": 0, "packed_read_allowed": True,
+                   "loop_path_lines": n_path,
+                   "other_lines_off_path": outside}})
 
 
 # --------------------------------------------------------------------------
@@ -1728,13 +1781,14 @@ def _in_turns(run_off, run_on) -> dict:
 
 def phase_trace(paper_off, linear):
     """The in-loop trace on the card, with trace_report's TraceSpec:
-    (a) the paper point through ``sim.run`` at 1e6 against phase
-    ``paper``'s untraced run; (b) the tier's k=16 ``hier_tree`` group
-    (linear queue, seeds 1-2) at 1e5 through the lane loop against phase
-    ``fabrics``' untraced probe; (c) k=16 ``hier_tree`` on tree/64 under
-    a partition at 2e4 with a ring that overflows, against its untraced
-    run.  Gates (:func:`_trace_gates`): shared leaves bitwise, the trace
-    leaves against ``goldens.TRACE``, conservation on every lane, valid
+    (a) the paper point through ``sim.run`` at PROFILE_CUT_SIM_LEN
+    against phase ``profile``'s untraced timed run (``paper_off``);
+    (b) the tier's k=16 ``hier_tree`` group (linear queue, seeds 1-2) at
+    1e5 through the lane loop against phase ``fabrics``' untraced probe;
+    (c) k=16 ``hier_tree`` on tree/64 under a partition at 2e4 with a
+    ring that overflows, against its untraced run.  Gates
+    (:func:`_trace_gates`): shared leaves bitwise, the trace leaves
+    against ``goldens.TRACE``, conservation on every lane, valid
     Perfetto.  Reports events/s on and off in this call (the gated runs'
     walls, and shorter runs timed in turns), kernels, device busy time
     and syncs an event (a) or a step by kind (b) on and off, and the
@@ -1752,7 +1806,10 @@ def phase_trace(paper_off, linear):
     spec = TraceSpec(**G.TRACE_FIELDS)
     bad = []
 
-    # (a) the paper point at 1e6
+    # (a) the paper point at phase profile's horizon
+    if G.TRACE_SIM_LENS["paper"] != PROFILE_CUT_SIM_LEN:
+        raise AssertionError("trace: the paper point's traced horizon is "
+                             "not phase profile's")
     p, wl = _paper_run(G.TRACE_SIM_LENS["paper"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3257,6 +3314,37 @@ def phase_shard(smi):
     return launches
 
 
+LOOP_COPY_BUDGET_S = 15.0      # the phase's share of TIME_LIMIT_S
+
+
+def phase_loop_copy():
+    """The lane loop's copies at the analysis CLI's paper combos
+    (``analysis.loop_copy.lint_combo`` on the card: a dispatch mode and
+    ``torch.profiler`` over lane steps 21-60): no finding, and copy
+    kernels, their device time and bytes a step, within
+    LOOP_COPY_BUDGET_S."""
+    from repro_torch.analysis import loop_copy as LC
+    from repro_torch.analysis.__main__ import PROFILES, combo_tag
+    t0 = time.perf_counter()
+    combos = {}
+    for combo in PROFILES["paper"]:
+        r = LC.lint_combo(**combo, device="cuda")
+        if r["findings"]:
+            raise AssertionError(f"loop_copy: {combo_tag(combo)} "
+                                 f"{r['findings']}")
+        combos[combo_tag(combo)] = {
+            key: r[key] for key in ("budget_bytes", "steps", "warmup",
+                                    "copy_count", "copy_bytes_per_iter",
+                                    "make_count", "make_bytes_per_iter",
+                                    "largest_copy_elems")} | r["card"]
+    wall = time.perf_counter() - t0
+    if wall > LOOP_COPY_BUDGET_S:
+        raise AssertionError(f"loop_copy: {wall:.1f} s over its "
+                             f"{LOOP_COPY_BUDGET_S} s budget")
+    emit({"phase": "loop_copy", "findings": 0, "combos": combos,
+          "wall_s": wall, "budget_s": LOOP_COPY_BUDGET_S})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3291,7 +3379,8 @@ def main() -> int:
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
-    timed(phase_syncs, *timed(phase_profile))
+    events, lines, profile_off = timed(phase_profile)
+    timed(phase_syncs, events, lines)
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
     sweep_launches = timed(phase_sweep)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
@@ -3316,12 +3405,12 @@ def main() -> int:
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     FA.launches = SS.launches = HM.launches = 0   # the trace path starts
-    timed(phase_trace, paper_off, linear)
+    timed(phase_trace, profile_off, linear)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the trace path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
-    del paper_off, linear
+    del paper_off, profile_off, linear
     timed(phase_lm_small)
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
@@ -3333,6 +3422,12 @@ def main() -> int:
     trained_moe = timed(phase_lm_train_moe)
     families = timed(phase_lm_families)
     sharded = timed(phase_shard, smi)
+    FA.launches = SS.launches = HM.launches = 0   # the copy check starts
+    timed(phase_loop_copy)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the loop-copy check (no kernel of its own) "
+                             "launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))

@@ -12,8 +12,19 @@ Leaves are flattened in the reference's order (dicts by sorted key,
 restores into a tree of the same structure here, and the reverse.
 ``meta.json`` describes the port's containers in place of JAX's treedef
 proto.  bfloat16 leaves are stored as their uint16 bits, with
-``"bfloat16"`` in ``dtypes``.  Restoring onto another mesh (the
-reference's elastic re-sharding) is ROADMAP item 12.
+``"bfloat16"`` in ``dtypes``.
+
+A sharded tree (DTensor leaves) is saved whole, as the reference's
+``jax.device_get`` gathers it: ``save`` gathers each DTensor leaf with
+``full_tensor()``, a collective, so every rank of the mesh calls it, in
+its own thread (an ``async_`` save still gathers before it returns;
+only the file I/O runs on the writer thread).  Rank 0 of the default
+process group (the only process, without one) writes the step
+directory; the others write nothing.  A synchronous save of a sharded
+tree ends on a barrier, so every rank sees the committed step when
+``save`` returns.  ``restore(..., placements=(specs, mesh))`` places
+each leaf by its spec on any mesh (``parallel/sharding.place``): a state
+saved on one mesh loads onto another, the reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -30,10 +41,26 @@ from repro_torch.pytree import leaves as tree_leaves
 from repro_torch.pytree import structure, unflatten
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes the step directory: rank 0 of the
+    default process group, or the only process."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
 def _snapshot(leaf):
-    """-> (numpy copy of a leaf, its dtype name)."""
+    """-> (numpy copy of a leaf, its dtype name); a DTensor leaf is
+    gathered whole first (a collective: every rank of its mesh calls)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16).copy(), \
                 "bfloat16"
@@ -45,10 +72,19 @@ def _snapshot(leaf):
 
 def save(directory: str, step: int, tree, *, host: int = 0,
          async_: bool = False, keep: int = 3):
-    """Write one checkpoint; returns (path, the writing thread or None)."""
+    """Write one checkpoint; returns (path, the writing thread or None).
+    Every rank calls it for a sharded tree; only the writing rank (see
+    the module's docstring) gets a thread."""
     path = os.path.join(directory, f"step_{step:08d}")
-    # snapshot synchronously: only the file I/O happens on the thread
-    snap = [_snapshot(x) for x in tree_leaves(tree)]
+    # snapshot synchronously, gathers included: only the file I/O
+    # happens on the thread
+    flat = tree_leaves(tree)
+    sharded = any(_is_dtensor(x) for x in flat)
+    snap = [_snapshot(x) for x in flat]
+    if not _writer():
+        if sharded and not async_:
+            torch.distributed.barrier()     # the writer's commit
+        return path, None
     arrs = [a for a, _ in snap]
     meta = {
         "step": step,
@@ -73,6 +109,8 @@ def save(directory: str, step: int, tree, *, host: int = 0,
         t.start()
         return path, t
     _write()
+    if sharded:
+        torch.distributed.barrier()
     return path, None
 
 
@@ -112,10 +150,14 @@ def _restored(arr, dtype: str, like):
 
 
 def restore(directory: str, example_tree, *, step: int | None = None,
-            host: int = 0):
+            host: int = 0, placements=None):
     """Load a committed checkpoint into the structure of
     ``example_tree`` (any tree with the same containers and leaf count;
-    its tensor leaves give the device) -> (step, tree)."""
+    its tensor leaves give the device) -> (step, tree).  ``placements``
+    ``(specs, mesh)``, a spec tree of the example's containers and a
+    ``DeviceMesh`` (as ``launch/steps.place`` takes), places each leaf
+    as a DTensor on that mesh, whichever mesh saved it (the reference's
+    ``shardings=``); 0-d leaves stay whole tensors."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -130,4 +172,8 @@ def restore(directory: str, example_tree, *, step: int | None = None,
                          f"leaves; the example tree {len(like)}")
     out = [_restored(data[f"a{i}"], meta["dtypes"][i], ex)
            for i, ex in enumerate(like)]
-    return meta["step"], unflatten(example_tree, out)
+    tree = unflatten(example_tree, out)
+    if placements is not None:
+        from repro_torch.parallel import sharding as SH
+        tree = SH.place(tree, *placements)
+    return meta["step"], tree

@@ -24,12 +24,12 @@ from repro_torch.core import policies as P
 class BeaconState:
     k: int
     dn_th: int
-    last_bcast: np.ndarray        # (k,) load at the last broadcast
-    view: np.ndarray              # (k, k) view[i, j] of node j
+    last_bcast: np.ndarray  # (k,) at last bcast  # lint: allow(static-unhashable)
+    view: np.ndarray  # (k, k) view[i, j] of j    # lint: allow(static-unhashable)
     tx_count: int = 0
     policy: str = "threshold"     # beacon policy name (core/policies.py)
     T_b: float = float("inf")     # period/deadline (periodic, hybrid)
-    last_tx: np.ndarray = field(default=None)
+    last_tx: np.ndarray = field(default=None)  # lint: allow(static-unhashable)
 
     def __post_init__(self):
         if self.last_tx is None:

@@ -373,8 +373,14 @@ def _alloc(arr, leaf_base, cnt_base, sup_base, s, queue_cap, mask, times):
     window = col0.gather(1, (leaf_base + cols.clamp(max=q - 1))
                          .reshape(n_lanes, -1)).reshape(cols.shape)
     free_w = (window >= INF) & (cols < q)
-    hit = free_w & (torch.cumsum(free_w, -1) == r[..., None] + 1)
-    slot = segc * ALLOC_SEG + torch.argmax(hit.to(I32), -1)
+    # the free count up to each column is nondecreasing and reaches r+1
+    # at the wanted slot: the columns before it are those below r+1.
+    # Without such a slot all 64 are, and the offset wraps to 0 (the
+    # reference's argmax of an all-false row: the counters can overcount
+    # the window when an empty slot is popped)
+    off = (torch.cumsum(free_w, -1) <= r[..., None]).sum(-1) \
+        & (ALLOC_SEG - 1)
+    slot = segc * ALLOC_SEG + off
     ok = mask & (rank < total_free[:, None])
     return slot, segc, ok, (cnt - total_free).clamp(min=0)
 
@@ -456,9 +462,27 @@ def _cal_bases(queue_cap: int):
     return nb, sum_base, cnt_base, sup_base
 
 
+def _bucket_f(t, width, nb):
+    """floor(t / W) mod NB as an exact small integer in f32 (only ever
+    evaluated on finite times)."""
+    return torch.remainder(torch.floor(t / width), nb)
+
+
 def _bucket(t, width, nb):
-    """floor(t / W) mod NB, in f32 (only ever evaluated on finite times)."""
-    return torch.remainder(torch.floor(t / width), nb).to(I64)
+    """:func:`_bucket_f` as an int64 index."""
+    return _bucket_f(t, width, nb).to(I64)
+
+
+_IOTA: dict = {}
+
+
+def _iota(n: int, device):
+    """``arange(n)`` in f32 on ``device``, made once (the commits read it
+    every step; it is never written)."""
+    key = (n, str(device))
+    if key not in _IOTA:
+        _IOTA[key] = torch.arange(n, dtype=F32, device=device)
+    return _IOTA[key]
 
 
 def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,
@@ -481,10 +505,12 @@ def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,
     else:
         slot, ok, n_drop = _push_leaves(cal, flat, base, 1, cnt_base,
                                         sup_base, s, q, mask, times, pay)
-    # the summaries and the root, computed from reads and written once
+    # the summaries, updated in place (each ``where`` writes the view),
+    # and the root from them
     w = width[:, None]
     leaf_t = cal[:, 1:1 + q, 0]
-    slots_f = torch.arange(q, dtype=F32, device=dev)
+    summ = cal[:, sum_base:sum_base + nb]
+    slots_f = _iota(q, dev)
     alive = leaf_t < INF
     # (a fill, not an element assignment: assigning a host scalar to one
     # element of a card tensor copies it over and waits for the card)
@@ -509,13 +535,15 @@ def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,
                                         nb), nb)
         rows, found = lexmin_rows(tb, leaf_t, slots_f.expand_as(leaf_t),
                                   alive)
-        summ = torch.where(found[..., None], rows, empty_row)
+        torch.where(found[..., None], rows, empty_row, out=summ)
     else:
-        # (a) rebuild the popped bucket from the leaves (new pushes seen)
+        # (a) rebuild the popped bucket from the leaves (new pushes seen;
+        # the leaves' buckets compared as exact f32 integers)
         any_pop = pop_ok.any(-1)
-        b_pop = _bucket(torch.where(any_pop, root_t, 0.0), width, nb)
-        in_pop = alive & (_bucket(torch.where(alive, leaf_t, 0.0), w, nb)
-                          == b_pop[:, None])
+        b_pop_f = _bucket_f(torch.where(any_pop, root_t, 0.0), width, nb)
+        b_pop = b_pop_f.to(I64)
+        in_pop = alive & (_bucket_f(torch.where(alive, leaf_t, 0.0), w, nb)
+                          == b_pop_f[:, None])
         tmin = torch.where(in_pop, leaf_t, INF).amin(-1)
         smin = torch.where(in_pop & (leaf_t == tmin[:, None]), slots_f,
                            INF).amin(-1)
@@ -524,8 +552,7 @@ def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,
         new_sum = torch.where((smin < INF)[:, None], row, empty_row)
         hit = any_pop[:, None] & (torch.arange(nb, device=dev)
                                   == b_pop[:, None])
-        summ = torch.where(hit[..., None], new_sum[:, None],
-                           cal[:, sum_base:sum_base + nb])
+        torch.where(hit[..., None], new_sum[:, None], summ, out=summ)
         # (b) lexmin-merge the pushed rows into their buckets
         if mask.shape[-1]:
             plive = ok & (times < INF)
@@ -535,12 +562,11 @@ def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,
             take_new = cand_ok & ((cand[..., 0] < summ[..., 0])
                                   | ((cand[..., 0] == summ[..., 0])
                                      & (cand[..., 1] < summ[..., 1])))
-            summ = torch.where(take_new[..., None], cand, summ)
+            torch.where(take_new[..., None], cand, summ, out=summ)
     # the root from the NB summaries: least time, then least slot
     best_t = summ[..., 0].amin(-1, keepdim=True)
     bi = torch.argmin(torch.where(summ[..., 0] == best_t, summ[..., 1], INF),
                       -1)
-    cal[:, sum_base:sum_base + nb] = summ
     cal[:, 0] = summ.gather(1, bi[:, None, None].expand(-1, 1, ROW_W))[:, 0]
     return n_drop
 
@@ -642,7 +668,7 @@ def batch_take(leaf_t, leaf_typ, root_t, root_slot, rx_typ, batch_pop: int):
     root_t = _tensor(root_t, F32, dev)
     root_slot = _tensor(root_slot, I64, dev)
     q = leaf_t.shape[-1]
-    sl = torch.arange(q, device=dev)
+    sl = _iota(q, dev)
     eq = leaf_t == root_t[..., None]
     isrx = eq & (leaf_typ == float(rx_typ))
     blocked = eq & ~isrx

@@ -746,9 +746,11 @@ def fault_digests(frames) -> dict:
 # a partition on the tree queue with batch_pop 64 and a small ring
 TRACE_FIELDS = dict(ring_cap=16384, sample_every=64, n_samples=512,
                     hist_bins=64, bins_per_octave=4)
-TRACE_SIM_LENS = {"paper": 1e6, "hier_tree": 1e5, "partition": 2e4}
+TRACE_SIM_LENS = {"paper": 2.5e5, "hier_tree": 1e5, "partition": 2e4}
 TRACE_SMALL_RING = 1024
-# The JAX reference's runs of trace_runs() on the CPU (~2 min), made by
+# The paper point runs at 2.5e5, phase profile's horizon (1e6 before
+# the phase was cut for the script's time limit).
+# The JAX reference's runs of trace_runs() on the CPU (~20 s), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax; from repro.core
 #   import sim, workloads; from repro.core.experiment import
 #   ExperimentSpec, WorkloadSpec; from repro.core.faults import FaultSpec;
@@ -758,37 +760,37 @@ TRACE_SMALL_RING = 1024
 #   FaultSpec, TraceSpec).items()})"
 TRACE = {
     "paper": {
-        "tr_n": [13824],
+        "tr_n": [3456],
         "trace_dropped": [0],
-        "tl_n": [216],
-        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 59148, 1208, 1387,
-                   1649, 5525, 1205, 2740, 943, 1726, 7087, 2011, 1412, 1589,
-                   990, 972, 917, 672, 568, 812, 648, 548, 446, 560, 1065,
-                   209, 135, 158, 126, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0]],
+        "tl_n": [54],
+        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12920, 268, 288,
+                    380, 1101, 390, 707, 274, 485, 1933, 463, 328, 414, 426,
+                    235, 533, 435, 582, 352, 349, 203, 126, 277, 438, 44, 39,
+                    83, 62, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                    0, 0, 0, 0, 0, 0]],
         "th_resp": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 0,
-                   4, 105, 6, 7, 2]],
-        "ring_sha": "29dcb7ad39d8474417ef90b64c06723c"
-                    "903dc54daa694acc7c553830680765c1",
-        "tl_t_sha": "693a87d2e32b78608be31b1bdbc890cf"
-                    "5117684a5f449d71de34ca979368dd3f",
-        "tl_busy_sha": "93bc53505d4fe55d63ef5bd22b5bd2b7"
-                       "4eaa631c53cb40b0a41be24c0f214315",
-        "tl_load_sha": "d9018bab42554e4416da102d8d5e33f8"
-                       "0a3800934b771f8d36e4cced86071a5a",
-        "tl_qdepth_sha": "2fdaa61c5661c772f7410fb961c672f0"
-                         "46b6b33a4fb4d72b7eb9f96be315fe2a",
-        "ring_lat_sum": [3619651.0],
-        "tl_stale_sum": [[655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555,
-                        655138.6525268555, 655138.6525268555]],
+                    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0,
+                    5, 18, 3, 3, 0]],
+        "ring_sha": "e83d3c6f252e02f4440e597331f8538d"
+                    "ce35c63bf34921d9bda30c10ae2746bb",
+        "tl_t_sha": "cf7e9f4db2982a494fc6ed5998627d7b"
+                    "a8641a549a684ddd44fac1e593375065",
+        "tl_busy_sha": "dafcc8f8d471d9857eb09693b9211939"
+                       "4d626e87a82f93c28e130a3286db5643",
+        "tl_load_sha": "9b11fb091ccf9036e874b1e64604978e"
+                       "d0acc8f012c000086420c8ee07add1f2",
+        "tl_qdepth_sha": "7ed6821375d2c907ac2bf874726357ac"
+                         "f4f032fa1ca34f491488bbfae11cb991",
+        "ring_lat_sum": [1364735.25],
+        "tl_stale_sum": [[178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906,
+                         178933.36291503906, 178933.36291503906]],
     },
     "hier_tree": {
         "tr_n": [6831, 6756],

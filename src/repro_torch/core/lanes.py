@@ -726,7 +726,7 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         else:
             head = st["evq_root"]
         # the step's one device->host read: (t, slot, typ, a0, a1, a2)
-        rows = head.tolist()
+        rows = head.tolist()  # lint: allow(host-sync)
         types = {int(r[2]) for r in rows if r[0] < INF}
         if not types:
             break

@@ -1235,7 +1235,7 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
         else:
             head = st["evq_root"]
         # the loop's one device->host read: (t, slot, typ, a0, a1, a2)
-        t_h, slot_h, typ, a0, a1, a2 = head.tolist()
+        t_h, slot_h, typ, a0, a1, a2 = head.tolist()  # lint: allow(host-sync)
         if t_h >= INF:
             break
         t, typ = head[0], int(typ)

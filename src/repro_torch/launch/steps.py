@@ -312,20 +312,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, run: RunConfig,
 
 def place(tree, specs, mesh):
     """``tree`` (tensors of global shapes, meta or real) as DTensors
-    placed by ``specs``; a 0-d leaf stays a plain tensor."""
-    if isinstance(tree, torch.Tensor):
-        if tree.dim() == 0:
-            return tree
-        return SH.local_view(tree, mesh, SH.placements(specs, mesh))
-    if isinstance(tree, OPT.OptState):
-        return OPT.OptState(step=tree.step,
-                            mu=place(tree.mu, specs.mu, mesh),
-                            nu=place(tree.nu, specs.nu, mesh))
-    if isinstance(tree, dict):
-        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [place(v, s, mesh) for v, s in zip(tree, specs, strict=True)]
-    return tree
+    placed by ``specs``; a 0-d leaf stays a plain tensor
+    (``parallel/sharding.place``)."""
+    return SH.place(tree, specs, mesh)
 
 
 def place_cell(cell: Cell, args=None) -> tuple:

@@ -280,6 +280,25 @@ def local_view(t, mesh, place):
                                   t.shape))
 
 
+def place(tree, specs, mesh):
+    """``tree`` (tensors of global shapes, meta or real) as DTensors
+    placed by ``specs``, a tree of the same containers (dicts, lists,
+    tuples and ``NamedTuple``s, as the optimizer state); a 0-d leaf
+    stays a plain tensor, and any other leaf stays as it is."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        if tree.dim() == 0:
+            return tree
+        return local_view(tree, mesh, placements(specs, mesh))
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [place(v, s, mesh) for v, s in zip(tree, specs, strict=True)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return tree
+
+
 def contiguous_stride(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape``."""
     out, n = [], 1

@@ -62,7 +62,7 @@ def test_port_paper_point_1e6_on_cpu():
 
 @pytest.mark.parametrize("package", ["reference", "port"])
 def test_trace_digests_recomputed(package):
-    """goldens.TRACE — phase trace's three runs (the paper point at 1e6,
+    """goldens.TRACE — phase trace's three runs (the paper point at 2.5e5,
     the tier's k=16 hier_tree group at 1e5, a partition on tree/64 at
     2e4 whose ring overflows) — recomputed by the JAX reference and by
     the port on the CPU, to goldens.trace_mismatches' tolerances; the
@@ -91,7 +91,8 @@ def test_trace_digests_recomputed(package):
     for name, st in runs.items():
         assert G.trace_mismatches(G.trace_digest(st), G.TRACE[name]) == [], \
             name
-    assert G.paper_point_digest(runs["paper"]) == G.PAPER_POINT[1e6]
+    assert G.paper_point_digest(runs["paper"]) \
+        == G.PAPER_POINT[G.TRACE_SIM_LENS["paper"]]
     got = G.state_digest(runs["hier_tree"])
     for key, w in G.FABRICS[1e5][16]["hier_tree"].items():
         assert (np.allclose(got[key], w, rtol=1e-5)

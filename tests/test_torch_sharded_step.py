@@ -10,7 +10,10 @@ runs ``run_cell`` on DTensors and the plain ``make_train_step`` (or
 cases hold the loss and the global gradient norm to 1e-5 relative and
 every parameter after the AdamW step (lr 1e-3) to 1e-4 of it; decode
 cases hold the logits and every cache leaf after the step (the new
-token's keys and values written in place) to 1e-5 of their largest.
+token's keys and values written in place) to 1e-5 of their largest;
+prefill cases (``tests/test_torch_sharded_cells.py``, which runs its own
+cases through this file's ``_run_case``) hold the next-token logits
+against ``make_prefill_step`` to 1e-5 of their largest.
 
 On one rank (a 1x1 mesh, as on one card) the cell's losses and
 parameters after two steps equal the unsharded step's bit for bit, and
@@ -108,9 +111,22 @@ def _run_case(case, mesh_axes):
 
     if kind == "bitwise":
         return _bitwise(cfg, run, cell, mesh, B, S)
+    def f32_batch(step):
+        # the frontends' bf16 patches and frames in f32, so that the
+        # encoder runs in the weights' f32 on both sides
+        return {k: (t.float() if t.is_floating_point() else t)
+                for k, t in ((k, torch.as_tensor(v)) for k, v in
+                             synth_batch(cfg, B, S, DataConfig(),
+                                         step).items())}
+
+    if kind == "prefill":
+        batch = {k: v for k, v in f32_batch(0).items() if k != "labels"}
+        want = ST.make_prefill_step(cfg, device="cpu")(params, batch)
+        got = ST.run_cell(cell, (params, batch))
+        return {"logits_rel": float((whole(got) - want).abs().max())
+                / float(want.abs().max())}
     if kind == "train":
-        batch = {k: torch.as_tensor(v) for k, v in
-                 synth_batch(cfg, B, S, DataConfig(), 0).items()}
+        batch = f32_batch(0)
         want_p, _, want = ST.make_train_step(cfg, run, device="cpu")(
             copy.deepcopy(params), OPT.init_opt_state(params, run), batch)
         got_p, _, got = ST.run_cell(
