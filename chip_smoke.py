@@ -77,16 +77,17 @@ any failure ends the run with a non-zero exit:
 11. sweep   the design-space engine, every sweep in ``"vmap"`` mode
             (the lane-batched loop of ``core/lanes.py``): the golden
             grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
-            1e6) through ``sweep`` against their frozen digests; Table 5
+            2.5e5 since phase 28, 1e6 before) through ``sweep`` against
+            their frozen digests; Table 5
             at the paper's widths (m=256, k in {1, 8, 16, 256}, seeds
             1-3) cut to sim_len 1e5 through ``ExperimentSpec.run()``
             against the JAX reference's frozen digests, with its ordering
             claim and k16/k1 ratio (reported, not gated); fig3a's k=16
-            group (12 lanes, sim_len 1e5) timed in ``"vmap"`` mode and
-            two of its lanes in ``"seq"`` mode (equal leaves), and at
-            sim_len 1e5 its device kernels and syncs per step; the
-            ``scheduler_overhead`` runner, whose K1 assignments must
-            equal the plain version's;
+            group (12 lanes, sim_len 5e4 since phase 28, 1e5 before)
+            timed in ``"vmap"`` mode and two of its lanes in ``"seq"``
+            mode (equal leaves), and at sim_len 5e4 its device kernels
+            and syncs per step (the
+            ``scheduler_overhead`` runner moved to phase 28);
 12. fabrics  ``shared_bus`` and ``hier_tree`` at k=16 and ``shared_bus``
             at k=32 through the lane loop on the linear queue at the
             paper tier of ``topology_frontier`` (m=256, n_childs=100,
@@ -118,14 +119,15 @@ any failure ends the run with a non-zero exit:
             BEACON_RX batch window (``batch_pop``) through the lane
             loop at the same tier, seeds 1-2: at k=16 on ``hier_tree`` every
             queue with batch_pop 1 at
-            sim_len 2e4 equal to the linear queue leaf for leaf (but
-            the queue's own leaves), and with batch_pop 64 at 1e5
-            equal to ``goldens.FABRICS``; the tree queue with batch_pop
-            64 at k=32 on ``hier_tree`` and ``mesh2d`` at 5e4 (cut from
-            1e5 for the time limit) equal to ``goldens.FABRICS``; the tier's cut points: k=1 at 2.5e5
-            (linear queue), and k=256 (32,768 slots, tree/64) on
-            ``hier_tree`` and ``mesh2d`` at 5e4 (cut from 1e5 for the
-            time limit), equal to
+            sim_len 1e4 (2e4 until phase 28) equal to the linear queue
+            leaf for leaf (but the queue's own leaves), and with
+            batch_pop 64 at 2.5e4 (1e5, then 5e4, until phase 28) equal
+            to ``goldens.FABRICS``; the tree queue
+            with batch_pop 64 at k=32 on ``hier_tree`` and ``mesh2d`` at
+            2.5e4 (1e5, then 5e4 before) equal to ``goldens.FABRICS``;
+            the tier's cut points: k=1 at 1e5 (2.5e5 before; linear
+            queue), and k=256 (32,768 slots, tree/64) on ``hier_tree``
+            and ``mesh2d`` at 5e4 (cut from 1e5), equal to
             ``goldens.CUTS``; conservation and
             an empty ``bcn_t`` on every drop-free lane; seed 1 of the
             k=16 tree/64 run in ``"seq"`` mode equal to its vmap lane;
@@ -266,14 +268,41 @@ any failure ends the run with a non-zero exit:
             finding (no copy of >= queue_cap or k*k elements, copied
             bytes a step within the reference's copy budget), copy
             kernels, their device time and bytes a step, in at most 15 s;
+28. suite      ``benchmarks/run.py``'s step wrapper (``run.Suite``) under
+            its profiler (``run.profiler``: CPU and CUDA; collection
+            kept for the first loop steps of each step), within
+            ``SUITE_BUDGET_S``: ``scheduler_overhead`` (K1 against its
+            plain version; its sweep-engine bench cut), the frontier
+            runners ``fault_frontier``, ``policy_frontier`` and
+            ``trace_report`` at ``goldens.SUITE_GRIDS`` (the tests'
+            grids cut where every claim still holds; every claim true,
+            their row digests equal to the JAX reference's,
+            ``goldens.SUITE_DIGESTS``), ``topology_frontier`` at
+            tests/test_torch_paper.py's TINY_TREE (cut to sim_len 3e4,
+            two fabrics and k in (4, 16)) twice into a
+            temporary trajectory, each run recording its combos' copy
+            bytes anew, and ``check_regression.check`` of the second
+            against the first (every row on both sides, every copy entry
+            ``ok`` at a ratio of 1.0; throughput statuses and the worst
+            ratio reported), the two examples (``paper_repro_torch`` at
+            sim_len 1e5, its numbers equal to the reference example's,
+            ``goldens.PAPER_REPRO``; ``serve_clustered_torch``, its
+            ``serve`` dict equal to ``goldens.SERVE_CLUSTERED``) and
+            ``ExperimentSpec.run(mode="pmap")`` on the golden grid and
+            the same grid at k=2: vmap on one card, the golden group bit
+            for bit phase 11's golden grid, and dispatched through the
+            device list to two workers on cuda:0 (a group on each
+            worker's thread, the two lane loops at once) bit for bit
+            the same; the exported Chrome trace holds one region a step,
+            each with a CUDA kernel;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
 launch counts, zeroed just before it and read just after: the TLM path
-(phases 7-8: K1), the sweep (phase 11: K1, from
-``scheduler_overhead``), the fabrics (phase 12), the queues (phase 13),
-the faults (phase 14), the trace (phase 15) and the loop-copy check
-(phase 27), which launch none of the three kernels, the prefill (phase
+(phases 7-8: K1), the sweep (phase 11), the fabrics (phase 12), the
+queues (phase 13), the faults (phase 14), the trace (phase 15) and the
+loop-copy check (phase 27), which launch none of the three kernels, the
+suite (phase 28: K1, from ``scheduler_overhead``), the prefill (phase
 17: K2, K3), ``serve()`` (phase 18, whose decode steps are plain
 torch), the three training runs (phases 22-24: K2 and its backward,
 K3's training variant and the scan's backward), each family's
@@ -288,6 +317,7 @@ comparisons hold the kernels, not TF32 rounding.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -869,8 +899,8 @@ def phase_syncs(events: int, lines):
 # fig3a's k=16 group at the paper's widths: 6 thresholds x 2 seeds
 SWEEP_K, SWEEP_SEEDS = 16, (1, 2)
 SWEEP_THRESHOLDS = (1, 2, 4, 8, 16, 32)
-SWEEP_SIM_LEN = 1e5     # cut for the script's time limit
-SWEEP_COUNT_SIM_LEN = 1e5     # the horizon kernels and syncs are counted at
+SWEEP_SIM_LEN = 5e4     # cut for the script's time limit (1e5 until phase 28)
+SWEEP_COUNT_SIM_LEN = 5e4     # the horizon kernels and syncs are counted at
 
 
 def _device_kernels(run):
@@ -896,17 +926,16 @@ def _same_leaves(got: dict, want: dict) -> bool:
         else torch.equal(got[k], want[k]) for k in want)
 
 
-def phase_sweep() -> int:
+def phase_sweep() -> dict:
     """The sweep engine and the paper runners on the card, all sweeps in
-    "vmap" mode.  Returns the K1 launches of its ``scheduler_overhead``
-    run."""
+    "vmap" mode.  Returns the golden grid's vmap state (phase ``suite``
+    holds ``pmap`` against it)."""
     import torch
-    from repro_torch.benchmarks import scheduler_overhead, table5
+    from repro_torch.benchmarks import table5
     from repro_torch.core import goldens as G
     from repro_torch.core import sweep as SW
     from repro_torch.core import workloads as W
     from repro_torch.core.sim import SimParams
-    from repro_torch.kernels import hier_minsearch as HM
     t_phase, walls = time.perf_counter(), {}
 
     def timed(name, fn):
@@ -932,15 +961,16 @@ def phase_sweep() -> int:
             G.SINGLE_APP_BEACONS]
     if got != want:
         raise AssertionError(f"sweep: golden grid {got} != {want}")
+    golden = st
     # the fig3b spot grid
     p = SimParams(**G.FIG3B_PARAMS)
     st = timed("fig3b_spot", lambda: SW.sweep(
         p.shape, SW.knob_batch(dn_th=G.FIG3B_DN_TH),
         W.interference_batch(p, seeds=(G.FIG3B_SEED,),
-                             sim_len=G.FIG3B_SIM_LEN),
-        G.FIG3B_SIM_LEN, mode="vmap"))
+                             sim_len=G.FIG3B_CARD_SIM_LEN),
+        G.FIG3B_CARD_SIM_LEN, mode="vmap"))
     got = [st["beacons_tx"].tolist(), G.sha256_f32(st["app_done"])]
-    if got != [G.FIG3B_BEACONS, G.FIG3B_APP_DONE_SHA]:
+    if got != [G.FIG3B_CARD_BEACONS, G.FIG3B_CARD_APP_DONE_SHA]:
         raise AssertionError(f"sweep: fig3b spot grid {got}")
     fig3b_steps = int(st["events_processed"].max())
     # Table 5 at the paper's widths, cut to sim_len 1e5 (goldens.TABLE5_SIM_LEN)
@@ -981,20 +1011,6 @@ def phase_sweep() -> int:
     if reads != steps_c + 1 or others > SETUP_SYNCS_MAX:
         raise AssertionError(f"sweep: host syncs per line {dict(lines)} "
                              f"for {steps_c} steps")
-    # the scheduler_overhead runner: K1 (the warp kernel phase k1 holds
-    # against the plain version at these shapes) and the sweep engine
-    if any(HM._variant(k, K1_M // k) != "warp" for k in K1_KS):
-        raise AssertionError("sweep: scheduler_overhead's shapes leave "
-                             "the warp kernel")
-    before = HM.launches
-    so = timed("scheduler_overhead",
-               lambda: scheduler_overhead.run(verbose=False))
-    so_launches = HM.launches - before
-    if so_launches == 0 or not all(so["two_stage_matches_plain"].values()):
-        raise AssertionError(f"sweep: scheduler_overhead launched K1 "
-                             f"{so_launches} times, assignments equal to "
-                             f"the plain version's: "
-                             f"{so['two_stage_matches_plain']}")
     emit({"phase": "sweep", "mode": "vmap", "golden_match": True,
           "fig3b_spot_match": True, "fig3b_spot_steps": fig3b_steps,
           "table5": {"sim_len": G.TABLE5_SIM_LEN, "digests_match": True,
@@ -1024,14 +1040,8 @@ def phase_sweep() -> int:
                     "packed_read": read_line,
                     "reads_per_step": reads / (steps_c + 1),
                     "other_syncs": others},
-          "scheduler_overhead": {
-              "k1_launches": so_launches, "matches_plain": True,
-              "us_per_decision": {k: r["us_per_decision"]
-                                  for k, r in so["two_stage"].items()},
-              "flat_argmin_us_per_batch": so["flat_argmin_us_per_batch"],
-              "sweep_engine": so["sweep_engine"]},
           "walls_s": walls, "wall_s": time.perf_counter() - t_phase})
-    return so_launches
+    return golden
 
 
 # --------------------------------------------------------------------------
@@ -1039,9 +1049,9 @@ def phase_sweep() -> int:
 # --------------------------------------------------------------------------
 
 FABRIC_BUDGET_S = 150.0        # the phase's share of TIME_LIMIT_S
-# the k=16 hier_tree probe, and the horizon of phase queues' k=16 runs:
-# 1e5 keeps the script under TIME_LIMIT_S on slow hosts (phase faults
-# and the k=32 queue runs are cut further, to 5e4)
+# the k=16 hier_tree probe: 1e5 keeps the script under TIME_LIMIT_S on
+# slow hosts (phase faults runs at 5e4, phase queues' k=16 and k=32
+# runs at 2.5e4)
 FABRIC_PROBE_SIM_LEN = 1e5
 FABRIC_CUT_SIM_LEN = 1e5       # the other runs where 1e6 does not fit
 FABRIC_COUNT_SIM_LEN = 2e4     # the horizon kernels per step are split at
@@ -1325,14 +1335,19 @@ def phase_fabrics():
 
 QUEUE_IMPLS = ("linear", "tree", "calendar")
 QUEUE_BATCH = 64                # topology_frontier's paper-tier window
-QUEUE_H2H_SIM_LEN = 2e4         # the batch_pop-1 head-to-head's horizon
+QUEUE_H2H_SIM_LEN = 1e4         # the batch_pop-1 head-to-head's horizon
 QUEUE_COUNT_SIM_LEN = FABRIC_COUNT_SIM_LEN   # linear/1's count is fabrics'
-# k=256's horizon: 5e4 in goldens.CUTS (both fabrics at 1e5 took 69 s of
-# a run, at 2.5e5 about 140 s more on the slowest host seen)
+# The horizons are cut for the script's time limit, each to one of
+# goldens.FABRICS/CUTS: k=256's to 5e4 (both fabrics at 1e5 took 69 s of
+# a run; at 2.5e4 no k=256 lane sends a beacon), k=1's to 1e5 (2.5e5:
+# 9 s on a slow host), the tree queue's at k=32 to 2.5e4 (5e4: 26 s),
+# the k=16 runs with batch_pop 64 and their seq run to 2.5e4 (1e5: 62 s,
+# 5e4: 20 s) and the batch_pop-1 head-to-head (compared with the linear
+# queue, not a digest) to 1e4 (2e4: 11 s): phase 28 took the time
 QUEUE_CUT_SIM_LEN = 5e4
-QUEUE_K1_SIM_LEN = 2.5e5        # k=1's (its only golden: a few seconds)
-# the tree queue at k=32: 5e4 (1e5 took 51 s on the slowest host seen)
-QUEUE_K32_SIM_LEN = 5e4
+QUEUE_K1_SIM_LEN = 1e5
+QUEUE_K32_SIM_LEN = 2.5e4
+QUEUE_BATCH_SIM_LEN = 2.5e4
 
 
 class _Steps:
@@ -1447,7 +1462,7 @@ def phase_queues(linear):
             if not ok:
                 bad.append((name, key, got[key], w))
 
-    # the head-to-head at k=16 on hier_tree: batch_pop 1 at 2e4 against
+    # the head-to-head at k=16 on hier_tree: batch_pop 1 at 1e4 against
     # the linear queue leaf for leaf (every leaf but the queue's own)
     k, topo = 16, "hier_tree"
     base = None
@@ -1461,13 +1476,13 @@ def phase_queues(linear):
         elif set(leaves) != set(base) or not all(
                 np.array_equal(leaves[key], base[key]) for key in base):
             bad.append((qi, 1, "differs from linear/1"))
-    # ... and batch_pop 64 at 1e5 against the reference's digests
-    want = G.FABRICS[FABRIC_PROBE_SIM_LEN]
+    # ... and batch_pop 64 at 2.5e4 against the reference's digests
+    want = G.FABRICS[QUEUE_BATCH_SIM_LEN]
     states = {}
     for qi in QUEUE_IMPLS:
-        run = _queue_group(k, topo, FABRIC_PROBE_SIM_LEN, qi, QUEUE_BATCH)
+        run = _queue_group(k, topo, QUEUE_BATCH_SIM_LEN, qi, QUEUE_BATCH)
         st = states[qi] = run[0]
-        rows.append(_queue_row(k, topo, FABRIC_PROBE_SIM_LEN, qi,
+        rows.append(_queue_row(k, topo, QUEUE_BATCH_SIM_LEN, qi,
                                QUEUE_BATCH, run))
         check((k, topo, qi), G.state_digest(st), want[k][topo])
         if not _queue_gates(st, k, topo):
@@ -1488,13 +1503,13 @@ def phase_queues(linear):
     p = SimParams(k=k, **dict(G.FABRIC_PARAMS, queue_impl="tree",
                               batch_pop=QUEUE_BATCH))
     wl = W.interference_batch(p, seeds=G.FABRIC_SEEDS[:1],
-                              sim_len=FABRIC_PROBE_SIM_LEN,
+                              sim_len=QUEUE_BATCH_SIM_LEN,
                               pair_period=G.FABRIC_PAIR_PERIOD)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _Steps() as steps:
         st = SW.sweep(p.shape, SW.knob_batch(**G.FABRIC_KNOBS), wl,
-                      FABRIC_PROBE_SIM_LEN, mode="seq", topology=topo)
+                      QUEUE_BATCH_SIM_LEN, mode="seq", topology=topo)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lane = {key: v[0, 0] for key, v in states["tree"].items()}
@@ -1506,7 +1521,7 @@ def phase_queues(linear):
         bad.append(("seq", "tree", QUEUE_BATCH, "differs from vmap lane"))
     ev = int(st["events_processed"].sum())
     seq = {"k": k, "topology": topo, "queue_impl": "tree",
-           "batch_pop": QUEUE_BATCH, "sim_len": FABRIC_PROBE_SIM_LEN,
+           "batch_pop": QUEUE_BATCH, "sim_len": QUEUE_BATCH_SIM_LEN,
            "seed": G.FABRIC_SEEDS[0], "iterations": steps.n, "events": ev,
            "wall_s": wall, "events_per_s": ev / wall}
 
@@ -1542,7 +1557,8 @@ def phase_queues(linear):
     lin = linear["probe"]["events"] / linear["probe"]["wall_s"]
     for r in rows:
         if (r["k"], r["topology"], r["sim_len"]) == (
-                k, topo, FABRIC_PROBE_SIM_LEN):
+                k, topo, QUEUE_BATCH_SIM_LEN):
+            # against the probe's linear/1 run at its own 1e5
             r["events_per_s_over_linear_1"] = r["events_per_s"] / lin
     emit({"phase": "queues", "mode": "vmap", "digests_match": True,
           "bitwise_across_queues": True, "conservation": True,
@@ -3345,6 +3361,335 @@ def phase_loop_copy():
           "wall_s": wall, "budget_s": LOOP_COPY_BUDGET_S})
 
 
+# --------------------------------------------------------------------------
+# The suite runner, the regression gate, the examples and pmap
+# --------------------------------------------------------------------------
+
+SUITE_BUDGET_S = 90.0          # the phase's share of TIME_LIMIT_S
+# the loop steps of each suite step that the profiler records before it
+# pauses until the step ends: a whole eager step puts ~500 events a lane
+# step into the trace (210 MB for the golden grid's 630 steps, measured;
+# the suite's trace 114 MB at 25 steps a step, 84 MB at 10)
+SUITE_SAMPLE_STEPS = 10
+# the arguments scheduler_overhead's sweep-engine bench (``_bench_sweep``)
+# gets here, cut from the reference's sim_len 3e5 and 3 timed calls
+# (~50 s on the card) for the phase's time
+SUITE_SO_SWEEP = dict(sim_len=3e4, iters=1)
+# tests/test_torch_paper.py's TINY_TREE (topology_frontier's paper_tiny
+# tier cut to m=16 and sim_len 1e5), cut again for the phase's time to
+# sim_len 3e4 on ideal and hier_tree at k in (4, 16) (two runs at 1e5 on
+# three fabrics took 54 s on the card; the runner's claims need both
+# fabrics and a k above 1, and at 1.5e4 no application arrives)
+SUITE_TREE = dict(m=16, ks=(4, 16), n_childs=16, max_apps=32,
+                  queue_cap={16: 1024}, default_queue_cap=512, c_s=40.0,
+                  dn_th=4, sim_len=3e4, pair_periods=(26_000.0,),
+                  seeds=(0, 1), queue_impl="tree", batch_pop=64,
+                  topologies=("ideal", "hier_tree"))
+SUITE_PMAP_WORKERS = 2         # pmap's workers on cuda:0
+SUITE_PMAP_KS = (4, 2)         # the golden grid's k, then a second group
+SUITE_DEVICE = "cuda"
+FRONTIERS = ("fault_frontier", "policy_frontier", "trace_report")
+SUITE_STEPS = ("scheduler_overhead", "fault_frontier", "policy_frontier",
+               "trace_report", "topology_frontier",
+               "topology_frontier_again", "serve_clustered", "pmap",
+               "pmap_workers", "paper_repro")
+# what the phase keeps for its end after the last step: the profiler's
+# stop, the trace's export and parse, the checks (5.4-8.0 s on fast
+# hosts, more on slow ones)
+SUITE_END_S = 12.0
+
+
+def _paper_repro_horizon(elapsed: float, paper_eps: float):
+    """``paper_repro``'s horizon, the suite's last step, and its
+    predicted seconds at 1e5: the example's events there
+    (``goldens.PAPER_REPRO``) at phase ``paper``'s events/s.  1e5 as the
+    tests run it, unless it would take the phase past
+    ``SUITE_BUDGET_S`` (a slow host), then 5e4."""
+    from repro_torch.core import goldens as G
+    full, cut = sorted(G.PAPER_REPRO, reverse=True)
+    predicted = G.PAPER_REPRO[full]["events"] / paper_eps
+    if elapsed + predicted + SUITE_END_S <= SUITE_BUDGET_S:
+        return full, predicted
+    return cut, predicted
+
+
+class _Sampled(_Steps):
+    """Counts the loops' iterations a thread (``_Steps``' hooks) and
+    pauses ``prof``'s collection at the ``keep``-th of a suite step: CPU
+    and CUDA on the main thread, CUDA alone from a ``pmap`` worker (the
+    profiler records no torch op of another thread).  ``body(fn)`` runs
+    a step's function from a zero count and resumes collection before
+    the step's region closes."""
+
+    def __init__(self, prof, keep: int):
+        import threading
+        self.prof, self.keep = prof, keep
+        self.local, self.off = threading.local(), set()
+
+    def _counted(self, fn):
+        import threading
+
+        from torch.profiler import ProfilerActivity as PA
+
+        def counted(*args, **kw):
+            out = fn(*args, **kw)
+            self.local.n = getattr(self.local, "n", 0) + 1
+            if self.local.n == self.keep:
+                acts = ((PA.CPU, PA.CUDA)
+                        if threading.current_thread()
+                        is threading.main_thread() else (PA.CUDA,))
+                for act in set(acts) - self.off:
+                    self.off.add(act)
+                    self.prof.toggle_collection_dynamic(False, [act])
+            return out
+        return counted
+
+    def body(self, fn):
+        def run(*args, **kw):
+            self.local.n = 0
+            try:
+                return fn(*args, **kw)
+            finally:
+                for act in sorted(self.off, key=str):
+                    self.prof.toggle_collection_dynamic(True, [act])
+                self.off.clear()
+        return run
+
+
+def _trace_regions(path, names) -> dict:
+    """Per step name, the CUDA kernels that start inside its one
+    ``record_function`` region of the Chrome trace at ``path``."""
+    import bisect
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    regions = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in names:
+            regions.setdefault(e["name"], []).append(e)
+    starts = sorted(e["ts"] for e in events if e.get("cat") == "kernel")
+    out = {}
+    for name in names:
+        found = regions.get(name, [])
+        if len(found) != 1:
+            raise AssertionError(f"suite: {len(found)} trace regions "
+                                 f"named {name!r}")
+        lo, hi = found[0]["ts"], found[0]["ts"] + found[0]["dur"]
+        out[name] = bisect.bisect_right(starts, hi) \
+            - bisect.bisect_left(starts, lo)
+    return out
+
+
+def _bitwise(got: dict, want: dict) -> bool:
+    """Every leaf equal bit for bit, dtype included (tensors are read to
+    the host)."""
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+    return set(got) == set(want) and all(
+        host(got[k]).dtype == host(want[k]).dtype
+        and np.array_equal(host(got[k]), host(want[k])) for k in want)
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn):
+    """``fn`` with its printed lines kept in ``fn.lines``."""
+    import contextlib
+    import io
+
+    def run(*args, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+        run.lines = buf.getvalue().splitlines()
+        return out
+    return run
+
+
+def phase_suite(golden, paper_eps: float) -> int:
+    """The suite runner's step wrapper (``benchmarks/run.Suite``) under
+    its profiler (``run.profiler``, CPU and CUDA) on the card: the
+    gated steps, their claims and digests against the JAX reference's,
+    the regression gate between two ``topology_frontier`` runs, the two
+    examples, and ``ExperimentSpec.run(mode="pmap")`` against vmap bit
+    for bit (``golden``: phase ``sweep``'s vmap state of the golden
+    grid); the Chrome trace holds one region a step, each with a CUDA
+    kernel.  ``paper_eps``, phase ``paper``'s events/s in the same
+    single loop, predicts ``paper_repro``'s time at 1e5 (see
+    :func:`_paper_repro_horizon`).  The line is printed before a failed
+    gate raises.  Returns the K1 launches of its
+    ``scheduler_overhead``."""
+    import tempfile
+
+    import torch
+    from repro_torch.benchmarks import check_regression as CR
+    from repro_torch.benchmarks import fault_frontier as FF
+    from repro_torch.benchmarks import policy_frontier as PF
+    from repro_torch.benchmarks import run as RUN
+    from repro_torch.benchmarks import scheduler_overhead
+    from repro_torch.benchmarks import topology_frontier as TF
+    from repro_torch.benchmarks import trace_report as TR
+    from repro_torch.core import experiment as E
+    from repro_torch.core import goldens as G
+    from repro_torch.core.sim import SimParams
+    from repro_torch.kernels import hier_minsearch as HM
+    t_phase = time.perf_counter()
+    # the K1 kernel phase k1 holds against the plain version at these
+    # shapes
+    if any(HM._variant(k, K1_M // k) != "warp" for k in K1_KS):
+        raise AssertionError("suite: scheduler_overhead's shapes leave "
+                             "the warp kernel")
+    tmp = Path(tempfile.mkdtemp(prefix="suite_"))
+    paper_repro = _example("paper_repro_torch")
+    serve_clustered = _example("serve_clustered_torch")
+    # the golden grid and the same grid at k=2: two groups, so that
+    # pmap's two workers each run a lane loop at once
+    spec = E.ExperimentSpec(
+        base=SimParams(**G.GRID_PARAMS), shapes=SUITE_PMAP_KS,
+        knobs={"dn_th": G.GRID_DN_TH},
+        workloads=(E.WorkloadSpec("interference", seeds=G.GRID_SEEDS),),
+        sim_len=G.GRID_SIM_LEN)
+    workers = [torch.device(SUITE_DEVICE, 0)] * SUITE_PMAP_WORKERS
+    saved = (TF.BENCH_PATH, TF.GRIDS["paper_tiny"], E.pmap_devices,
+             scheduler_overhead._bench_sweep)
+    TF.BENCH_PATH = str(tmp / "eventq_trajectory.json")
+    TF.GRIDS["paper_tiny"] = SUITE_TREE
+    scheduler_overhead._bench_sweep = functools.partial(
+        saved[3], **SUITE_SO_SWEEP)
+    suite = RUN.Suite(profile=True)
+    prof = RUN.profiler(SUITE_DEVICE)
+    out, trajectory = {}, []
+    try:
+        with prof, _Sampled(prof, SUITE_SAMPLE_STEPS) as sampled:
+            def step(name, fn, *args, **kw):
+                return suite.step(name, sampled.body(fn), *args, **kw)
+
+            before = HM.launches
+            out["so"] = step("scheduler_overhead", scheduler_overhead.run,
+                             verbose=False)
+            so_launches = HM.launches - before
+            for name, mod in zip(FRONTIERS, (FF, PF, TR)):
+                out[name] = step(name, G.suite_run, name, mod)
+            for name in ("topology_frontier", "topology_frontier_again"):
+                # each run records its combos' copy bytes anew
+                TF._COPY_BYTES.clear()
+                step(name, TF.run, verbose=False, grid="paper_tiny")
+                trajectory.append(json.loads(Path(TF.BENCH_PATH)
+                                             .read_text()))
+            sc = _quiet(serve_clustered.main)
+            out["serve"] = step("serve_clustered", sc, [])
+            one = step("pmap", spec.run, mode="pmap")
+            E.pmap_devices = lambda device: workers
+            two = step("pmap_workers", spec.run, mode="pmap")
+            E.pmap_devices = saved[2]
+            pr_len, pr_pred = _paper_repro_horizon(
+                time.perf_counter() - t_phase, paper_eps)
+            pr = _quiet(paper_repro.main)
+            out["paper_repro"] = step("paper_repro", pr, [],
+                                      sim_len=pr_len)
+        trace = tmp / RUN.TRACE_NAME
+        prof.export_chrome_trace(str(trace))
+        trace_mb = trace.stat().st_size / 1e6
+        kernels = _trace_regions(trace, SUITE_STEPS)
+    finally:
+        (TF.BENCH_PATH, TF.GRIDS["paper_tiny"], E.pmap_devices,
+         scheduler_overhead._bench_sweep) = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = []
+    # scheduler_overhead: K1 against its plain version
+    if so_launches == 0 or not all(
+            out["so"]["two_stage_matches_plain"].values()):
+        bad.append(("scheduler_overhead", so_launches,
+                    out["so"]["two_stage_matches_plain"]))
+    # the frontier runners: every claim, and the reference's digests
+    for name in FRONTIERS:
+        false = [k for k, v in out[name].items()
+                 if k.startswith("claim") and v is not True]
+        if false:
+            bad.append((name, "claims", false))
+    digests = G.suite_digest({name: out[name] for name in FRONTIERS})
+    if digests != G.SUITE_DIGESTS:
+        bad.append(("digests", digests))
+    # the gate: the second topology run against the first
+    rep = CR.check(trajectory[0], trajectory[1], "paper_tiny")
+    sides = [e["status"] for e in rep["rows"] + rep["head_to_head"]]
+    copy = rep["copy_bytes"]
+    if {"new", "baseline-only"} & set(sides) or not copy or not all(
+            e["status"] == "ok" and e["ratio"] == 1.0 for e in copy):
+        bad.append(("check_regression", sides, copy))
+    # paper_repro's numbers are the reference example's
+    got = {"table5": {k: {"speedup_f32_bits": int(np.float32(r["speedup"])
+                                                  .view(np.uint32)),
+                          "apps": r["apps"], "beacons": r["beacons"]}
+                      for k, r in out["paper_repro"]["table5"].items()},
+           "fig3b": out["paper_repro"]["fig3b"]}
+    want = G.PAPER_REPRO[pr_len]
+    if got != {"table5": want["table5"], "fig3b": want["fig3b"]}:
+        bad.append(("paper_repro", pr_len, got))
+    if out["serve"] != G.SERVE_CLUSTERED:
+        bad.append(("serve_clustered", out["serve"]))
+    # pmap: vmap on one card, the golden grid's group equal to its
+    # digests and phase sweep's state; two workers on cuda:0, one group
+    # each, equal to it bit for bit
+    g0 = next(g.state for g in one.groups
+              if g.combo.shape.k == G.GRID_PARAMS["k"])
+    if (one.mode, two.mode, two.devices, len(two.groups)) != (
+            "vmap", "pmap", SUITE_PMAP_WORKERS, len(SUITE_PMAP_KS)):
+        bad.append(("pmap modes", one.mode, two.mode, two.devices,
+                    len(two.groups)))
+    if [g0["beacons_tx"].tolist(), G.sha256_f32(g0["app_done"])] != [
+            G.GRID_BEACONS, G.GRID_APP_DONE_SHA] \
+            or not _bitwise(g0, golden):
+        bad.append(("pmap", "golden grid"))
+    if [g.combo for g in one.groups] != [g.combo for g in two.groups] \
+            or not all(_bitwise(a.state, b.state)
+                       for a, b in zip(one.groups, two.groups)) \
+            or not all(np.isnan(g.wall_s) for g in two.groups):
+        bad.append(("pmap", "two workers differ from vmap"))
+    empty = [name for name, n in kernels.items() if n == 0]
+    if empty:
+        bad.append(("trace regions without a kernel", empty))
+    wall = time.perf_counter() - t_phase
+    if wall > SUITE_BUDGET_S:
+        bad.append(("budget", wall, SUITE_BUDGET_S))
+    failed = {b[0] if b[0] != "pmap" else b[1] for b in bad}
+    emit({"phase": "suite", "ok": not bad, "failed": repr(bad),
+          "claims": not failed & set(FRONTIERS),
+          "digests_match": "digests" not in failed,
+          "k1_launches": so_launches,
+          "so_sweep_cut": SUITE_SO_SWEEP,
+          "us_per_decision": {k: r["us_per_decision"]
+                              for k, r in out["so"]["two_stage"].items()},
+          "grids": {name: G.SUITE_GRIDS[name] for name in FRONTIERS}
+          | {"topology_frontier": SUITE_TREE},
+          "gate": {"statuses": {s_: sides.count(s_) for s_ in set(sides)},
+                   "worst_ratio": rep["worst_ratio"],
+                   "copy_entries": len(copy),
+                   "worst_copy_growth": rep["worst_copy_growth"]},
+          "paper_repro": {"sim_len": pr_len,
+                          "predicted_s_at_1e5": pr_pred,
+                          "paper_events_per_s": paper_eps},
+          "paper_repro_lines": pr.lines, "serve": out["serve"],
+          "pmap": {"one_card": one.mode, "workers": two.devices,
+                   "groups": len(two.groups),
+                   "bitwise": not failed & {"golden grid",
+                                            "two workers differ from vmap"}},
+          "trace": {"mb": trace_mb, "sample_steps": SUITE_SAMPLE_STEPS,
+                    "kernels_per_region": kernels},
+          "walls_s": dict(suite.walls), "wall_s": wall,
+          "budget_s": SUITE_BUDGET_S})
+    if bad:
+        raise AssertionError(f"suite: gates failed {bad}")
+    return so_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3375,6 +3720,7 @@ def main() -> int:
     timed(phase_golden)
     FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
     paper_off = timed(phase_paper)
+    paper_eps = paper_off["events"] / paper_off["wall_s"]
     timed(phase_mapper)
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
@@ -3382,9 +3728,10 @@ def main() -> int:
     events, lines, profile_off = timed(phase_profile)
     timed(phase_syncs, events, lines)
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
-    sweep_launches = timed(phase_sweep)
-    if (FA.launches, SS.launches, HM.launches) != (0, 0, sweep_launches):
-        raise AssertionError("the sweep path launched "
+    golden = timed(phase_sweep)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
+        raise AssertionError("the sweep path (no kernel of its own) "
+                             "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     FA.launches = SS.launches = HM.launches = 0   # the fabric path starts
     linear = timed(phase_fabrics)
@@ -3428,6 +3775,12 @@ def main() -> int:
         raise AssertionError("the loop-copy check (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    FA.launches = SS.launches = HM.launches = 0   # the suite starts
+    suite_launches = timed(phase_suite, golden, paper_eps)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, suite_launches):
+        raise AssertionError("the suite launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
+    del golden
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))
@@ -3439,7 +3792,7 @@ def main() -> int:
     # falcon_mamba_7b's training
     trains = (trained, trained_ssm, trained_moe)
     rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
-             tlm_launches + sweep_launches, k1),
+             tlm_launches + suite_launches, k1),
             (FA.NAME, FA.SOURCE, FA.REPLACES, prefill["flash_attention"]
              + sum(t["flash_attention"] for t in trains)
              + families["flash_attention"] + sharded["flash_attention"], k2),

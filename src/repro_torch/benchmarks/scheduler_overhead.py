@@ -46,7 +46,8 @@ def flat_assign(loads_flat, costs):
     return loads, torch.stack(picks)
 
 
-def _bench_sweep(thresholds=(1, 2, 4, 8), iters=3, device=None):
+def _bench_sweep(thresholds=(1, 2, 4, 8), iters=3, device=None,
+                 sim_len=3e5):
     """Events/second of the sweep engine in both modes on a small
     interference grid.  The spec defines the grid (and is the payload's
     provenance); the timed loop drives ``sweep`` with prebuilt inputs, so
@@ -55,7 +56,7 @@ def _bench_sweep(thresholds=(1, 2, 4, 8), iters=3, device=None):
         base=SimParams(m=64, k=8, n_childs=32, max_apps=64, queue_cap=1024),
         knobs={"dn_th": thresholds},
         workloads=(WorkloadSpec("interference", seeds=(0,)),),
-        sim_len=3e5)
+        sim_len=sim_len)
     combo = spec.plan().combos[0]
     _, wl = spec.workloads[0].build(combo.shape, spec.sim_len)
     out = {"configs": len(thresholds), "spec": spec.to_dict()}

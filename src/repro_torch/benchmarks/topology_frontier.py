@@ -41,13 +41,21 @@ Four departures from the reference:
 - **No ``claim_one_program_per_group``.**  It counts the XLA programs
   the reference compiles against its planner's count; the port compiles
   none, so there is nothing to claim.
-- **No ``copy_bytes_per_iter``.**  The reference counts the loop body's
-  buffer copies in its compiled XLA program (``_copy_bytes_for``); the
-  port's loop is eager torch, with no program to count (ROADMAP items
-  12-13), so its rows have no such field.
-- **Where it writes.**  ``results/torch/topology_frontier.json`` only;
-  the reference also merges its rows into ``BENCH_eventq.json``, which
-  holds XLA:CPU numbers and is not the port's to write.
+- **What ``copy_bytes_per_iter`` counts.**  The reference counts the
+  buffer copies of its compiled XLA loop body; the port's loop is eager,
+  so every row and head-to-head combo carries
+  ``analysis.loop_copy.lint_combo``'s count instead: the bytes a lane
+  step's copy ops write, over lane steps 21-60 of the combo (its m, k,
+  queue_cap, queue_impl, batch_pop, n_childs and max_apps on
+  ``hier_tree``), always recorded on the CPU so the number is the same
+  on every host and card, once per combo.  A combo whose run ends
+  before that window raises.
+- **Where it writes.**  ``results/torch/topology_frontier.json``, and
+  the rows merged by grid tier into the trajectory
+  ``results/torch/eventq_trajectory.json`` (:data:`BENCH_PATH`, the
+  reference's row keys) that ``check_regression`` reads; never
+  ``BENCH_eventq.json``, which holds the reference's XLA:CPU numbers,
+  and without its ``baseline_pr4`` anchor, an XLA:CPU number too.
 - **No ``pr1_reference``**: the reference's anchor of its own XLA:CPU
   cost a point is not a number of the port's.
 
@@ -59,9 +67,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 
 import numpy as np
 
+from repro_torch.analysis.loop_copy import lint_combo
+from repro_torch.benchmarks import common
 from repro_torch.benchmarks.common import (csv_row, save, timed,
                                            topology_meta)
 from repro_torch.core import workloads as W
@@ -69,6 +81,36 @@ from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
 from repro_torch.core.sim import SimParams
 from repro_torch.core.sim import run as sim_run
 from repro_torch.core.transport import TOPOLOGIES
+
+# The port's event-queue throughput trajectory, merged by grid tier
+# (check_regression's default fresh file); under the git-ignored results/
+BENCH_PATH = os.path.join(common.RESULTS_DIR, "eventq_trajectory.json")
+# the row keys the trajectory keeps (the reference's)
+BENCH_ROW_KEYS = ("k", "topology", "queue_impl", "batch_pop", "events",
+                  "events_per_sec", "warm_events_per_sec", "compile_s",
+                  "marginal_wall_s", "copy_bytes_per_iter")
+
+
+def _emit_bench(grid, rows, head_to_head):
+    """Merge this run's throughput rows into :data:`BENCH_PATH`, keyed
+    by grid tier so successive tiers accumulate."""
+    try:
+        with open(BENCH_PATH) as f:
+            data = json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        data = {"schema": 1, "grids": {}}
+    data["schema"] = 1
+    data.setdefault("grids", {})
+    data["grids"][grid] = {
+        "rows": [{kk: r[kk] for kk in BENCH_ROW_KEYS if kk in r}
+                 for r in rows],
+        "head_to_head": head_to_head,
+    }
+    os.makedirs(os.path.dirname(BENCH_PATH), exist_ok=True)
+    with open(BENCH_PATH, "w") as f:
+        json.dump(data, f, indent=1, default=float)
+        f.write("\n")
+
 
 # In the m=64 tiers c_s is raised (uniformly across every configuration)
 # to put the centralized manager into the paper's saturation regime at
@@ -103,6 +145,26 @@ GRIDS = {
 # the leaves the queue head-to-head holds bitwise (the reference's)
 BITWISE_KEYS = ("app_done", "app_arrive", "beacons_tx", "beacons_rx",
                 "events_processed", "dropped")
+
+
+_COPY_BYTES: dict = {}     # lint_combo's bytes a lane step, per combo
+
+
+def _copy_bytes_for(g, k, queue_impl=None, batch_pop=None):
+    """The copy bytes a lane step of the combo at (k, queue_impl,
+    batch_pop) on ``hier_tree`` (``loop_copy.lint_combo`` on the CPU):
+    queue-commit copies do not depend on the fabric or stimulus, so one
+    count a combo covers every topology row."""
+    qi = queue_impl if queue_impl is not None else g["queue_impl"]
+    bp = batch_pop if batch_pop is not None else g.get("batch_pop", 1)
+    cap = g["queue_cap"].get(k, g["default_queue_cap"])
+    key = (g["m"], k, cap, qi, bp, g["n_childs"], g["max_apps"])
+    if key not in _COPY_BYTES:
+        _COPY_BYTES[key] = lint_combo(
+            m=g["m"], k=k, queue_cap=cap, queue_impl=qi, batch_pop=bp,
+            topology="hier_tree", n_childs=g["n_childs"],
+            max_apps=g["max_apps"], device="cpu")["copy_bytes_per_iter"]
+    return _COPY_BYTES[key]
 
 
 def _shape_for(g, k):
@@ -209,6 +271,9 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
         k1 = next(r for r in rows if r["k"] == 1)
         at = rows.index(k1) + 1
         rows[at:at] = [dict(k1, topology=topo) for topo in topologies[1:]]
+    # the copy bytes a lane step, gated must-not-grow by check_regression
+    for r in rows:
+        r["copy_bytes_per_iter"] = _copy_bytes_for(g, r["k"])
 
     def row(k, topo):
         return next(r for r in rows if r["k"] == k and r["topology"] == topo)
@@ -303,10 +368,13 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
                 "events_per_sec": ev2 / max(cold, 1e-9),
                 "warm_events_per_sec": ev2 / max(wwall, 1e-9),
                 "compile_s": max(cold - wwall, 0.0),
+                "copy_bytes_per_iter": _copy_bytes_for(g, clustered, q2,
+                                                       b2),
             })
         payload["queue_head_to_head"] = head_to_head
 
     save("topology_frontier", payload, spec=[s.to_dict() for s in specs])
+    _emit_bench(grid, rows, head_to_head)
     if verbose:
         csv_row("topology_frontier", t_total * 1e6,
                 f"clustered_best={clustered_wins}"

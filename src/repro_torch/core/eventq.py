@@ -478,11 +478,14 @@ _IOTA: dict = {}
 
 def _iota(n: int, device):
     """``arange(n)`` in f32 on ``device``, made once (the commits read it
-    every step; it is never written)."""
+    every step; it is never written, so the lane loops of ``pmap``'s
+    worker threads share it; ``setdefault`` keeps one per key when two
+    threads make it at once)."""
     key = (n, str(device))
-    if key not in _IOTA:
-        _IOTA[key] = torch.arange(n, dtype=F32, device=device)
-    return _IOTA[key]
+    t = _IOTA.get(key)
+    if t is None:
+        t = _IOTA.setdefault(key, torch.arange(n, dtype=F32, device=device))
+    return t
 
 
 def _cal_commit_(cal, pop_slots, pop_ok, root_t, mask, times, pay,

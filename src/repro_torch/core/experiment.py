@@ -22,9 +22,11 @@ runs through :mod:`repro_torch.core.sweep`'s engines:
 
   seq    ``sim.simulate`` once per lane — the CPU's path (per-lane walls).
   vmap   one lane-batched loop per group (``core/lanes.py``) — the card's.
-  pmap   groups spread over several cards: with one card (or none) it
-         falls back to the auto choice; with more it is refused (ROADMAP
-         item 12).
+  pmap   groups round-robined over the cards of :func:`pmap_devices`
+         (group i on card i mod n), one worker thread a card running its
+         groups' lane loops in plan order, the results gathered once in
+         the reference's order; with one card, or on the CPU, it falls
+         back to the auto choice.
 
 ``auto`` is seq on the CPU and vmap on the card.  The port compiles no
 program, so ``ResultFrame.compiles`` is 0; every payload key keeps the
@@ -46,16 +48,16 @@ percentile columns come from the histograms (NaN without a trace), and
 :meth:`ResultFrame.trace_frame` decodes one lane.
 
 The planner and :func:`spec_from_dict` accept every spec the reference
-accepts (``SPEC_VERSION = 4`` payloads); only ``run()`` refuses what the
-port cannot run yet: ``pmap`` over several cards (ROADMAP item 12).
-Every fabric, queue, policy, fault scenario and trace runs, in every
-mode.
+accepts (``SPEC_VERSION = 4`` payloads).  Every fabric, queue, policy,
+fault scenario and trace runs, in every mode.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -220,13 +222,24 @@ class StaticCombo:
                 "topology": self.topology.kind}
 
 
+def pmap_devices(device) -> list:
+    """The devices ``pmap`` spreads groups over: every CUDA card when the
+    run is on the card (``device=None`` is the card), else the run's one
+    device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 def _resolve_mode(mode: str, device) -> str:
     """The dispatch matrix: auto picks seq on the CPU and vmap on the
-    card (``device=None`` is the card); pmap needs more than one card and
-    falls back to the auto choice without."""
+    card (``device=None`` is the card); pmap needs more than one device
+    in :func:`pmap_devices` and falls back to the auto choice without."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
-    if mode == "pmap" and torch.cuda.device_count() <= 1:
+    if mode == "pmap" and len(pmap_devices(device)) <= 1:
         mode = "auto"
     if mode == "auto":
         mode = SW.resolve_mode(mode, resolve_device(device))
@@ -429,61 +442,63 @@ class ExperimentSpec:
         dev = resolve_device(device)
         requested = mode or self.mode
         resolved = plan.resolve_mode(requested, dev)
-        if resolved == "pmap":
-            raise NotImplementedError("pmap over several cards is not ported "
-                                      "yet (ROADMAP item 12)")
         wl_cache = {}
 
-        def built(combo, wi):
+        def built(combo, wi, on):
             key = (wi, combo.shape.m, combo.shape.k, combo.shape.max_apps,
-                   combo.shape.n_childs)
+                   combo.shape.n_childs, on)
             if key not in wl_cache:
                 lanes, wl = self.workloads[wi].build(combo.shape,
                                                      self.sim_len)
                 wl_cache[key] = (lanes, tuple(
-                    torch.as_tensor(np.asarray(x), dtype=dt).to(dev)
+                    torch.as_tensor(np.asarray(x), dtype=dt).to(on)
                     for x, dt in zip(wl, (F32, I32, F32))))
             return wl_cache[key]
 
         f_cache = {}
 
-        def scheds(k):
+        def scheds(k, on):
             # one build per (fault entry, k), padded to the axis' common
             # length (the reference's one program per group)
-            if k not in f_cache:
+            if (k, on) not in f_cache:
                 built_ = [None if f is None else f.build(k, self.sim_len)
                           for f in self.faults]
                 cap = max((s.capacity for s in built_ if s is not None),
                           default=0)
-                f_cache[k] = [None if s is None
-                              else FLT.pad_to(s, cap).to(dev)
-                              for s in built_]
-            return f_cache[k]
+                f_cache[k, on] = [None if s is None
+                                  else FLT.pad_to(s, cap).to(on)
+                                  for s in built_]
+            return f_cache[k, on]
 
+        # the reference's pending order (plan order, then workload, then
+        # fault); under pmap group i's inputs go to device i mod n
+        devs = pmap_devices(dev) if resolved == "pmap" else [dev]
         t0 = time.time()
-        groups = []
-        for combo in plan.combos:
+        pending = []
+        for gi, combo in enumerate(plan.combos):
+            di = gi % len(devs)
             for wi in range(len(self.workloads)):
-                lanes, (arr, gmns, lens) = built(combo, wi)
-                for f, fs in zip(self.faults, scheds(combo.shape.k)):
-                    tg = time.time()
-                    if resolved == "vmap":
-                        st = {key: _np(v) for key, v in SW._sweep_vmap(
-                            combo.shape, self.knobs, arr, gmns, lens,
-                            self.sim_len, combo.policy, combo.topology,
-                            fs, self.trace).items()}
-                        lane_walls = None
-                    else:
-                        st, lane_walls = _exec_seq(combo, self.knobs, arr,
-                                                   gmns, lens, self.sim_len,
-                                                   fs, self.trace)
-                    groups.append(_GroupResult(combo, wi, lanes, st,
-                                               _np(lens), time.time() - tg,
-                                               lane_walls, f))
+                lanes, wl = built(combo, wi, devs[di])
+                for f, fs in zip(self.faults,
+                                 scheds(combo.shape.k, devs[di])):
+                    pending.append((di, combo, wi, lanes, wl, f, fs))
+        if resolved == "pmap":
+            n_dev = len(devs)
+            runs = [(st, np.nan, None) for st in _run_pmap(
+                devs, pending, self.knobs, self.sim_len, self.trace)]
+        else:
+            n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+            runs = [_exec_timed(resolved, combo, self.knobs, *wl,
+                                self.sim_len, fs, self.trace)
+                    for _, combo, _, _, wl, _, fs in pending]
+        groups = [_GroupResult(combo, wi, lanes, st, _np(wl[2]), g_wall,
+                               lane_walls, f)
+                  for (_, combo, wi, lanes, wl, f, _), (st, g_wall,
+                                                         lane_walls)
+                  in zip(pending, runs)]
         wall = time.time() - t0
-        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
         return ResultFrame(self, plan, requested, resolved, groups, wall,
-                           n_dev)
+                           n_dev, device=dev)
 
     # -- provenance -------------------------------------------------------
 
@@ -565,6 +580,55 @@ def spec_from_dict(d: dict) -> ExperimentSpec:
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _exec_vmap(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
+               sim_len, faults=None, trace=None) -> dict:
+    """One lane-batched loop over the group's lanes on ``arr.device``;
+    numpy leaves (B, S, ...)."""
+    return {key: _np(v) for key, v in SW._sweep_vmap(
+        combo.shape, knobs, arr, gmns, lens, sim_len, combo.policy,
+        combo.topology, faults, trace).items()}
+
+
+def _exec_timed(mode: str, combo: StaticCombo, knobs: SimKnobs, arr, gmns,
+                lens, sim_len, faults=None, trace=None):
+    """One group in ``mode`` (seq or vmap): ``(state, wall_s, lane
+    walls)``, the lane walls seq mode's alone."""
+    tg = time.time()
+    if mode == "vmap":
+        st, lane_walls = _exec_vmap(combo, knobs, arr, gmns, lens, sim_len,
+                                    faults, trace), None
+    else:
+        st, lane_walls = _exec_seq(combo, knobs, arr, gmns, lens, sim_len,
+                                   faults, trace)
+    return st, time.time() - tg, lane_walls
+
+
+def _run_pmap(devs, pending, knobs, sim_len, trace) -> list:
+    """``pmap``'s dispatch: one worker thread a device (the lane loop is
+    host-driven and reads its device every step), each running the
+    lane-batched loop of its groups in plan order with that device
+    current; the states in ``pending``'s order.  Each entry of
+    ``pending`` is ``(device index, combo, workload index, lanes,
+    (arrivals, gmns, lengths), fault, schedule)`` with its inputs and
+    schedule already on that device."""
+    states = [None] * len(pending)
+
+    def worker(di):
+        on = devs[di]
+        with torch.cuda.device(on) if on.type == "cuda" else nullcontext():
+            for j, (dj, combo, _, _, (arr, gmns, lens), _, fs) \
+                    in enumerate(pending):
+                if dj == di:
+                    states[j] = _exec_vmap(combo, knobs, arr, gmns, lens,
+                                           sim_len, fs, trace)
+
+    used = sorted({p[0] for p in pending})
+    with ThreadPoolExecutor(max_workers=len(used)) as pool:
+        for fut in [pool.submit(worker, di) for di in used]:
+            fut.result()
+    return states
 
 
 def _exec_seq(combo: StaticCombo, knobs: SimKnobs, arr, gmns, lens,
@@ -689,7 +753,7 @@ class ResultFrame:
     LANE_COORDS = ("workload", "seed", "pair_period")
 
     def __init__(self, spec, plan, mode_requested, mode, groups, wall_s,
-                 devices):
+                 devices, device=None):
         self.spec = spec
         self.plan = plan
         self.mode_requested = mode_requested
@@ -698,7 +762,7 @@ class ResultFrame:
         self.wall_s = wall_s
         self.devices = devices
         self.compiles = 0
-        self.expected_programs = plan.expected_programs(mode)
+        self.expected_programs = plan.expected_programs(mode, device)
         self._cols = None
 
     def __len__(self):

@@ -1,8 +1,8 @@
 """Serving entry point: clustered scheduler (control plane) + real decode
 steps (data plane) on one device (port of ``repro/launch/serve.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --requests 64 \\
-      --clusters 4                       # reduced Jamba on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \\
+      --requests 64 --clusters 4         # reduced olmo_1b on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 The control plane is the paper's mechanism (two-stage placement +
@@ -76,8 +76,7 @@ def serve(cfg, *, n_requests: int = 64, clusters: int = 4,
 
 def main():
     ap = argparse.ArgumentParser()
-    # the only ported architecture (the reference defaults to olmo_1b)
-    ap.add_argument("--arch", default="jamba_v01_52b")
+    ap.add_argument("--arch", default="olmo_1b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--clusters", type=int, default=4)

@@ -177,6 +177,17 @@ def test_fault_goldens_shape():
             assert row["downtime"] == [cut * 0.3 * sim_len] * 2, key
 
 
+def test_fault_digests_tell_every_group_apart():
+    """At ``goldens.FAULT_SIM_LEN`` no two fault groups share a digest:
+    each group's ``app_done`` sha256 and its per-seed
+    ``events_processed`` are its own, so the card's phase would see a
+    group (a mapping under the outage, a fault model) that behaved like
+    another."""
+    for name in ("app_done_sha", "events_processed"):
+        seen = [repr(row[name]) for row in G.FAULTS.values()]
+        assert len(set(seen)) == len(G.FAULTS), name
+
+
 def test_fault_group_rehearsal_matches_golden():
     """A CPU rehearsal of the card's phase faults: its smallest group
     (``suspect_weighted`` under the outage, at the phase's widths and

@@ -2,10 +2,11 @@
 reference's (benchmarks/*.py) on the CPU at tiny sizes: the same
 arguments give the same results JSON — curves, rows, claim booleans,
 embedded spec and meta block — except wall-clock fields, the
-reference's count of compiled programs (the port compiles none) and its
-count of the compiled loop's copy bytes and its XLA:CPU cost anchor
-(``topology_frontier``: the port has no compiled program to count), and
-the reference's claims about its count of compiled programs."""
+reference's count of compiled programs (the port compiles none), the
+values of ``copy_bytes_per_iter`` (the reference counts its compiled
+loop's copies, the port a lane step's copy ops), the reference's
+XLA:CPU cost anchor (``topology_frontier``), and the reference's claims
+about its count of compiled programs."""
 import importlib
 import json
 import sys
@@ -27,10 +28,10 @@ SKIP = {"us_per_batch", "us_per_decision", "flat_argmin_us_per_batch",
         "compile_s", "detector_compiles"}
 # what the port's payloads add: K1's assignments against its plain version
 PORT_ONLY = {"two_stage_matches_plain"}
-# what only the reference's have: the XLA loop body's copy bytes, the
-# reference's own XLA:CPU cost anchor (topology_frontier) and its claims
-# about how many XLA programs it compiles (the port compiles none)
-REF_ONLY = {"copy_bytes_per_iter", "pr1_reference",
+# what only the reference's have: its own XLA:CPU cost anchor
+# (topology_frontier) and its claims about how many XLA programs it
+# compiles (the port compiles none)
+REF_ONLY = {"pr1_reference",
             "claim_one_program_per_group", "claim_fault_grid_no_recompile",
             "claim_detector_no_recompile"}
 
@@ -100,6 +101,8 @@ def test_topology_frontier_payload_equals_reference(tmp_path, monkeypatch,
     monkeypatch.setitem(ref.GRIDS, "paper_tiny", TINY_TREE)
     monkeypatch.setitem(port.GRIDS, "paper_tiny", TINY_TREE)
     monkeypatch.setattr(ref, "BENCH_PATH", str(tmp_path / "bench.json"))
+    monkeypatch.setattr(port, "BENCH_PATH",
+                        str(tmp_path / "torch" / "eventq_trajectory.json"))
     monkeypatch.setattr(ref, "_copy_bytes_for", lambda *a, **kw: 0)
     ref.run(grid="paper_tiny")
     got = port.run(grid="paper_tiny", device="cpu")
@@ -108,7 +111,16 @@ def test_topology_frontier_payload_equals_reference(tmp_path, monkeypatch,
                          .read_text())
     _same(written, want)
     assert written == json.loads(json.dumps(got, default=float))
-    assert not (tmp_path / "torch" / "bench.json").exists()
+    # the trajectory: the reference's tier keys and row keys, without its
+    # XLA:CPU anchor
+    ref_bench = json.loads((tmp_path / "bench.json").read_text())
+    traj = json.loads((tmp_path / "torch" / "eventq_trajectory.json")
+                      .read_text())
+    assert set(traj) == set(ref_bench) - {"baseline_pr4"}
+    assert set(traj["grids"]) == set(ref_bench["grids"]) == {"paper_tiny"}
+    for part in ("rows", "head_to_head"):
+        assert [set(r) for r in traj["grids"]["paper_tiny"][part]] \
+            == [set(r) for r in ref_bench["grids"]["paper_tiny"][part]]
     assert len(got["queue_head_to_head"]) == 6
     assert all(got[f"claim_{c}"] for c in (
         "tree_matches_linear_bitwise", "calendar_matches_linear_bitwise",

@@ -30,7 +30,8 @@ from repro_torch.models import model as TMDL
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 # the reference's benchmarks/ scripts import the JAX package
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
@@ -57,8 +58,17 @@ def test_rules_walk_every_subpackage():
              if p.is_relative_to(PORT)}
     for want in ("benchmarks/common.py", "benchmarks/table5.py",
                  "benchmarks/scheduler_overhead.py", "core/lanes.py",
-                 "core/sweep.py", "core/experiment.py", "core/analytic.py"):
+                 "core/sweep.py", "core/experiment.py", "core/analytic.py",
+                 "benchmarks/run.py", "benchmarks/check_regression.py"):
         assert want in names, want
+
+
+def test_rules_walk_the_port_examples():
+    """The walk covers every example of the port (``*_torch.py``) and no
+    example of the reference."""
+    examples = {p.name for p in PORT_FILES if p.parent.name == "examples"}
+    assert examples == {"quickstart_torch.py", "train_tiny_lm_torch.py",
+                        "paper_repro_torch.py", "serve_clustered_torch.py"}
 
 
 def test_every_port_module_imports_without_jax():
