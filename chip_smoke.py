@@ -94,9 +94,10 @@ any failure ends the run with a non-zero exit:
             max_apps=64, queue_cap=8192, c_s=8, dn_th=4, interference
             seeds 1-2 at pair_period 14,000: 3 groups of 2 lanes;
             ``mesh2d``, and ``hier_tree`` at k=32, run in phase 13 on the
-            tree queue): ``hier_tree`` at k=16 at sim_len 1e5 (the
-            probe, and the baseline of phases 13 and 14), then the rest
-            and the seq runs at 1e6 — or 1e5, said in the line, when the
+            tree queue): ``hier_tree`` at k=16 at sim_len 5e4 (the
+            probe, and the baseline of phases 13-15; 1e5 until phase
+            29 came), then the rest
+            and the seq runs at 1e6 — or 5e4, said in the line, when the
             probe's rate would put 1e6 over the phase's 150 s — against
             the JAX
             reference's frozen digests (``goldens.FABRICS``), with
@@ -132,7 +133,7 @@ any failure ends the run with a non-zero exit:
             an empty ``bcn_t`` on every drop-free lane; seed 1 of the
             k=16 tree/64 run in ``"seq"`` mode equal to its vmap lane;
             steps and events/s of every run (the k=16 ones against phase
-            ``fabrics``' linear run at 1e5), and of each k=16 combo at
+            ``fabrics``' linear run at 5e4), and of each k=16 combo at
             sim_len 2e4 (linear/1's from phase 12) the kernels, device
             busy time and host reads a step, split by step kind;
 14. faults  fault injection and the failure detector through the lane
@@ -147,7 +148,7 @@ any failure ends the run with a non-zero exit:
             ``avoid_suspected`` under heartbeat) against
             ``goldens.FAULTS``; the no-fault group also against
             ``goldens.FABRICS`` (and its events/s beside phase 12's
-            no-fault probe on the same lanes at 1e5); ``beacons_rx + msgs_lost
+            no-fault probe on the same lanes at 5e4); ``beacons_rx + msgs_lost
             == (k-1) * beacons_tx + retries_tx`` on drop-free lanes,
             every arrived application complete, the partition's outage
             exactly in ``downtime``; seed 1 of the partition group in
@@ -162,7 +163,8 @@ any failure ends the run with a non-zero exit:
             ``sim.run`` at sim_len 2.5e5 (1e6 until the script took
             phase 27) against phase 9's untraced timed run;
             (b) the k=16 ``hier_tree`` group of phase 12's tier (linear
-            queue, seeds 1-2) at 1e5 through the lane loop against
+            queue, seeds 1-2) at 5e4 (1e5 until phase 29 came) through
+            the lane loop against
             phase 12's untraced probe; (c) k=16 ``hier_tree`` on the
             tree queue with batch_pop 64 under a partition at 2e4 with a
             1,024-row ring that overflows, against its untraced run.
@@ -170,8 +172,8 @@ any failure ends the run with a non-zero exit:
             ``goldens.TRACE`` (the JAX reference's), every lane's
             ``TraceFrame.check()``, ``validate_perfetto`` empty.
             Reported: events/s on and off (the gated runs, and in turns
-            — off, on, on, off — at 5e4 (a) and 2e4 (b)), kernels,
-            device busy time and syncs an event of (a) at 5e4 and a step
+            — off, on, on, off — at 2.5e4 (a) and 2e4 (b)), kernels,
+            device busy time and syncs an event of (a) at 2.5e4 and a step
             of (b) at 2e4 by step kind (against phase 12's count), the
             p50/p95/p99 columns;
 16. lm_small   the reduced 8-layer Jamba (f32, the port's seeded init)
@@ -295,6 +297,40 @@ any failure ends the run with a non-zero exit:
             worker's thread, the two lane loops at once) bit for bit
             the same; the exported Chrome trace holds one region a step,
             each with a CUDA kernel;
+29. replay     (run after phase 15) the decision replay
+            (``serving/replay.py``): ``sim.run`` with ``record_s1`` at
+            m=64, k=8, interference seed 0, sim_len 3e5 under
+            ``min_search`` and ``staleness_weighted``, the ``dec_*``
+            leaves, events and ``app_done`` bit for bit the JAX
+            reference's (``goldens.REPLAY``), every recorded decision
+            replayed through the wall-clock ``ClusterScheduler`` with no
+            mismatch, ``replay_trace`` driving a ``FleetSim`` until every
+            recorded application is finished; K1's launches read;
+30. lm_train_remat  (run after phase 24) phases 22 and 23's runs
+            (olmo_1b, falcon_mamba_7b cut to 16 layers) under remat
+            ``none`` and ``dots``: launches a step as the policy implies
+            (K2 16 and 32, K3's training variant 16 and 32, each backward
+            16), the 8 losses bit for bit remat ``full``'s, the peak
+            memory; beside them, in subprocesses, the dry run of
+            olmo_1b's 1x1 cell under each policy and under
+            microbatches=2 (the CLI) and of falcon's cut cell: olmo_1b's
+            peaks within 25% of the measured and its FLOPs equal to a
+            real step's count (``launch/op_cost``), falcon's reported;
+31. lm_train_accum  olmo_1b at full width under microbatches=2 (K2 64
+            and 32 backward launches a step) and int8 compression (32
+            and 16): finite losses, the last below the first, each within
+            ``LM_ACCUM_TOL`` of phase 22's (int8's first bit for bit);
+            microbatches=2's peak and FLOPs against its dry run; peaks
+            beside phase 22's;
+32. lm_resume  olmo_1b at full width cut to 4 layers in bf16 through
+            ``launch.train.train``: 8 steps uninterrupted, then a
+            checkpoint every 4 steps (a temporary directory) and a
+            failure injected at step 6, then resumed from step 4:
+            parameters, moments and step counter after step 8 bit for
+            bit the uninterrupted run's; beside it, in subprocesses, the
+            train CLI's crash (``--fail-at 12``, non-zero exit) and
+            resume (``resumed from step 10``, exit 0) and the serve CLI
+            (64 of 64 requests finished);
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
@@ -302,10 +338,12 @@ launch counts, zeroed just before it and read just after: the TLM path
 (phases 7-8: K1), the sweep (phase 11), the fabrics (phase 12), the
 queues (phase 13), the faults (phase 14), the trace (phase 15) and the
 loop-copy check (phase 27), which launch none of the three kernels, the
+replay (phase 29: K1's launches read), the
 suite (phase 28: K1, from ``scheduler_overhead``), the prefill (phase
 17: K2, K3), ``serve()`` (phase 18, whose decode steps are plain
-torch), the three training runs (phases 22-24: K2 and its backward,
-K3's training variant and the scan's backward), each family's
+torch), the training runs (phases 22-24 and 30-32: K2 and its backward,
+K3's training variant and the scan's backward; phase 32's CLI
+subprocesses count in their own processes), each family's
 prefill, decode and training in phase 25 (K2 and its backward) and the
 sharded steps of phase 26 (K2 and its backward); the ``kernels`` line
 gives K3 and its training variant a row each.  The comparison
@@ -1049,11 +1087,13 @@ def phase_sweep() -> dict:
 # --------------------------------------------------------------------------
 
 FABRIC_BUDGET_S = 150.0        # the phase's share of TIME_LIMIT_S
-# the k=16 hier_tree probe: 1e5 keeps the script under TIME_LIMIT_S on
-# slow hosts (phase faults runs at 5e4, phase queues' k=16 and k=32
-# runs at 2.5e4)
-FABRIC_PROBE_SIM_LEN = 1e5
-FABRIC_CUT_SIM_LEN = 1e5       # the other runs where 1e6 does not fit
+# the k=16 hier_tree probe: 5e4 (1e5 until the script took in phases
+# replay, lm_train_remat, lm_train_accum and lm_resume) keeps the script
+# under TIME_LIMIT_S on slow hosts (phase faults runs at 5e4, phase
+# queues' k=16 and k=32 runs at 2.5e4); at 5e4 every group this phase
+# runs keeps its own digest (tests/test_torch_goldens.py)
+FABRIC_PROBE_SIM_LEN = 5e4
+FABRIC_CUT_SIM_LEN = 5e4       # the other runs where 1e6 does not fit
 FABRIC_COUNT_SIM_LEN = 2e4     # the horizon kernels per step are split at
 # the groups run here (the script's time limit leaves no room for the
 # rest of FABRICS: mesh2d at k=16 and k=32, and hier_tree at k=32, run
@@ -1187,7 +1227,7 @@ def phase_fabrics():
     from repro_torch.core.sim import SimParams
     t_phase = time.perf_counter()
 
-    # probe: the k=16 hier_tree group at 1e5; its rate a step predicts
+    # probe: the k=16 hier_tree group at 5e4; its rate a step predicts
     # the phase at 1e6 (steps: each group's longest lane, from the frozen
     # digests; a seq event counted as one step), else the other groups
     # and the seq runs take the cut horizon
@@ -1443,7 +1483,7 @@ def phase_queues(linear):
     k=256), a seq run equal to its vmap lane, and each k=16 combo's
     steps, events/s, kernels, busy time and reads a step.
     ``linear["probe"]`` is phase ``fabrics``' k=16 ``hier_tree`` linear
-    run at 1e5, the baseline of the events/s ratios, and its count of
+    run at 5e4, the baseline of the events/s ratios, and its count of
     linear/1 (``linear``: ``probe`` and ``count``)."""
     import torch
     from repro_torch.core import goldens as G
@@ -1558,7 +1598,7 @@ def phase_queues(linear):
     for r in rows:
         if (r["k"], r["topology"], r["sim_len"]) == (
                 k, topo, QUEUE_BATCH_SIM_LEN):
-            # against the probe's linear/1 run at its own 1e5
+            # against the probe's linear/1 run at its own 5e4
             r["events_per_s_over_linear_1"] = r["events_per_s"] / lin
     emit({"phase": "queues", "mode": "vmap", "digests_match": True,
           "bitwise_across_queues": True, "conservation": True,
@@ -1587,8 +1627,8 @@ def phase_faults(linear):
     group against the JAX reference's frozen digests
     (``goldens.FAULTS``), the no-fault group also against
     ``goldens.FABRICS`` and, for its cost, beside phase ``fabrics``'
-    no-fault probe on the same lanes (``linear``, a longer horizon:
-    events/s are not the same mix), conservation with
+    no-fault probe on the same lanes (``linear``, at the same horizon),
+    conservation with
     losses and retries, completion, the partition's downtime, a seq run
     equal to its vmap lane, and kernels, busy time and reads a step."""
     import torch
@@ -1722,7 +1762,8 @@ def phase_faults(linear):
 
 TRACE_BUDGET_S = 60.0          # the phase's share of TIME_LIMIT_S
 # the paper point's kernels an event and events/s, trace on and off
-TRACE_COUNT_SIM_LEN = 5e4
+# (5e4 until the script took in the training configurations)
+TRACE_COUNT_SIM_LEN = 2.5e4
 
 
 def _trace_gates(name, on, off, spec) -> list:
@@ -1800,7 +1841,7 @@ def phase_trace(paper_off, linear):
     (a) the paper point through ``sim.run`` at PROFILE_CUT_SIM_LEN
     against phase ``profile``'s untraced timed run (``paper_off``);
     (b) the tier's k=16 ``hier_tree`` group (linear queue, seeds 1-2) at
-    1e5 through the lane loop against phase ``fabrics``' untraced probe;
+    5e4 through the lane loop against phase ``fabrics``' untraced probe;
     (c) k=16 ``hier_tree`` on tree/64 under a partition at 2e4 with a
     ring that overflows, against its untraced run.  Gates
     (:func:`_trace_gates`): shared leaves bitwise, the trace leaves
@@ -1850,6 +1891,9 @@ def phase_trace(paper_off, linear):
                        "off": _paper_count(None), "on": _paper_count(spec)}}
 
     # (b) and (c) through the lane loop, each against its untraced run
+    if G.TRACE_SIM_LENS["hier_tree"] != FABRIC_PROBE_SIM_LEN:
+        raise AssertionError("trace: the hier_tree group's traced horizon "
+                             "is not phase fabrics' probe's")
     specs = G.trace_specs(ExperimentSpec, WorkloadSpec, SimParams,
                           FaultSpec, TraceSpec, mode="vmap")
     groups = {}
@@ -2847,20 +2891,24 @@ def phase_lm_train_small():
           "runs": out, "families": families})
 
 
-def _lm_train_path(phase, cfg, want_per_step, run=None):
+def _lm_train_path(phase, cfg, want_per_step, run=None, *,
+                   then="profile"):
     """``cfg`` at full width in bf16 through ``launch.train.train``
     (``run``, default ``_lm_train_run``), batch 4 x 2048 from a seeded
     init (its own main
     path: the launch counts are zeroed before it and read after):
     launches a step against ``want_per_step``, finite losses, the last
     below the first; tokens/s, ms per step, peak memory, and one more
-    step profiled.  -> (launches, that step's metrics, the report)."""
+    step ``then``: "profile"d, or "count"ed by ``launch/op_cost`` (its
+    FLOPs, the dry run's gate), or none (None).  -> (launches, that
+    step's metrics, the report)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import hier_minsearch as HM
     from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch import op_cost
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     run = run or _lm_train_run()
@@ -2897,16 +2945,27 @@ def _lm_train_path(phase, cfg, want_per_step, run=None):
                              f"first")
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     step_ms = 1e3 * statistics.median(step_s)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    # one more step under the profiler (updating the phase's own state in
-    # place, as the loop's steps do): device time by kernel group
-    step = make_train_step(cfg, run, donate=True)
-    batch = synth_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DataConfig(),
-                        LM_TRAIN_STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        params, opt, metrics = step(params, opt, batch)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step (updating the phase's own state in place, as the
+    # loop's steps do) under the profiler, device time by kernel group,
+    # or under op_cost
+    extra, metrics = {}, None
+    if then is not None:
+        step = make_train_step(cfg, run, donate=True)
+        batch = synth_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DataConfig(),
+                            LM_TRAIN_STEPS)
         torch.cuda.synchronize()
+    if then == "profile":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+        extra["profiled_step"] = _device_time(prof)
+    elif then == "count":
+        (params, opt, metrics), real = op_cost.measure(step, params, opt,
+                                                       batch)
+        extra["counted_step"] = {"flops": real.flops,
+                                 "hbm_bytes": real.hbm_bytes,
+                                 "peak_bytes": real.peak_bytes}
     del params, opt
     torch.cuda.empty_cache()
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
@@ -2914,7 +2973,8 @@ def _lm_train_path(phase, cfg, want_per_step, run=None):
         "phase": phase, "config": cfg.name, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "params": cfg.param_count(),
         "dtype": run.param_dtype, "remat": run.remat,
-        "schedule": run.schedule,
+        "microbatches": run.microbatches,
+        "grad_compression": run.grad_compression, "schedule": run.schedule,
         "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
         "steps": LM_TRAIN_STEPS, "launches": launches,
         "launches_per_step": {k: v / LM_TRAIN_STEPS
@@ -2923,7 +2983,7 @@ def _lm_train_path(phase, cfg, want_per_step, run=None):
         "wall_s": wall, "step_ms": [1e3 * s for s in step_s],
         "ms_per_step_after_first": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3),
-        "peak_mem_gib": peak, "profiled_step": _device_time(prof)}
+        "peak_mem_gib": peak / 2**30, "peak_bytes": peak, **extra}
     return launches, metrics, report
 
 
@@ -2932,13 +2992,10 @@ def phase_lm_train():
     launches a step (under full remat each attention layer runs K2 twice
     a step, its backward once), no scan."""
     cfg = _olmo(reduced=False)
-    launches, _, report = _lm_train_path("lm_train", cfg, {
-        "flash_attention": 2 * cfg.n_layers,
-        "flash_attention_bwd": cfg.n_layers, "selective_scan": 0,
-        "selective_scan_states": 0, "selective_scan_bwd": 0,
-        "hier_minsearch": 0})
+    launches, _, report = _lm_train_path(
+        "lm_train", cfg, _train_want(cfg, _lm_train_run()))
     emit(report)
-    return launches
+    return launches, report
 
 
 def phase_lm_train_ssm():
@@ -2948,12 +3005,10 @@ def phase_lm_train_ssm():
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
                               n_layers=LM_TRAIN_SSM_LAYERS)
-    launches, _, report = _lm_train_path("lm_train_ssm", cfg, {
-        "flash_attention": 0, "flash_attention_bwd": 0,
-        "selective_scan": 0, "selective_scan_states": 2 * cfg.n_layers,
-        "selective_scan_bwd": cfg.n_layers, "hier_minsearch": 0})
+    launches, _, report = _lm_train_path(
+        "lm_train_ssm", cfg, _train_want(cfg, _lm_train_run()))
     emit(report)
-    return launches
+    return launches, report
 
 
 def phase_lm_train_moe():
@@ -2976,6 +3031,445 @@ def phase_lm_train_moe():
           "last_step_load_balance": float(metrics["load_balance"]),
           "last_step_dropped_frac": float(metrics["dropped_frac"])})
     return launches
+
+
+# --------------------------------------------------------------------------
+# The reference's training configurations and entry points the card had
+# not run: remat "none" and "dots", microbatches, int8, crash and
+# resume, and the train and serve CLIs
+# --------------------------------------------------------------------------
+
+LM_REMAT_POLICIES = ("none", "dots")
+# olmo_1b's 1x1 cells the dry run predicts beside phase lm_train_remat's
+# card work, by their CLI arguments (phase shard predicts remat "full")
+LM_DRYRUN_CELLS = {"remat=none": ("--remat", "none"),
+                   "remat=dots": ("--remat", "dots"),
+                   "microbatches=2": ("--microbatches", "2")}
+# olmo_1b's losses under microbatches=2 and int8 against lm_train's,
+# relative, step by step.  Step 1 sees the same weights and batch: int8
+# compresses only the gradient, after the loss, so its first loss is
+# lm_train's bit for bit; two microbatches run the same bf16 forward on
+# half the rows each, where cuBLAS may split a product's sum otherwise,
+# so a logit may round to its other bf16 neighbour (2**-8 of its size),
+# and the loss, a mean of log-sum-exps less a logit (each within twice
+# the largest logit change), moves by well under 2**-7 of itself.  From
+# step 2 the weights differ by the rounding of the gradients (a sum of
+# two microbatches in f32 against one bf16 gradient; int8's quantization
+# step, carried to the next step by error feedback): Adam moves a weight
+# by about the learning rate whatever its gradient's size, so a weight
+# whose gradient rounds to the other side, or to zero, ends a unit or two
+# of bf16's last place from lm_train's; 2**-6 of the loss (four bf16
+# roundings) holds the logits' drift over 8 steps.
+LM_ACCUM_TOL = {"first": 2.0 ** -7, "rest": 2.0 ** -6}
+# phase lm_resume: olmo_1b at full width cut to 4 of 16 layers (bf16
+# parameters, f32 moments: a 3.4 GB checkpoint), a checkpoint every 4
+# steps, the crash at step 6 (after the step-4 checkpoint)
+LM_RESUME_LAYERS, LM_RESUME_CKPT_EVERY, LM_RESUME_FAIL_AT = 4, 4, 6
+# the documented CLI pair: reduced olmo_1b, 20 steps, a checkpoint every
+# 5, the crash at step 12, so the resumed run starts at step 10
+LM_CLI_STEPS, LM_CLI_CKPT_EVERY, LM_CLI_FAIL_AT = 20, 5, 12
+LM_CLI_TIMEOUT_S = 240
+
+
+def _train_want(cfg, run) -> dict:
+    """Launches a step of a config whose layers all have one mixer
+    (olmo_1b's attention, falcon_mamba_7b's scan), as ``run`` implies:
+    per microbatch (int8 ignores them) each layer's forward once, again
+    in the backward's recomputation unless remat is "none", and its
+    backward once."""
+    n = 1 if run.grad_compression == "int8" else run.microbatches
+    fwd = (1 if run.remat == "none" else 2) * cfg.n_layers * n
+    bwd = cfg.n_layers * n
+    ssm = cfg.ssm is not None
+    return {"flash_attention": 0 if ssm else fwd,
+            "flash_attention_bwd": 0 if ssm else bwd,
+            "selective_scan": 0,
+            "selective_scan_states": fwd if ssm else 0,
+            "selective_scan_bwd": bwd if ssm else 0, "hier_minsearch": 0}
+
+
+def _dryrun_cut(out, arch, n_layers, remat):
+    """``launch.dryrun.run_cell`` of ``arch`` cut to ``n_layers`` on the
+    host's 1x1 mesh at the training shape under ``remat``, in a
+    subprocess that writes its row to ``out`` (the CLI cuts no depth)."""
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    code = "\n".join([
+        "import dataclasses, json",
+        "from repro_torch.configs.base import RunConfig, ShapeConfig, "
+        "get_config",
+        "from repro_torch.launch import dryrun",
+        f"cfg = dataclasses.replace(get_config({arch!r}), "
+        f"n_layers={n_layers})",
+        f"row = dryrun.run_cell(cfg, ShapeConfig('train_{B}x{S}', {S}, {B}, "
+        f"'train'), mesh_kind='host', run=RunConfig(remat={remat!r}), "
+        "verbose=False)",
+        f"json.dump([row], open({str(out)!r}, 'w'))"])
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO)
+
+
+def _against_dryrun(name, row, report, gated: bool) -> dict:
+    """A run's measured peak and counted FLOPs beside the dry run's
+    prediction of its cell (``row``); with ``gated`` the peak must lie
+    within SHARD_PEAK_TOL and the FLOPs be equal, one microbatch count
+    as the run's."""
+    ratio = row["peak_bytes_per_chip"] / report["peak_bytes"]
+    out = {"peak_bytes_predicted": row["peak_bytes_per_chip"],
+           "peak_bytes_measured": report["peak_bytes"], "peak_ratio": ratio,
+           "flops_predicted": row["flops_per_chip"],
+           "microbatches_predicted": row["microbatches"],
+           "t_compute_s": row["t_compute_s"],
+           "t_memory_s": row["t_memory_s"], "gated": gated}
+    if "counted_step" in report:
+        out["flops_real_step"] = report["counted_step"]["flops"]
+    if gated and not (abs(ratio - 1.0) <= SHARD_PEAK_TOL
+                      and row["flops_per_chip"] == out["flops_real_step"]
+                      and row["microbatches"] == report["microbatches"]):
+        raise AssertionError(f"dry run of {name}: {out}")
+    return out
+
+
+def _brief(report) -> dict:
+    """A training run's numbers for a phase line."""
+    keys = ("config", "n_layers", "remat", "microbatches",
+            "grad_compression", "launches_per_step", "losses",
+            "ms_per_step_after_first", "tokens_per_s", "step_ms",
+            "peak_bytes", "peak_mem_gib", "counted_step", "wall_s")
+    return {k: report[k] for k in keys if k in report}
+
+
+def phase_lm_train_remat(base_olmo, base_ssm):
+    """olmo_1b (16 layers) and falcon_mamba_7b (16 of 64) at full width
+    in bf16 through ``launch.train.train`` under remat "none" and
+    "dots", 8 steps each (each run its own main path): launches a step
+    as the policy implies (``_train_want``), and the 8 losses bit for bit
+    those of phases lm_train and lm_train_ssm (remat "full": a policy
+    changes what is kept, not a value, and the K2 and K3 backwards sum in
+    a fixed order).  Beside them, in subprocesses, the dry run of
+    olmo_1b's 1x1 cell under each policy and under microbatches=2 (the
+    CLI) and of falcon's cut cell under each policy: olmo_1b's
+    predictions within SHARD_PEAK_TOL of the measured peak and their
+    FLOPs equal to a counted real step's (microbatches=2's in phase
+    lm_train_accum); falcon's reported.  -> (the runs' launches, the
+    microbatches=2 prediction)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out_dir = REPO / "chiprun_out" / "lm_train_remat"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    procs = {}
+    for cell, args in LM_DRYRUN_CELLS.items():
+        path = out_dir / f"olmo_1b_{cell.replace('=', '_')}.json"
+        procs[f"olmo_1b {cell}"] = (_dryrun(
+            path, "--shape", "train_4k", "--mesh", "host", "--batch",
+            str(B), "--seq", str(S), *args), path)
+    for policy in LM_REMAT_POLICIES:
+        path = out_dir / f"falcon_mamba_7b_remat_{policy}.json"
+        procs[f"falcon_mamba_7b remat={policy}"] = (_dryrun_cut(
+            path, "falcon_mamba_7b", LM_TRAIN_SSM_LAYERS, policy), path)
+    olmo = _olmo(reduced=False)
+    falcon = dataclasses.replace(get_config("falcon_mamba_7b"),
+                                 n_layers=LM_TRAIN_SSM_LAYERS)
+    launches, runs = [], {}
+    try:
+        for cfg, base in ((olmo, base_olmo), (falcon, base_ssm)):
+            for policy in LM_REMAT_POLICIES:
+                run = dataclasses.replace(_lm_train_run(), remat=policy)
+                name = f"{cfg.name} remat={policy}"
+                n, _, report = _lm_train_path(
+                    "lm_train_remat", cfg, _train_want(cfg, run), run,
+                    then="count" if cfg is olmo else None)
+                if report["losses"] != base["losses"]:
+                    raise AssertionError(
+                        f"lm_train_remat {name}: losses {report['losses']} "
+                        f"!= remat full's {base['losses']}")
+                launches.append(n)
+                runs[name] = {**_brief(report), "losses_equal_full": True,
+                              "full_peak_bytes": base["peak_bytes"]}
+        deadline = time.perf_counter() + SHARD_DRYRUN_TIMEOUT_S
+        rows = {name: _dryrun_row(p, path, deadline)
+                for name, (p, path) in procs.items()}
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, r in runs.items():
+        r["dryrun"] = _against_dryrun(name, rows[name], r,
+                                      gated=name.startswith("olmo_1b"))
+    emit({"phase": "lm_train_remat", "dtype": "bfloat16",
+          "batch": B, "seq": S, "steps": LM_TRAIN_STEPS, "runs": runs,
+          "peak_tol": SHARD_PEAK_TOL, "seconds": time.perf_counter() - t0})
+    return launches, rows["olmo_1b microbatches=2"]
+
+
+def phase_lm_train_accum(base, mb2_row):
+    """olmo_1b at full width in bf16 through ``launch.train.train`` under
+    microbatches=2 and under int8 gradient compression, 8 steps each
+    (each its own main path): launches a step (``_train_want``), finite
+    losses, the last below the first, each loss within LM_ACCUM_TOL of
+    phase lm_train's (int8's first bit for bit); microbatches=2's peak
+    and counted FLOPs against the dry run's prediction (``mb2_row``,
+    from phase lm_train_remat), and each peak beside lm_train's.
+    -> the runs' launches."""
+    t0 = time.perf_counter()
+    cfg = _olmo(reduced=False)
+    launches, runs = [], {}
+    for label, kw in (("microbatches=2", {"microbatches": 2}),
+                      ("int8", {"grad_compression": "int8"})):
+        run = dataclasses.replace(_lm_train_run(), **kw)
+        n, _, report = _lm_train_path(
+            "lm_train_accum", cfg, _train_want(cfg, run), run,
+            then="count" if label == "microbatches=2" else None)
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(report["losses"], base["losses"])]
+        first = report["losses"][0] == base["losses"][0] \
+            if label == "int8" else rel[0] <= LM_ACCUM_TOL["first"]
+        if not (first and max(rel[1:]) <= LM_ACCUM_TOL["rest"]):
+            raise AssertionError(f"lm_train_accum {label}: losses "
+                                 f"{report['losses']} against lm_train's "
+                                 f"{base['losses']} (relative {rel})")
+        launches.append(n)
+        runs[label] = {**_brief(report), "losses_lm_train": base["losses"],
+                       "loss_rel_err": rel,
+                       "peak_over_lm_train": report["peak_bytes"]
+                       / base["peak_bytes"]}
+        if label == "microbatches=2":
+            runs[label]["dryrun"] = _against_dryrun(
+                f"olmo_1b {label}", mb2_row, runs[label], gated=True)
+    emit({"phase": "lm_train_accum", "config": cfg.name, "dtype": "bfloat16",
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "steps": LM_TRAIN_STEPS, "tol": LM_ACCUM_TOL,
+          "lm_train_peak_bytes": base["peak_bytes"], "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _cli_pair_and_serve(ckpt_dir) -> dict:
+    """The reference's documented CLIs in subprocesses on the card: the
+    train CLI (reduced olmo_1b, f32) crashing at LM_CLI_FAIL_AT, then
+    resumed (the same command without ``--fail-at``, with ``--resume``)
+    from the last checkpoint before the crash; beside them the serve CLI
+    with its defaults (reduced olmo_1b, 64 requests)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+
+    def start(*args):
+        return time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", *args], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(started):
+        t0, proc = started
+        try:
+            out, err = proc.communicate(timeout=LM_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"lm_resume: {proc.args[2]} timed out")
+        return proc.returncode, out, err, time.perf_counter() - t0
+    serve = start("repro_torch.launch.serve")
+    try:
+        cmd = ("repro_torch.launch.train", "--arch", "olmo_1b", "--reduced",
+               "--steps", str(LM_CLI_STEPS), "--ckpt-every",
+               str(LM_CLI_CKPT_EVERY), "--ckpt-dir", str(ckpt_dir))
+        rc, _, err, t_crash = finish(start(*cmd, "--fail-at",
+                                           str(LM_CLI_FAIL_AT)))
+        failure = [ln for ln in err.splitlines() if "injected failure at "
+                   f"step {LM_CLI_FAIL_AT}" in ln]
+        if rc == 0 or not failure:
+            raise AssertionError(f"lm_resume: train CLI with --fail-at "
+                                 f"exited {rc}: {err[-2000:]}")
+        rc_r, out_r, err_r, t_resumed = finish(start(*cmd, "--resume"))
+        want = LM_CLI_FAIL_AT // LM_CLI_CKPT_EVERY * LM_CLI_CKPT_EVERY
+        losses = [float(m) for m in re.findall(r"loss=(\S+)", out_r)]
+        if rc_r != 0 or f"[train] resumed from step {want}" not in out_r \
+                or not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"lm_resume: train CLI with --resume "
+                                 f"exited {rc_r}: {out_r[-1000:]} "
+                                 f"{err_r[-2000:]}")
+        rc_s, out_s, err_s, t_served = finish(serve)
+    finally:
+        if serve[1].poll() is None:
+            serve[1].kill()
+            serve[1].communicate()
+    if rc_s != 0 or "[serve] 64/64 finished" not in out_s:
+        raise AssertionError(f"lm_resume: serve CLI exited {rc_s}: "
+                             f"{out_s[-1000:]} {err_s[-2000:]}")
+    return {"train_crash": {"rc": rc, "wall_s": t_crash,
+                            "error": failure[-1].strip()},
+            "train_resume": {"rc": rc_r, "wall_s": t_resumed,
+                             "stdout": out_r.strip().splitlines()},
+            "serve": {"rc": rc_s, "wall_s": t_served,
+                      "stdout": out_s.strip().splitlines()}}
+
+
+def phase_lm_resume():
+    """(a) olmo_1b at full width cut to LM_RESUME_LAYERS layers in bf16
+    through ``launch.train.train`` (its own main path), 8 steps
+    uninterrupted, then again with a checkpoint every 4 steps in a
+    temporary directory and a failure injected at step 6, which must
+    raise, then resumed: "resumed from step 4", and its parameters, both
+    moments and the step counter after step 8 bit for bit (dtype
+    included) the uninterrupted run's, its losses those of steps 5-8;
+    step times around the saves reported.  (b) Beside (a), in
+    subprocesses: the train CLI's crash and resume and the serve CLI
+    (``_cli_pair_and_serve``; their launches are their processes' own).
+    -> (a)'s launches."""
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.launch.train import train
+    from repro_torch.pytree import leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(_olmo(reduced=False),
+                              n_layers=LM_RESUME_LAYERS)
+    run = _lm_train_run()
+    kw = dict(steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+              log_every=1)
+    walls = {}
+
+    def log(name, said=None):
+        stamps = walls.setdefault(name, [time.perf_counter()])
+
+        def verbose(line):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if said is not None:
+                said.append(line)
+        return verbose
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = ThreadPoolExecutor(1)
+        cli = pool.submit(_cli_pair_and_serve, Path(tmp) / "cli")
+        try:
+            ckpt = str(Path(tmp) / "ckpt")
+            torch.cuda.empty_cache()
+            FA.launches = FA.bwd_launches = SS.launches = 0
+            SS.bwd_launches = SS.states_launches = HM.launches = 0
+            p_u, o_u, l_u = train(cfg, run, verbose=log("uninterrupted"),
+                                  **kw)
+            try:
+                train(cfg, run, ckpt_dir=ckpt,
+                      ckpt_every=LM_RESUME_CKPT_EVERY,
+                      fail_at=LM_RESUME_FAIL_AT, verbose=log("crash"), **kw)
+            except RuntimeError as e:
+                if f"injected failure at step {LM_RESUME_FAIL_AT}" \
+                        not in str(e):
+                    raise
+                failure = str(e)
+            else:
+                raise AssertionError("lm_resume: the run with fail_at did "
+                                     "not fail")
+            committed = CKPT.committed_steps(ckpt)
+            step_dir = Path(ckpt) / f"step_{committed[-1]:08d}"
+            ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+            said = []
+            p_r, o_r, l_r = train(cfg, run, ckpt_dir=ckpt,
+                                  ckpt_every=LM_RESUME_CKPT_EVERY,
+                                  resume=True, verbose=log("resumed", said),
+                                  **kw)
+            torch.cuda.synchronize()
+            launches = {"flash_attention": FA.launches,
+                        "flash_attention_bwd": FA.bwd_launches,
+                        "selective_scan": SS.launches,
+                        "selective_scan_states": SS.states_launches,
+                        "selective_scan_bwd": SS.bwd_launches,
+                        "hier_minsearch": HM.launches}
+        finally:
+            pool.shutdown(wait=True)
+        cli_out = cli.result()
+    start = LM_RESUME_FAIL_AT // LM_RESUME_CKPT_EVERY * LM_RESUME_CKPT_EVERY
+    steps_run = 2 * LM_TRAIN_STEPS + LM_RESUME_FAIL_AT - start
+    want = {k: n * steps_run for k, n in _train_want(cfg, run).items()}
+    if launches != want:
+        raise AssertionError(f"lm_resume launches {launches}, want {want}")
+    if committed != [start] or said[0] != f"[train] resumed from step "\
+            f"{start}":
+        raise AssertionError(f"lm_resume: committed {committed}, said "
+                             f"{said[:1]}")
+    pairs = list(zip(leaves((p_r, o_r.mu, o_r.nu, o_r.step)),
+                     leaves((p_u, o_u.mu, o_u.nu, o_u.step)), strict=True))
+    unequal = sum(not (a.dtype == b.dtype and torch.equal(a, b))
+                  for a, b in pairs)
+    if unequal or l_r != l_u[start:]:
+        raise AssertionError(f"lm_resume: {unequal} of {len(pairs)} leaves "
+                             f"differ from the uninterrupted run's; losses "
+                             f"{l_r} against {l_u[start:]}")
+    del p_u, o_u, p_r, o_r
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_resume", "config": cfg.name,
+          "n_layers": cfg.n_layers, "cut_from": 16, "dtype": run.param_dtype,
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+          "steps": LM_TRAIN_STEPS, "ckpt_every": LM_RESUME_CKPT_EVERY,
+          "fail_at": LM_RESUME_FAIL_AT, "failure": failure,
+          "resumed_from": start, "checkpoint_bytes": ckpt_bytes,
+          "leaves_compared": len(pairs), "bitwise": True,
+          "losses": [v for _, v in l_u],
+          "launches": launches,
+          # a save's snapshot runs in the caller's thread after its
+          # step's log line: the next step's wall holds it
+          "step_ms": {name: [1e3 * (b - a) for a, b in zip(s, s[1:])]
+                      for name, s in walls.items()},
+          "cli": cli_out, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_replay():
+    """The decision replay (``serving/replay.py``) of two ``record_s1``
+    runs of ``sim.run`` on the card (``goldens.replay_runs``: m=64, k=8,
+    interference seed 0, sim_len 3e5, ``min_search`` and
+    ``staleness_weighted``): the ``dec_*`` leaves, the events and
+    ``app_done`` bit for bit the JAX reference's (``goldens.REPLAY``),
+    every recorded decision replayed through the wall-clock
+    ``ClusterScheduler`` with no mismatch, and ``replay_trace`` driving a
+    ``FleetSim`` until every recorded application is finished.  ->
+    K1's launches on this path (read, not assumed: ``sim.run`` maps
+    without it)."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimParams, run
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.serving import replay as R
+    t0 = time.perf_counter()
+    runs = G.replay_runs(SimParams, W.interference, run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = HM.launches
+    rows = {}
+    for mapping, (st, wl) in runs.items():
+        got = G.replay_digest(st)
+        if got != G.REPLAY[mapping]:
+            raise AssertionError(f"replay {mapping}: digest {got} != the "
+                                 f"reference's {G.REPLAY[mapping]}")
+        p = SimParams(mapping=mapping, **G.REPLAY_PARAMS)
+        trace = R.decision_trace(st, wl[1])
+        report = R.replay_decisions(trace, p)
+        fleet = R.replay_trace(st, wl, p)
+        n_apps = int((st["app_arrive"] < 1e17).sum())
+        if not trace or report.mismatches or len(fleet.finished) != n_apps \
+                or fleet.active or fleet.pending:
+            raise AssertionError(
+                f"replay {mapping}: {len(report.mismatches)} mismatches of "
+                f"{len(trace)} decisions; {len(fleet.finished)} of {n_apps} "
+                f"applications finished")
+        rows[mapping] = {"events": got["events_processed"],
+                         "decisions": len(trace), "mismatches": 0,
+                         "agreement": report.agreement,
+                         "applications": n_apps,
+                         "fleet_finished": len(fleet.finished),
+                         "fleet_beacons_tx": fleet.beacons_tx}
+    emit({"phase": "replay", **G.REPLAY_PARAMS, "seed": G.REPLAY_SEED,
+          "sim_len": G.REPLAY_SIM_LEN, "digests_match": True,
+          "runs": rows, "k1_launches": k1, "runs_wall_s": wall,
+          "events_per_s": sum(r["events"] for r in rows.values()) / wall,
+          "seconds": time.perf_counter() - t0})
+    return k1
 
 
 # the last five families at full width, bf16 (phase lm_families): each
@@ -3169,13 +3663,13 @@ def _dryrun_row(proc, out, deadline) -> dict:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError(f"shard: dry run {out.name} timed out")
+        raise AssertionError(f"dry run {out.name} timed out")
     if proc.returncode != 0:
-        raise AssertionError(f"shard: dry run {out.name} failed: "
+        raise AssertionError(f"dry run {out.name} failed: "
                              f"{err[-2000:]}")
     row = json.loads(out.read_text())[0]
     if row.get("status") != "ok":
-        raise AssertionError(f"shard: dry run {out.name}: {row}")
+        raise AssertionError(f"dry run {out.name}: {row}")
     return row
 
 
@@ -3758,15 +4252,23 @@ def main() -> int:
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     del paper_off, profile_off, linear
+    FA.launches = SS.launches = HM.launches = 0   # the replay path starts
+    replay_k1 = timed(phase_replay)
+    if (FA.launches, SS.launches, HM.launches) != (0, 0, replay_k1):
+        raise AssertionError("the replay path launched "
+                             f"{(FA.launches, SS.launches, HM.launches)}")
     timed(phase_lm_small)
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
     k2_bwd = timed(phase_k2_bwd)
     k3_bwd = timed(phase_k3_bwd, k3_bwd_build)
     timed(phase_lm_train_small)
-    trained = timed(phase_lm_train)
-    trained_ssm = timed(phase_lm_train_ssm)
+    trained, lm_train = timed(phase_lm_train)
+    trained_ssm, lm_train_ssm = timed(phase_lm_train_ssm)
     trained_moe = timed(phase_lm_train_moe)
+    remat_runs, mb2_row = timed(phase_lm_train_remat, lm_train, lm_train_ssm)
+    accum_runs = timed(phase_lm_train_accum, lm_train, mb2_row)
+    resumed = timed(phase_lm_resume)
     families = timed(phase_lm_families)
     sharded = timed(phase_shard, smi)
     FA.launches = SS.launches = HM.launches = 0   # the copy check starts
@@ -3787,12 +4289,14 @@ def main() -> int:
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
     # K2 runs on the prefill, olmo_1b's and deepseek_moe_16b's training
-    # and the last five families' prefills and trainings (with its
-    # backward), K3 on the prefill and its training variant on
-    # falcon_mamba_7b's training
-    trains = (trained, trained_ssm, trained_moe)
+    # (under every remat policy, microbatches, int8 and the resume) and
+    # the last five families' prefills and trainings (with its backward),
+    # K3 on the prefill and its training variant on falcon_mamba_7b's
+    # training (remat full, none and dots)
+    trains = (trained, trained_ssm, trained_moe, *remat_runs, *accum_runs,
+              resumed)
     rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
-             tlm_launches + suite_launches, k1),
+             tlm_launches + replay_k1 + suite_launches, k1),
             (FA.NAME, FA.SOURCE, FA.REPLACES, prefill["flash_attention"]
              + sum(t["flash_attention"] for t in trains)
              + families["flash_attention"] + sharded["flash_attention"], k2),

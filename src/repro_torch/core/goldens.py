@@ -29,7 +29,8 @@ without JAX (``chip_smoke.py``):
   interference seeds (1, 2) at pair_period 14,000, k in (16, 32), the
   linear queue) at sim_len 1e6, at 2.5e5 (34 of the 64 applications;
   every one arrives before 4.5e5, so 5e5 would cut nothing), at 1e5,
-  at 5e4 (the fault groups') and at 2.5e4 (the queue runs' at k=16
+  at 5e4 (the fault groups', and the fabric groups' since the card
+  script took in its phase ``replay``) and at 2.5e4 (the queue runs' at k=16
   and k=32 since the card script took in its phase ``suite``), the
   card's horizons: per (k, fabric) the per-seed
   ``events_processed``, ``beacons_tx``, ``beacons_rx``, ``evq_peak``,
@@ -54,8 +55,8 @@ without JAX (``chip_smoke.py``):
   (:func:`fault_digests`);
 - the trace leaves of the card's phase ``trace`` (trace_report's
   TraceSpec: ring 16,384, stride 64, 512 samples, 64 bins, 4 per
-  octave): the paper point at sim_len 1e6 through ``sim.run``; the
-  tier above at k=16 on ``hier_tree`` (linear queue, seeds 1-2) at 1e5;
+  octave): the paper point at sim_len 2.5e5 through ``sim.run``; the
+  tier above at k=16 on ``hier_tree`` (linear queue, seeds 1-2) at 5e4;
   and k=16 ``hier_tree`` on the tree queue with ``batch_pop`` 64 under
   a partition at 2e4 with a 1,024-row ring that overflows
   (:func:`trace_runs`, :func:`trace_digest`);
@@ -68,7 +69,11 @@ without JAX (``chip_smoke.py``):
 - the deterministic rows of the frontier runners the card's phase
   ``suite`` runs (:data:`SUITE_GRIDS`): ``fault_frontier``'s own
   ``determinism_digest`` and ``benchmarks.common.determinism_digest``
-  of each runner's rows (:func:`suite_digests`).
+  of each runner's rows (:func:`suite_digests`);
+- the recorded stage-1 decisions of the card's phase ``replay``
+  (``record_s1`` at m=64, k=8 under ``min_search`` and
+  ``staleness_weighted``, interference seed 0, sim_len 3e5): the
+  ``dec_*`` leaves' and ``app_done``'s sha256s (:func:`replay_digest`).
 """
 from __future__ import annotations
 
@@ -868,10 +873,12 @@ def fault_digests(frames) -> dict:
 # a partition on the tree queue with batch_pop 64 and a small ring
 TRACE_FIELDS = dict(ring_cap=16384, sample_every=64, n_samples=512,
                     hist_bins=64, bins_per_octave=4)
-TRACE_SIM_LENS = {"paper": 2.5e5, "hier_tree": 1e5, "partition": 2e4}
+TRACE_SIM_LENS = {"paper": 2.5e5, "hier_tree": 5e4, "partition": 2e4}
 TRACE_SMALL_RING = 1024
 # The paper point runs at 2.5e5, phase profile's horizon (1e6 before
-# the phase was cut for the script's time limit).
+# the phase was cut for the script's time limit); the hier_tree group at
+# 5e4, phase fabrics' probe's horizon (1e5 before both were cut for the
+# decision replay and the training configurations of the card script).
 # The JAX reference's runs of trace_runs() on the CPU (~20 s), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax; from repro.core
 #   import sim, workloads; from repro.core.experiment import
@@ -915,52 +922,51 @@ TRACE = {
                          178933.36291503906, 178933.36291503906]],
     },
     "hier_tree": {
-        "tr_n": [6831, 6756],
+        "tr_n": [3348, 3303],
         "trace_dropped": [0, 0],
-        "tl_n": [106, 105],
-        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 721, 16, 9, 19,
-                   3898, 96, 811, 42, 297, 237, 706, 153, 190, 170, 83, 94,
-                   208, 148, 85, 156, 156, 138, 195, 204, 129, 91, 50, 23, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 572, 7, 21,
-                   16, 3347, 31, 1048, 51, 487, 218, 694, 114, 261, 184, 90,
-                   92, 251, 190, 167, 191, 224, 202, 230, 183, 80, 28, 29, 25,
-                   2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0]],
+        "tl_n": [52, 51],
+        "th_mgmt": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 310, 9, 3, 11,
+                     1740, 44, 423, 12, 177, 118, 396, 52, 102, 74, 91, 70,
+                     162, 94, 79, 94, 123, 116, 119, 72, 4, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 268, 11, 6, 8,
+                     1649, 25, 563, 14, 153, 78, 387, 72, 126, 46, 67, 93, 162,
+                     86, 75, 115, 115, 110, 122, 68, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]],
         "th_resp": [[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 5, 1,
-                   0, 4, 2, 0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                   0, 0, 0, 4, 2, 0, 6, 0, 0, 0]],
-        "ring_sha": "97a1e39aade94fa934d37a93d0314024"
-                    "bae4ba52fdf1c7d7b288dca0b6371a04",
-        "tl_t_sha": "c792cdf061bbdaf67077096817429e9d"
-                    "c37d823c5a63dc4e8a07ebfe4c46d29d",
-        "tl_busy_sha": "130663bf5956362a0275641181a492fe"
-                       "af12200891ddbc2a0dfb5d414aecfbfa",
-        "tl_load_sha": "bd0caa74f04c635584fc64a900099c68"
-                       "e5fab0a6355c46ee11b40d44ec84ff3c",
-        "tl_qdepth_sha": "914775d9bbc9b4866e1b0d422d3f4ec3"
-                         "80c939d5b1fb614e5b04d1d167fd918a",
-        "ring_lat_sum": [760734.5, 765393.3125],
-        "tl_stale_sum": [[483034.12438964844, 478976.75244140625,
-                        480171.37890625, 484522.47998046875, 486073.662109375,
-                        489889.3477783203, 490251.4483642578,
-                        492016.6141357422, 495212.5974121094,
-                        495835.8981933594, 498271.19860839844,
-                        505980.65368652344, 495949.28649902344,
-                        503708.36560058594, 505335.44104003906,
-                        501128.69384765625], [471966.2473144531,
-                        475241.51123046875, 474871.4309082031,
-                        480423.3709716797, 474056.36279296875,
-                        474985.40576171875, 473341.87109375,
-                        483397.2166748047, 476872.8112792969,
-                        482449.37438964844, 485009.9755859375,
-                        487137.5925292969, 488831.01037597656,
-                        487913.0734863281, 489683.04235839844,
-                        494477.2824707031]],
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     4, 0, 0, 1, 1, 0, 0], [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0, 4, 2, 0, 0, 0, 0, 0]],
+        "ring_sha": "f239fe54b9ea0bce4c7f44071b478276"
+                    "da51e8a18701c5ec6df2a183b654179b",
+        "tl_t_sha": "a97b313f4ee2cb37bf3d3e14bb0a1ead"
+                    "11abe696305b6b46deea1940f94d0fb9",
+        "tl_busy_sha": "19f420145fae1f84f4801fffb35bad41"
+                       "2a6881ce6bd09d73f1c152e6148bcede",
+        "tl_load_sha": "f5d915d450dabdf54e0b32154748d462"
+                       "ca41dc9e18b8b45488eba20e78de0126",
+        "tl_qdepth_sha": "9c65b12fa3e772ea73a909587c1af4d3"
+                         "098a9a6148bda538c69921d10a2f577b",
+        "ring_lat_sum": [337322.3125, 331671.1875],
+        "tl_stale_sum": [[256605.24829101562, 256112.80053710938,
+                          256384.30590820312, 258605.0771484375,
+                          258671.49658203125, 259019.712890625,
+                          259891.07250976562, 259530.60620117188,
+                          259605.71716308594, 259300.25354003906,
+                          263478.57653808594, 267451.2209472656,
+                          263838.27697753906, 266092.3153076172,
+                          269832.8546142578, 268090.1163330078],
+                          [230625.984375, 230455.92333984375,
+                          230112.3994140625, 231378.7568359375,
+                          230548.2325439453, 229351.44458007812,
+                          228761.8426513672, 233875.6611328125,
+                          235022.9442138672, 236089.2431640625,
+                          234990.05798339844, 236856.7940673828,
+                          237358.53662109375, 238362.8223876953,
+                          237307.77905273438, 240511.4510498047]],
     },
     "partition": {
         "tr_n": [1256, 1312],
@@ -1382,3 +1388,77 @@ def suite_digests(ff, pf, tr, **run_kw) -> dict:
                          for name, mod in (("fault_frontier", ff),
                                            ("policy_frontier", pf),
                                            ("trace_report", tr))})
+
+
+# The decision replay (``serving/replay.py``) of chip_smoke.py's phase
+# ``replay``: the recorded stage-1 decisions of ``sim.run`` with
+# ``record_s1`` at m=64, k=8 (the other SimParams defaults: n_childs 100,
+# max_apps 512, queue_cap 2048, ideal fabric, T_b 1000) under interference
+# seed 0 at the replay tests' horizon, under two mappings whose decisions
+# differ there.  Per mapping: the events, the ``dec_*`` leaves' sha256s
+# (their own dtypes' bytes) and the ``app_done`` sha256
+# (:func:`replay_digest`), from the JAX reference on the CPU (~10 s):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax; from
+#   repro.core import workloads as W; from repro.core.sim import
+#   SimParams, run; from repro_torch.core import goldens as G; print({m:
+#   G.replay_digest(jax.device_get(st)) for m, (st, _) in
+#   G.replay_runs(SimParams, W.interference, run).items()})"
+REPLAY_PARAMS = dict(m=64, k=8, record_s1=True)
+REPLAY_MAPPINGS = ("min_search", "staleness_weighted")
+REPLAY_SEED = 0
+REPLAY_SIM_LEN = 3e5
+REPLAY_DEC = ("dec_view", "dec_age", "dec_choice", "dec_rr0", "dec_t")
+REPLAY = {
+    "min_search": {
+        "events_processed": 3450,
+        "dec_view_sha": "39f88fd1a625d730d1b3e0493a560362"
+                        "c8ca3cb14e2336fc12e5a44e57a7b157",
+        "dec_age_sha": "05509a77b0c0e2a89f6b984b3e8ef51f"
+                       "a157324868ee012a755f5b60f79a94ba",
+        "dec_choice_sha": "8ec013805d29bc70b7e7046a9b4a3877"
+                          "be9c2093f44203ec2e2b1b578da2e6a1",
+        "dec_rr0_sha": "58c7b992edf3e437aa14dedadbec928d"
+                       "fde77cce99101fec8cd244bd2a52b985",
+        "dec_t_sha": "30b65ff4118a6ded1ee40543722ebbaa"
+                     "b46f71840f258cbbf102e91d7937976f",
+        "app_done_sha": "c3276f2f02d7a9c690a8f6dc945fbe87"
+                        "bced32e4f8bbe95992ce0677d5bd5223"},
+    "staleness_weighted": {
+        "events_processed": 3450,
+        "dec_view_sha": "cff8d21e8debc119507e6500aff05215"
+                        "23dd199da1ab8439901e811590a73a0d",
+        "dec_age_sha": "4ff7b022ab60800619a464a80c010328"
+                       "d1a4747af4ce39ef03dc15bb84983dd1",
+        "dec_choice_sha": "edd6fc25ce7b76b1a60693c97421ef95"
+                          "dc61084150cf9aeadd29635228eccdb0",
+        "dec_rr0_sha": "58c7b992edf3e437aa14dedadbec928d"
+                       "fde77cce99101fec8cd244bd2a52b985",
+        "dec_t_sha": "30b65ff4118a6ded1ee40543722ebbaa"
+                     "b46f71840f258cbbf102e91d7937976f",
+        "app_done_sha": "933587b9712bfc0d7a41bef62d84b2ce"
+                        "416f05a2c3d85e97791ea1aba8a9c250"},
+}
+
+
+def replay_runs(SimParams, interference, run, **run_kw) -> dict:
+    """{mapping: (final state, workload)} of phase replay's runs through
+    the package whose functions are passed (``run_kw``: the port's
+    ``device``)."""
+    out = {}
+    for mapping in REPLAY_MAPPINGS:
+        p = SimParams(mapping=mapping, **REPLAY_PARAMS)
+        wl = interference(p, sim_len=REPLAY_SIM_LEN, seed=REPLAY_SEED)
+        out[mapping] = (run(p, *wl, REPLAY_SIM_LEN, **run_kw), wl)
+    return out
+
+
+def replay_digest(st) -> dict:
+    """The events, the ``dec_*`` leaves' and ``app_done``'s sha256s of a
+    ``record_s1`` state (numpy or tensor leaves), keyed as a REPLAY
+    entry."""
+    row = {"events_processed": int(_host(st["events_processed"]))}
+    for key in REPLAY_DEC:
+        row[f"{key}_sha"] = hashlib.sha256(np.ascontiguousarray(
+            _host(st[key])).tobytes()).hexdigest()
+    row["app_done_sha"] = sha256_f32(st["app_done"])
+    return row

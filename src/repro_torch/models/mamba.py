@@ -70,8 +70,12 @@ def apply_mamba(params, cfg: ModelConfig, x):
     x = tp_input(x)
     xc = x @ params["in_x"].to(x.dtype)                    # (B,S,d_in)
     z = x @ params["in_z"].to(x.dtype)
-    # depthwise causal conv1d along S, summed tap by tap as the reference
-    xpad = F.pad(xc, (0, 0, d_conv - 1, 0))
+    # depthwise causal conv1d along S, summed tap by tap as the reference;
+    # the zero rows are concatenated, not padded: torch 2.11's pad of a
+    # DTensor on a 2-D mesh keeps one placement, and the next product's
+    # sharding propagation fails
+    zeros = torch.zeros_like(xc[:, :1]).expand(-1, d_conv - 1, -1)
+    xpad = torch.cat([zeros, xc], dim=1)
     w = params["conv_w"].to(x.dtype)                       # (d_conv, d_in)
     xc = xpad[:, 0:S] * w[0]
     for i in range(1, d_conv):

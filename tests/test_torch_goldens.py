@@ -1,8 +1,12 @@
 """The frozen digests of repro_torch.core.goldens — what chip_smoke.py
 checks the card against without JAX — are what the JAX reference
 computes, and the port reproduces them on the CPU: the golden grid of
-tests/test_sweep.py, the paper point and the trace digests."""
+tests/test_sweep.py, the paper point, the trace digests and the decision
+replay's; and at the card's cut horizons no two groups of a phase share
+a digest."""
 import hashlib
+import importlib.util
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -13,6 +17,10 @@ from repro.core import workloads as RW
 from repro.core.sim import SimParams as RefParams
 from repro.core.sim import run as ref_run
 from repro_torch.core import goldens as G
+from repro_torch.core import workloads as W
+from repro_torch.core.sim import SimParams
+from repro_torch.core.sim import run as port_run
+from repro_torch.serving import replay as R
 from test_sweep import _GOLDEN_APP_DONE_SHA, _GOLDEN_BEACONS
 
 
@@ -63,7 +71,7 @@ def test_port_paper_point_1e6_on_cpu():
 @pytest.mark.parametrize("package", ["reference", "port"])
 def test_trace_digests_recomputed(package):
     """goldens.TRACE — phase trace's three runs (the paper point at 2.5e5,
-    the tier's k=16 hier_tree group at 1e5, a partition on tree/64 at
+    the tier's k=16 hier_tree group at 5e4, a partition on tree/64 at
     2e4 whose ring overflows) — recomputed by the JAX reference and by
     the port on the CPU, to goldens.trace_mismatches' tolerances; the
     traced runs' shared leaves are the untraced goldens, every lane's
@@ -94,7 +102,8 @@ def test_trace_digests_recomputed(package):
     assert G.paper_point_digest(runs["paper"]) \
         == G.PAPER_POINT[G.TRACE_SIM_LENS["paper"]]
     got = G.state_digest(runs["hier_tree"])
-    for key, w in G.FABRICS[1e5][16]["hier_tree"].items():
+    for key, w in G.FABRICS[G.TRACE_SIM_LENS["hier_tree"]][16][
+            "hier_tree"].items():
         assert (np.allclose(got[key], w, rtol=1e-5)
                 if key == "mgmt_latency" else got[key] == w), key
     part = G.trace_digest(runs["partition"])
@@ -110,3 +119,62 @@ def test_trace_digests_recomputed(package):
             tf = TraceFrame(lane, spec)
             assert tf.check()["ok"], name
             assert validate_perfetto(tf.to_perfetto()) == [], name
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_replay_digests_recomputed(package):
+    """goldens.REPLAY — phase replay's two ``record_s1`` runs (m=64, k=8,
+    ``min_search`` and ``staleness_weighted``) — recomputed by the JAX
+    reference and by the port on the CPU, bit for bit; the port's runs
+    replay every recorded decision with no mismatch and drive a
+    ``FleetSim`` until every recorded application is finished."""
+    if package == "reference":
+        runs = {m: (jax.device_get(st), wl) for m, (st, wl) in
+                G.replay_runs(RefParams, RW.interference, ref_run).items()}
+    else:
+        runs = G.replay_runs(SimParams, W.interference, port_run,
+                             device="cpu")
+    assert {m: G.replay_digest(st) for m, (st, _) in runs.items()} \
+        == G.REPLAY
+    if package == "port":
+        for mapping, (st, wl) in runs.items():
+            p = SimParams(mapping=mapping, **G.REPLAY_PARAMS)
+            trace = R.decision_trace(st, wl[1])
+            assert trace and not R.replay_decisions(trace, p).mismatches
+            fleet = R.replay_trace(st, wl, p)
+            assert len(fleet.finished) == int((st["app_arrive"] < 1e17)
+                                              .sum())
+            assert not fleet.active and not fleet.pending
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_cut_digests_tell_every_group_apart():
+    """At chip_smoke.py's cut horizons no two groups of a phase share a
+    digest, so the card's phase would see a group that behaved like
+    another: phase fabrics' groups at its cut horizon (its seq runs'
+    fabrics at k=16 included; the probe and phase trace's hier_tree group
+    run there too), phase trace's three runs and phase replay's two
+    mappings."""
+    C = _chip_smoke()
+    sim_len = C.FABRIC_CUT_SIM_LEN
+    assert sim_len == C.FABRIC_PROBE_SIM_LEN == G.TRACE_SIM_LENS["hier_tree"]
+    groups = sorted(set(C.FABRIC_GROUPS) | {
+        (C.FABRIC_SEQ_K, t) for t in C.FABRIC_SEQ_TOPOLOGIES})
+    cases = {
+        "fabrics": ([G.FABRICS[sim_len][k][t] for k, t in groups],
+                    ("app_done_sha", "events_processed")),
+        "trace": (list(G.TRACE.values()), ("ring_sha", "tr_n")),
+        "replay": (list(G.REPLAY.values()),
+                   ("dec_choice_sha", "dec_view_sha", "app_done_sha"))}
+    for phase, (rows, keys) in cases.items():
+        assert len(rows) > 1, phase
+        for key in keys:
+            seen = [repr(row[key]) for row in rows]
+            assert len(set(seen)) == len(rows), (phase, key)
