@@ -2401,6 +2401,7 @@ def phase_lm_serve():
     if again != G.SERVE:
         raise AssertionError(f"lm_serve (profiled): {again} != {G.SERVE}")
     profiled = _device_time(prof)
+    _check_decode_partial(cfg)
     emit({"phase": "lm_serve", "match": True, **got, "n_layers":
           cfg.n_layers, "dtype": "bfloat16", "decode_steps": len(step_ms),
           "decode_ms": step_ms,
@@ -2409,6 +2410,51 @@ def phase_lm_serve():
           "wall_s": wall, "launches": launches,
           "profiled_decode": profiled})
     return launches
+
+
+# card against CPU, f32 partials: |card - cpu| <= tol max(1, max|cpu|)
+# per output (l sums thousands of terms in another order on the card)
+DECODE_PARTIAL_TOL = 1e-5
+
+
+def _check_decode_partial(cfg):
+    """``ops.decode_attention_partial`` (plain torch, no kernel) on CUDA
+    tensors against its CPU result at Jamba's decode shape: serve's batch
+    of 4 over its 64-slot cache, and a 4,096-position shard of a
+    sequence-parallel cache, in bf16, a quarter of each shard masked
+    and one row of the long shard all masked."""
+    import torch
+    from repro_torch.kernels import ops
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    worst = {}
+    for b, sloc in ((4, 64), (2, 4096)):
+        g = torch.Generator().manual_seed(sloc)
+        q = torch.randn((b, 1, hq, d), generator=g).to(torch.bfloat16)
+        ck = torch.randn((b, sloc, hkv, d), generator=g).to(torch.bfloat16)
+        cv = torch.randn((b, sloc, hkv, d), generator=g).to(torch.bfloat16)
+        valid = torch.rand((b, sloc), generator=g) < 0.75
+        if sloc > 64:
+            valid[-1] = False
+        cpu = ops.decode_attention_partial(q, ck, cv, valid)
+        gpu = ops.decode_attention_partial(
+            *(t.cuda() for t in (q, ck, cv, valid)))
+        err = 0.0
+        for name, c, x in zip(("acc", "m", "l"), cpu, gpu):
+            x = x.cpu()
+            fin = torch.isfinite(c)
+            if not (torch.equal(fin, torch.isfinite(x))
+                    and torch.equal(c[~fin], x[~fin])):
+                raise AssertionError(f"decode_attention_partial {name}: "
+                                     "masked rows differ")
+            scale = max(1.0, c[fin].abs().max().item())
+            err = max(err, (x[fin] - c[fin]).abs().max().item() / scale)
+        worst[f"{b}x{sloc}"] = err
+        if err > DECODE_PARTIAL_TOL:
+            raise AssertionError(f"decode_attention_partial ({b}, {sloc}):"
+                                 f" {err} > {DECODE_PARTIAL_TOL}")
+    emit({"phase": "lm_serve", "check": "decode_attention_partial",
+          "q": [None, 1, hq, d], "kv_heads": hkv, "max_scaled_err": worst,
+          "tol": DECODE_PARTIAL_TOL})
 
 
 # --------------------------------------------------------------------------

@@ -151,6 +151,31 @@ def decode_attention(q, cache_k, cache_v, pos, *, lengths=None,
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def decode_attention_partial(q, cache_k, cache_v, valid):
+    """Per-shard partial attention stats for sequence-parallel decode.
+
+    q (B,1,Hq,D); cache (B,Sloc,Hkv,D); valid (B,Sloc) bool.  Returns
+    (acc (B,Hq,D) f32 unnormalised, m (B,Hq) f32, l (B,Hq) f32), to be
+    combined across shards by the caller (flash-decoding).  An
+    all-masked shard gives m = -inf, l = 0 and acc = 0.  Plain torch."""
+    q, cache_k, cache_v, valid = _tensors(q, cache_k, cache_v, valid)
+    B, Sloc, Hkv, D = cache_k.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    qf = q.float().reshape(B, Hkv, G, D)
+    kf = cache_k.float().transpose(1, 2)
+    vf = cache_v.float().transpose(1, 2)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, kf) * scale.to(q.device)
+    s = s.masked_fill(~valid.bool()[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(torch.isnan(p), 0.0, p)         # all-masked shard
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgk,bhkd->bhgd", p, vf)
+    return acc.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
 def _decode_scores(q, cache_k, cache_v, pos, lengths, sliding_window,
                    k0: int):
     """f32 scaled scores (B,Hkv,G,S) of q against the cache's keys at

@@ -1,8 +1,8 @@
 // A stand-in for the CUDA runtime header, for running a kernel source of
 // the port on the CPU in tests (see emu.cpp): the qualifiers compile away,
-// the thread and block indices are per-thread globals, and the intrinsics
-// and runtime calls a kernel uses are declared here and defined in
-// emu.cpp.
+// the thread and block indices are globals set for the running thread,
+// and the intrinsics and runtime calls a kernel uses are declared here and
+// defined in emu.cpp.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -19,7 +19,7 @@ using std::min;
 #define __shared__
 #define __align__(x)
 struct uint3_ { unsigned x, y, z; };
-extern thread_local uint3_ threadIdx, blockIdx;
+extern uint3_ threadIdx, blockIdx;   // the running fiber's (emu.cpp)
 extern uint3_ blockDim, gridDim;
 struct dim3 {
   unsigned x, y, z;

@@ -1,39 +1,58 @@
-// Runs a kernel source of the port on the CPU: one std::thread per CUDA
-// thread; the blocks of a thread-block cluster at once (a launch without
-// a cluster attribute: one block at a time), each with its own dynamic
-// shared memory (filled with NaN bytes at the start, as the card leaves
-// it unset); a barrier per block for __syncthreads, per cluster for
-// cluster.sync(), and a warp-wide exchange for __shfl_xor_sync.  The
-// source is included as KERNEL_INC with its <<<grid, threads, smem,
-// stream>>> launches rewritten as emu_launch(grid, threads, smem, stream,
-// kernel, args...) and its `extern __shared__` array as a pointer to
-// emu_shared() (see tests/test_torch_scan_bwd_emulated.py);
-// cudaLaunchKernelEx takes the cluster dimension from its attributes.  For
-// small shapes only: it checks what a kernel computes, not how fast.
-#include <barrier>
+// Runs a kernel source of the port on the CPU: one fiber (a ucontext with
+// its own stack) per CUDA thread, all on the calling OS thread; the blocks
+// of a thread-block cluster at once (a launch without a cluster attribute:
+// one block at a time), each with its own dynamic shared memory (filled
+// with NaN bytes at the start, as the card leaves it unset); a barrier per
+// block for __syncthreads, per cluster for cluster.sync(), and a warp-wide
+// exchange for __shfl_xor_sync.  A fiber runs until it waits at a barrier
+// that not every participant has reached, then yields; the scheduler
+// resumes the fibers in thread order, so a warp's 32 threads go through a
+// shuffle together, as in lockstep.  A barrier that no thread can leave
+// aborts the process.  The source is included as KERNEL_INC with its
+// <<<grid, threads, smem, stream>>> launches rewritten as emu_launch(grid,
+// threads, smem, stream, kernel, args...) and its `extern __shared__`
+// array as a pointer to emu_shared() (see
+// tests/test_torch_scan_bwd_emulated.py); cudaLaunchKernelEx takes the
+// cluster dimension from its attributes.  For small shapes only: it checks
+// what a kernel computes, not how fast.
+#include <sys/mman.h>
+#include <ucontext.h>
+#include <unistd.h>
+
+#include <cstdio>
+#include <cstdlib>
 #include <deque>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #include "cuda_runtime.h"
 #include "cuda_bf16.h"
 #include "hopper.cuh"
 
-thread_local uint3_ threadIdx, blockIdx;
+uint3_ threadIdx, blockIdx;
 uint3_ blockDim, gridDim;
 
 namespace {
 
+// A barrier of `expected` fibers: the last to arrive opens the next
+// generation and runs on; the others yield until it has opened.
+struct Barrier {
+  int expected, arrived = 0;
+  unsigned gen = 0;
+  explicit Barrier(int n) : expected(n) {}
+  void arrive_and_wait();
+};
+
 struct Block {
-  std::unique_ptr<std::barrier<>> bar;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<Barrier> bar;
+  std::vector<std::unique_ptr<Barrier>> warps;
   std::vector<float> slots;
   std::vector<uint4> smem;
 };
 
 struct Cluster {
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<Barrier> bar;
   std::vector<Block*> blocks;
 };
 
@@ -43,78 +62,158 @@ struct Copy {
   int bytes, size;
 };
 
-thread_local Block* t_block = nullptr;
-thread_local Cluster* t_cluster = nullptr;
-thread_local unsigned t_rank = 0;
-thread_local std::vector<Copy> t_open;             // not yet committed
-thread_local std::deque<std::vector<Copy>> t_groups;
+constexpr size_t STACK_BYTES = 256 << 10;
+
+// A fiber's stack, mapped with an inaccessible page at each end, so that
+// a kernel overrunning its frames faults here instead of writing into the
+// process's heap.
+struct Stack {
+  char* base;
+  size_t page;
+  Stack() : page((size_t)sysconf(_SC_PAGESIZE)) {
+    void* p = mmap(nullptr, STACK_BYTES + 2 * page, PROT_NONE,
+                   MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+    if (p == MAP_FAILED ||
+        mprotect(static_cast<char*>(p) + page, STACK_BYTES,
+                 PROT_READ | PROT_WRITE) != 0) {
+      fprintf(stderr, "emu: cannot map a fiber stack\n");
+      abort();
+    }
+    base = static_cast<char*>(p);
+  }
+  ~Stack() { munmap(base, STACK_BYTES + 2 * page); }
+  char* bottom() const { return base + page; }
+};
+
+// One CUDA thread: its context and stack (kept for the next cluster), its
+// indices and its cp.async groups.
+struct Fiber {
+  ucontext_t ctx;
+  Stack stack;
+  uint3_ tid, bid;
+  Block* block;
+  Cluster* cluster;
+  unsigned rank;
+  bool done;
+  std::vector<Copy> open;                 // not yet committed
+  std::deque<std::vector<Copy>> groups;
+};
+
+ucontext_t g_main;
+Fiber* g_cur = nullptr;
+const std::function<void()>* g_body = nullptr;
+std::vector<std::unique_ptr<Fiber>> g_pool;
+unsigned long g_progress = 0;             // barrier arrivals, all time
+
+void Barrier::arrive_and_wait() {
+  ++g_progress;
+  const unsigned g = gen;
+  if (++arrived == expected) {
+    arrived = 0;
+    ++gen;
+    return;
+  }
+  while (gen == g) swapcontext(&g_cur->ctx, &g_main);
+}
+
+void trampoline() {
+  (*g_body)();
+  g_cur->done = true;                     // uc_link returns to g_main
+}
 
 // Runs grid (in clusters of cluster_x blocks along x) with `call` as the
 // body of every thread.
-template <class F>
 void run_grid(dim3 grid, int threads, size_t smem_bytes, unsigned cluster_x,
-              F call) {
+              const std::function<void()>& call) {
   gridDim = {grid.x, grid.y, grid.z};
   blockDim = {(unsigned)threads, 1, 1};
   if (cluster_x < 1) cluster_x = 1;
+  const size_t n = (size_t)cluster_x * threads;
+  while (g_pool.size() < n) g_pool.push_back(std::make_unique<Fiber>());
+  g_body = &call;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cluster_x) {
       std::vector<std::unique_ptr<Block>> blocks;
       Cluster cluster;
-      cluster.bar = std::make_unique<std::barrier<>>(cluster_x * threads);
+      cluster.bar = std::make_unique<Barrier>(cluster_x * threads);
       for (unsigned k = 0; k < cluster_x; ++k) {
         auto blk = std::make_unique<Block>();
-        blk->bar = std::make_unique<std::barrier<>>(threads);
+        blk->bar = std::make_unique<Barrier>(threads);
         for (int w = 0; w * 32 < threads; ++w)
-          blk->warps.push_back(std::make_unique<std::barrier<>>(
-              std::min(32, threads - 32 * w)));
+          blk->warps.push_back(
+              std::make_unique<Barrier>(std::min(32, threads - 32 * w)));
         blk->slots.resize(threads);
         blk->smem.resize((smem_bytes + 15) / 16);
         memset(blk->smem.data(), 0xff, blk->smem.size() * 16);
         cluster.blocks.push_back(blk.get());
         blocks.push_back(std::move(blk));
       }
-      std::vector<std::thread> pool;
       for (unsigned k = 0; k < cluster_x; ++k)
-        for (int t = 0; t < threads; ++t)
-          pool.emplace_back([&, k, t] {
-            threadIdx = {(unsigned)t, 0, 0};
-            blockIdx = {bx0 + k, by, 0};
-            t_block = cluster.blocks[k];
-            t_cluster = &cluster;
-            t_rank = k;
-            call();
-          });
-      for (auto& th : pool) th.join();
+        for (int t = 0; t < threads; ++t) {
+          Fiber& f = *g_pool[(size_t)k * threads + t];
+          f.tid = {(unsigned)t, 0, 0};
+          f.bid = {bx0 + k, by, 0};
+          f.block = cluster.blocks[k];
+          f.cluster = &cluster;
+          f.rank = k;
+          f.done = false;
+          f.open.clear();
+          f.groups.clear();
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack.bottom();
+          f.ctx.uc_stack.ss_size = STACK_BYTES;
+          f.ctx.uc_link = &g_main;
+          makecontext(&f.ctx, trampoline, 0);
+        }
+      for (size_t live = n; live > 0;) {
+        const unsigned long before = g_progress;
+        live = 0;
+        for (size_t i = 0; i < n; ++i) {
+          Fiber& f = *g_pool[i];
+          if (f.done) continue;
+          g_cur = &f;
+          threadIdx = f.tid;
+          blockIdx = f.bid;
+          swapcontext(&g_main, &f.ctx);
+          live += !f.done;
+        }
+        if (live > 0 && g_progress == before) {
+          fprintf(stderr, "emu: every live thread waits at a barrier\n");
+          abort();
+        }
+      }
+      g_cur = nullptr;
     }
 }
 
 }  // namespace
 
-void __syncthreads() { t_block->bar->arrive_and_wait(); }
+void __syncthreads() { g_cur->block->bar->arrive_and_wait(); }
 
 float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int t = threadIdx.x, w = t / 32;
-  t_block->slots[t] = v;
-  t_block->warps[w]->arrive_and_wait();
-  const float r = t_block->slots[(t & ~31) | ((t & 31) ^ lane_mask)];
-  t_block->warps[w]->arrive_and_wait();
+  Block* blk = g_cur->block;
+  blk->slots[t] = v;
+  blk->warps[w]->arrive_and_wait();
+  const float r = blk->slots[(t & ~31) | ((t & 31) ^ lane_mask)];
+  blk->warps[w]->arrive_and_wait();
   return r;
 }
 
-void* emu_shared() { return t_block->smem.data(); }
+void* emu_shared() { return g_cur->block->smem.data(); }
 
 void* emu_map_shared(const void* p, unsigned rank) {
   const ptrdiff_t off =
       static_cast<const char*>(p) -
-      reinterpret_cast<const char*>(t_block->smem.data());
-  return reinterpret_cast<char*>(t_cluster->blocks.at(rank)->smem.data()) +
+      reinterpret_cast<const char*>(g_cur->block->smem.data());
+  return reinterpret_cast<char*>(
+             g_cur->cluster->blocks.at(rank)->smem.data()) +
          off;
 }
 
-unsigned emu_block_rank() { return t_rank; }
+unsigned emu_block_rank() { return g_cur->rank; }
 
-void emu_cluster_sync() { t_cluster->bar->arrive_and_wait(); }
+void emu_cluster_sync() { g_cur->cluster->bar->arrive_and_wait(); }
 
 namespace hopper {
 uint32_t smem_u32(const void* p) {
@@ -122,24 +221,25 @@ uint32_t smem_u32(const void* p) {
                     reinterpret_cast<const char*>(emu_shared()));
 }
 void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  t_open.push_back({static_cast<char*>(emu_shared()) + dst,
-                    static_cast<const char*>(src), src_bytes, 16});
+  g_cur->open.push_back({static_cast<char*>(emu_shared()) + dst,
+                         static_cast<const char*>(src), src_bytes, 16});
 }
 void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
-  t_open.push_back({static_cast<char*>(emu_shared()) + dst,
-                    static_cast<const char*>(src), src_bytes, 4});
+  g_cur->open.push_back({static_cast<char*>(emu_shared()) + dst,
+                         static_cast<const char*>(src), src_bytes, 4});
 }
 void cp_async_commit() {
-  t_groups.push_back(std::move(t_open));
-  t_open.clear();
+  g_cur->groups.push_back(std::move(g_cur->open));
+  g_cur->open.clear();
 }
 void emu_cp_async_wait(int pending) {
-  while ((int)t_groups.size() > pending) {
-    for (const Copy& c : t_groups.front()) {
+  auto& groups = g_cur->groups;
+  while ((int)groups.size() > pending) {
+    for (const Copy& c : groups.front()) {
       memcpy(c.dst, c.src, c.bytes);
       memset(c.dst + c.bytes, 0, c.size - c.bytes);
     }
-    t_groups.pop_front();
+    groups.pop_front();
   }
 }
 }  // namespace hopper

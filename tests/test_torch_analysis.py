@@ -8,6 +8,7 @@ queues equal the reference's bit for bit after every commit.  The
 recorder fixtures mirror ``tests/test_analysis.py``'s in torch form.
 Everything runs on the CPU at small shapes.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import textwrap
 

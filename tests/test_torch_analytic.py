@@ -1,5 +1,6 @@
 """The port's analytic model (repro_torch.core.analytic) against the
 reference's (repro.core.analytic): the same arrays, exactly."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

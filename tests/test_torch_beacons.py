@@ -3,6 +3,7 @@ against the reference's (repro.core.beacons) on the CPU: arrays and
 ``tx_count`` equal after every update, on the cases of the reference's
 tests/test_beacons.py and tests/test_policies.py and on random update
 sequences, for the threshold, periodic and hybrid policies."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -2,6 +2,7 @@
 library by a hash of its source, of every shared ``csrc/*.cuh`` header
 and of the nvcc flags, so an edit to any of them rebuilds.  No nvcc is
 needed: only the library's path is computed."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 from repro_torch.kernels import _build
 
 

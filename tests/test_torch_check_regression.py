@@ -3,6 +3,7 @@ against the reference's (benchmarks/check_regression.py) on the same
 trajectory payload pairs: ``check()``'s report, the CLI's exit code, its
 printed lines and the saved ``check_regression.json`` are equal (exact:
 the reports are built from the payloads' numbers alone)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import sys
 from pathlib import Path

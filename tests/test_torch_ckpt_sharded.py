@@ -17,6 +17,7 @@ norm 1e-5 relative, parameters 1e-4).  A checkpoint the reference's
 ``save`` wrote (f32, numpy leaves in the port's tree order) restores onto
 the (2,2) mesh.  Exactly one rank writes the step directory.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

@@ -5,6 +5,7 @@ over several (seed, shard, step), the vision tokens dropped from the
 text; every one of the 128 values a bf16 normal can take against
 ``jax.random.normal``; and ``DataIterator`` carrying the extras.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

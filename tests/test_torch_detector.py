@@ -5,6 +5,7 @@ as parametrized cases, each run through both packages and held leaf for
 leaf (``mgmt_latency`` at rtol 1e-5) before the property is checked;
 and the suspicion mapping rules, single and lane form, on random inputs
 against ``repro.core.policies``."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

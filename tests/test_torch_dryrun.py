@@ -13,6 +13,7 @@
   reference's CPU attention computes them all); held to 5%.
 - The cells ``--all`` skips are the reference's.
 """
+import torch_threads  # first: one torch thread
 import dataclasses
 import json
 import os
@@ -56,7 +57,8 @@ HLO_GAP_TOL = 0.05
 
 def test_dryrun_cli_decode_both_meshes(tmp_path):
     out = tmp_path / "dr.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **torch_threads.ONE_THREAD)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "olmo_1b", "--shape", "decode_32k", "--mesh", "both", "--out",

@@ -12,6 +12,7 @@ checkpoint's own; and the predicted peaks fall as the policy keeps less:
 ``lm_train_remat`` holds the same predictions at full width against the
 card's peaks.
 """
+import torch_threads  # first: one torch thread
 import json
 import os
 import subprocess
@@ -50,7 +51,8 @@ json.dump(rows, sys.stdout)
 
 @pytest.fixture(scope="module")
 def predicted():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **torch_threads.ONE_THREAD)
     res = subprocess.run(
         [sys.executable, "-c", _PREDICT.format(B=B, S=S, cells=CELLS)],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)

@@ -5,6 +5,7 @@ inputs, every queue array (``evq_tree``/``evq_cal``, ``evq_root``,
 ``dropped``) held leaf for leaf, with the popped events and the
 reference test's own property on the port's side; then the lane form:
 lanes at different occupancies equal their single-form runs."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,21 +2,19 @@
 ``examples/paper_repro_torch.py`` prints, at sim_len 1e5, the numbers
 the reference's ``analytic.optimal_k``, ``sim.run``, ``speedup`` and
 ``response_times`` give in ``examples/paper_repro.py``'s format (exact:
-the event loop is bit for bit the reference's), and
+the event loop is bit for bit the reference's; the simulated numbers
+are ``goldens.PAPER_REPRO``'s, which
+tests/test_torch_suite_goldens.py recomputes from the reference), and
 ``examples/serve_clustered_torch.py``'s control-plane and failure
 sections print ``examples/serve_clustered.py``'s lines, its ``serve()``
 dict equal to the reference's (and to ``goldens.SERVE_CLUSTERED``)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib.util
 from pathlib import Path
 
 import pytest
 
 from repro.core import analytic as RA
-from repro.core import workloads as RW
-from repro.core.sim import SimParams as RefParams
-from repro.core.sim import response_times as ref_response_times
-from repro.core.sim import run as ref_run
-from repro.core.sim import speedup as ref_speedup
 from repro_torch.core import goldens as G
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,36 +41,33 @@ def paper_repro_out():
 
 
 def _ref_lines(paper_t5):
-    """examples/paper_repro.py's lines at SIM_LEN, from the reference."""
+    """examples/paper_repro.py's lines at SIM_LEN: its Fig 2a from the
+    reference's ``analytic.optimal_k``, its Table 5 and Fig 3b from
+    ``goldens.PAPER_REPRO[SIM_LEN]``, the numbers the reference's
+    ``sim.run``, ``speedup`` and ``response_times`` give there
+    (recomputed from the JAX package by
+    tests/test_torch_suite_goldens.py::test_paper_repro_numbers_recomputed)."""
+    import numpy as np
     lines = ["== Fig 2a (analytic): optimal cluster count =="]
     for cs in (1.0, 8.0, 64.0):
         k = RA.optimal_k(256, 256, RA.TimingParams(c_s=cs))
         lines.append(f"  c_s={cs:5.1f}: optimal k = {k}   (paper: 32-64 "
                      f"for the recursive startup)")
     lines.append("== Table 5 (TLM simulation, interference) ==")
+    want = G.PAPER_REPRO[SIM_LEN]
     ours = {}
     for k in paper_t5:
-        p = RefParams(m=256, k=k, n_childs=100, dn_th=4, max_apps=512,
-                      queue_cap=2048)
-        arr, gmns, lens = RW.interference(p, sim_len=SIM_LEN, seed=1)
-        st = ref_run(p, arr, gmns, lens, SIM_LEN)
-        s = float(ref_speedup(st, lens))
-        n = int(ref_response_times(st)[1].sum())
+        row = want["table5"][k]
+        s = float(np.uint32(row["speedup_f32_bits"]).view(np.float32))
         ours[k] = s
         lines.append(f"  k={k:3d}: ours={s:6.1f}  paper={paper_t5[k]:5.1f}  "
-                     f"(apps={n}, beacons={int(st['beacons_tx'])})")
+                     f"(apps={row['apps']}, beacons={row['beacons']})")
     lines.append(f"  ratio k16/k1: ours={ours[16]/ours[1]:.2f}  "
                  f"paper={paper_t5[16]/paper_t5[1]:.2f}")
     lines.append("== Fig 3b (beacon traffic vs threshold) ==")
     for k in (16, 32):
-        row = []
-        for th in (1, 4, 16):
-            p = RefParams(m=256, k=k, n_childs=100, dn_th=th, max_apps=512,
-                          queue_cap=2048)
-            arr, gmns, lens = RW.interference(p, sim_len=SIM_LEN, seed=1)
-            row.append(int(ref_run(p, arr, gmns, lens, SIM_LEN)
-                           ["beacons_tx"]))
-        lines.append(f"  k={k}: beacons @ dn_th in (1,4,16) = {row}")
+        lines.append(f"  k={k}: beacons @ dn_th in (1,4,16) = "
+                     f"{want['fig3b'][k]}")
     return lines
 
 

@@ -4,6 +4,7 @@ program counts, the spec's JSON provenance read across packages, every
 ResultFrame column of a small spec in both modes, the faults axis, the
 payload's JSON round trip, the deprecated shims, a traced spec read
 from the reference's JSON, and what ``run()`` refuses."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import warnings
 

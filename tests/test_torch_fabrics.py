@@ -4,10 +4,17 @@ leaf on each fabric at k in {1, 4, 16}, ``ExperimentSpec.run`` over a
 topology axis in both modes, and the frozen fabric and fault digests
 (``goldens.FABRICS``, ``goldens.FAULTS``, with a CPU rehearsal of the
 card's smallest fault group).  Every non-ideal run also holds beacon
-conservation and an empty in-flight matrix at its end.
+conservation and an empty in-flight matrix at its end.  The frozen
+digests no other test recomputes from the JAX package are recomputed
+here by the command beside each: ``TABLE5``, ``FAULTS`` and the two
+``CUTS`` entries the card's phase queues reads (about a minute of XLA at
+m=256 together).  The rest of ``CUTS`` and ``FABRICS`` (but its 5e4
+hier_tree entry, tests/test_torch_goldens.py) are left to their
+commands: minutes of the reference at m=256.
 
 Every leaf is held bitwise except ``mgmt_latency``, at rtol=1e-5 (see
 tests/test_torch_sim.py)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax
@@ -18,6 +25,7 @@ from repro.core import sweep as RSW
 from repro.core import workloads as RW
 from repro.core.experiment import ExperimentSpec as RSpec
 from repro.core.experiment import WorkloadSpec as RWSpec
+from repro.core.faults import FaultSpec as RFaultSpec
 from repro.core.sim import SimParams as RefParams
 from repro.core.sim import run as ref_run
 from repro_torch.core import goldens as G
@@ -200,3 +208,32 @@ def test_fault_group_rehearsal_matches_golden():
     got = G.fault_digests([spec.run(device="cpu")])
     key = "hier_tree/suspect_weighted/periodic/gmn_outage"
     assert got == {key: G.FAULTS[key]}
+
+
+# the entries of CUTS the card's phase queues reads: k=1 at 1e5, k=256
+# at 5e4
+CARD_CUTS = ((1e5, 1), (5e4, 256))
+
+
+@pytest.mark.parametrize("name", ["TABLE5", "CUTS", "FAULTS"])
+def test_frozen_digests_recomputed_from_reference(name):
+    """The reference (seq mode, as frozen) gives each digest exactly."""
+    if name == "TABLE5":
+        got, want = G.table5_digest(RSpec(
+            base=RefParams(**G.TABLE5_PARAMS), shapes=G.TABLE5_KS,
+            knobs={"dn_th": 4},
+            workloads=(RWSpec("interference", seeds=G.TABLE5_SEEDS),),
+            sim_len=G.TABLE5_SIM_LEN).run()), G.TABLE5
+    elif name == "CUTS":
+        got = [G.cut_digest(RSpec(
+            shapes=(RefParams(k=k, **G.cut_params(k)).shape,),
+            topologies=G.CUT_TOPOLOGIES[k], knobs=G.FABRIC_KNOBS,
+            workloads=(RWSpec.make("interference", seeds=G.FABRIC_SEEDS,
+                                   pair_periods=(G.FABRIC_PAIR_PERIOD,)),),
+            sim_len=sl, mode="seq").run(), k) for sl, k in CARD_CUTS]
+        want = [G.CUTS[sl][k] for sl, k in CARD_CUTS]
+    else:
+        got = G.fault_digests([s.run() for s in G.fault_specs(
+            RSpec, RWSpec, RefParams, RFaultSpec)])
+        want = G.FAULTS
+    assert got == want

@@ -30,6 +30,7 @@ gradients over the tokens in bf16, see ``SUMMED_TOL_BF16``); the plain attention
 ``jax.grad`` of it; and the refusal that stays (Sq > Skv under a causal
 mask or a window).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

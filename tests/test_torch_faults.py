@@ -3,6 +3,7 @@ fault-aware event loops) against the reference (repro.core.faults) on
 the CPU: one counterpart of each of tests/test_faults.py's tests, each
 run through both packages and held leaf for leaf (``mgmt_latency`` at
 rtol 1e-5), and every generator's schedule held array for array."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

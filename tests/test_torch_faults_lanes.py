@@ -4,6 +4,7 @@ tree queue with ``batch_pop`` 8, with ``retry_after`` 0 and 250 as the
 knob axis: held leaf for leaf (``mgmt_latency`` at rtol 1e-5) against
 the reference's sweep, and the retrying lane against the port's own seq
 mode."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import pytest
 import torch

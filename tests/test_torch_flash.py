@@ -8,6 +8,7 @@ Tolerances are the reference test's: 1e-4 in float32, 2e-2 in bfloat16
 scores in their own orders).  The CUDA kernel itself is held against the
 same plain version on the card by chip_smoke.py.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -14,6 +14,7 @@ to bf16, one unit in the last place (2**-8) each, and sum in their own
 orders.  The CUDA kernels are held against the plain version on the card
 by chip_smoke.py (phase ``k2_bwd``).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import ml_dtypes

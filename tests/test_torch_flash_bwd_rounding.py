@@ -17,6 +17,7 @@ halves, hi = bf16(P) and lo = bf16(P - hi), and add hi dO and lo dO
 gate; ``python tests/test_torch_flash_bwd_rounding.py`` prints the worst
 share of the limit of both forms.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib.util
 from pathlib import Path
 

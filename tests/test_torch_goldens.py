@@ -4,6 +4,7 @@ computes, and the port reproduces them on the CPU: the golden grid of
 tests/test_sweep.py, the paper point, the trace digests and the decision
 replay's; and at the card's cut horizons no two groups of a phase share
 a digest."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import hashlib
 import importlib.util
 from pathlib import Path

@@ -12,6 +12,7 @@ versions of K2 and K3 (full softmax, sequential scan).  Tolerance
 orders (matmuls, the associative scan, softmax), which moves float32
 logits by about 1e-5; a routing or masking error moves them by O(1).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ Pallas kernel in interpret mode and its pure-JAX oracle.
 Assignments must be equal; loads exactly on integer inputs and to
 atol=1e-5 on float inputs — the reference test's own tolerance, since
 row sums are taken in another order."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ Variant choice and layout: pure Python, no card.  Every shape the
 wrapper accepts goes to the warp kernel or to the block kernel, and the
 warp kernel's lane layout holds every matrix of up to WARP_MAX_N
 elements in at most 64 values a lane, lanes in ascending index order."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

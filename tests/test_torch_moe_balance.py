@@ -5,6 +5,7 @@ as numpy, the payload's keys equal, its counts equal and its floats (the
 imbalance, ``dropped_frac``, ``load_balance_loss``) within 1e-5 relative
 (f32 router sums in another order); the written JSON is the payload.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import sys
 from pathlib import Path

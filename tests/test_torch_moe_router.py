@@ -8,6 +8,7 @@ index first on ties; the port's stable descending sort must pick the
 same experts, so ``tokens_per_expert`` is equal and the outputs agree to
 f32 sums in another order (1e-5 of the largest value).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ in another order), 1e-5 on AdamW after five steps (f32 updates whose
 rounding compounds); quantization is exact (the same f32 division and
 round-half-even on both sides).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import json
 import os

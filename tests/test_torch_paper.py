@@ -7,6 +7,7 @@ values of ``copy_bytes_per_iter`` (the reference counts its compiled
 loop's copies, the port a lane step's copy ops), the reference's
 XLA:CPU cost anchor (``topology_frontier``), and the reference's claims
 about its count of compiled programs."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib
 import json
 import sys

@@ -6,6 +6,7 @@ row), groups land round-robin with one worker thread a device running
 its groups in plan order, ``expected_programs("pmap")`` equals the
 reference planner's, and without several devices ``pmap`` resolves as
 the reference's does on one device."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import threading
 
 import numpy as np
@@ -90,11 +91,27 @@ def frames():
             for name, make in SPECS.items()}
 
 
+@pytest.fixture(scope="module")
+def pmap_frames():
+    """Each spec's pmap frame over three CPU workers, run once (on the
+    first request) for the tests that hold it."""
+    out = {}
+
+    def get(name):
+        if name not in out:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(E, "pmap_devices",
+                           lambda device: [CPU] * N_WORKERS)
+                out[name] = SPECS[name]().run(mode="pmap", device="cpu")
+        return out[name]
+    return get
+
+
 @pytest.mark.parametrize("name", sorted(SPECS))
 @pytest.mark.parametrize("against", ["seq", "vmap"])
 def test_pmap_equals_seq_and_vmap_bit_for_bit(name, against, frames,
-                                              three_workers):
-    fp = SPECS[name]().run(mode="pmap", device="cpu")
+                                              pmap_frames):
+    fp = pmap_frames(name)
     assert (fp.mode, fp.mode_requested, fp.devices) == ("pmap", "pmap",
                                                         N_WORKERS)
     _bitwise(fp, frames[name][against])
@@ -102,8 +119,8 @@ def test_pmap_equals_seq_and_vmap_bit_for_bit(name, against, frames,
                for g in fp.groups)
 
 
-def test_golden_grid_digests_under_pmap(three_workers):
-    st = SPECS["golden"]().run(mode="pmap", device="cpu").groups[0].state
+def test_golden_grid_digests_under_pmap(pmap_frames):
+    st = pmap_frames("golden").groups[0].state
     assert st["beacons_tx"].tolist() == G.GRID_BEACONS
     assert G.sha256_f32(st["app_done"]) == G.GRID_APP_DONE_SHA
 

@@ -2,6 +2,7 @@
 reference's (repro.core.policies): every ported mapping and beacon rule
 decides as the reference's traced rule, the int64-masked hash equals
 the reference's host hash, and the host adapters are the same."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

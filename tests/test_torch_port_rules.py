@@ -2,6 +2,7 @@
 package, its entry points default to the CUDA card and raise without
 one (never computing on the CPU instead), and convert.py carries
 reference state across exactly."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import dataclasses
 import subprocess

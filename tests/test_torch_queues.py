@@ -10,6 +10,7 @@ tests/test_eventq.py), and so must the port's.  Then seq against vmap,
 
 Every leaf is held bitwise except ``mgmt_latency``, at rtol=1e-5 (see
 tests/test_torch_sim.py)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

@@ -2,6 +2,7 @@
 BEACON_RX batch window against the reference's ``SW.sweep`` on each
 fabric at k in {1, 4, 16} (the single loop, and the rest, are in
 tests/test_torch_queues.py, whose helper this file uses)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 
 from repro_torch.core.transport import TOPOLOGIES

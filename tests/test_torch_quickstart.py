@@ -1,6 +1,7 @@
 """``examples/quickstart_torch.py`` on the CPU for every architecture:
 forward, three train steps and eight decode steps of the reduced config
 (with the vision patches or the encoder's frames), finite, in range."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import importlib.util
 from pathlib import Path
 

@@ -15,6 +15,7 @@ under ``none``, where nothing is recomputed, and fewer than under
 bit in bf16, which chip_smoke.py's phase ``lm_train_remat`` asserts on
 the card.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import collections
 import dataclasses
 

@@ -7,6 +7,7 @@ result, ``replay_trace`` end to end, and faulty runs (the suspicion
 policies under a manager outage, GMN churn with takeovers) replayed at
 full agreement — and the recorded ``dec_*`` leaves of both event loops
 held equal to the reference's."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ magnitude on two other shapes (sums in other orders).  The forward is bit
 for bit the port's earlier formula, the saved tensors hold no f32 copy of
 x, and the layer and non-parametric norms are unchanged.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ runner replaced by a recording stub, beside the reference's
 order with the same arguments, the same claims aggregated into the same
 ``# paper-claim checks`` line and exit code, and under ``--profile`` a
 Chrome trace with one ``record_function`` region per step."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import importlib
 import json

@@ -7,6 +7,7 @@ port's one-step decode, run over a whole sequence, must reproduce the
 scan.  The CUDA kernel is held against the same plain version on the
 card by chip_smoke.py.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

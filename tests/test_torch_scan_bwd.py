@@ -10,6 +10,7 @@ dispatch: ``ops.selective_scan`` under grad goes through ``SelectiveScan``
 on the CPU, ``selective_scan_bwd`` takes the plain version for CPU tensors
 and refuses other devices and a mismatched dy.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,10 +1,10 @@
 """The scan's backward kernel (``csrc/selective_scan_bwd.cu``) run on the
 CPU: its source compiled by the host C++ compiler against the stand-in
-CUDA headers of ``tests/cuda_emu`` (one thread per CUDA thread, the
-blocks of a thread-block cluster at once with their own shared memory,
-barriers for ``__syncthreads``, ``cluster.sync()`` and the warps'
-shuffles, ``map_shared_rank`` into a peer's shared memory, ``cp.async``
-copies done at their wait), called through the same C entry points the
+CUDA headers of ``tests/cuda_emu`` (one fiber per CUDA thread on one
+OS thread, the blocks of a thread-block cluster at once with their own
+shared memory, barriers for ``__syncthreads``, ``cluster.sync()`` and
+the warps' shuffles, ``map_shared_rank`` into a peer's shared memory,
+``cp.async`` copies done at their wait), called through the same C entry points the
 wrapper binds, fed the run-start states of ``selective_scan_plain``, on
 shapes that take each lane layout (L = 1, 2, 4, 16 lanes a channel: N =
 4, 2 and 3, 8, 16, 64), ragged runs and channel blocks, channel blocks
@@ -14,8 +14,9 @@ within 1e-5 of its largest magnitude (sums in other orders; bf16 adds
 one rounding of each output, so 2**-7 of its largest there), and two
 launches bit for bit.  What it cannot show is the card's compiler and
 timing: ``chip_smoke.py`` phase ``k3_bwd`` holds the built kernel on the
-H100.
+H100.  The file takes about 25 s on one core (the build about 5 s).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ctypes
 import re
 import shutil

@@ -15,6 +15,7 @@ magnitude (``TOL1``); bf16, 3e-4 and 4e-2 (``LOSS_RTOL_BF16``,
 ``GRAD_TOL_BF16``: the two frameworks round silu and softplus at
 different places).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

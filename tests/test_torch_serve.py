@@ -5,6 +5,7 @@ placements and counters exactly (both are host numpy); ``serve()`` must
 return the reference's dict (it depends on the control plane only) and
 the frozen ``goldens.SERVE``; the message protocol and the wall-clock
 fabric delays must equal the reference's arrays."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

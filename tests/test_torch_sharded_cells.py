@@ -15,6 +15,7 @@ logits against ``make_prefill_step`` to 1e-5 of their largest.  MoE
 cases take whole token groups a rank (B*S a multiple of 256 x the dp
 ranks).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

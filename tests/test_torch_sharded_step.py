@@ -5,8 +5,9 @@ network), in f32.
 Each world size runs once, in a subprocess (``python
 tests/test_torch_sharded_step.py <world>`` spawns its ranks), over every
 case of that size; each rank builds the same seeded weights and batch,
-runs ``run_cell`` on DTensors and the plain ``make_train_step`` (or
-``decode_step``) on whole tensors, and rank 0 reports the gaps.  Train
+runs ``run_cell`` on DTensors, rank 0 alone also runs the plain
+``make_train_step`` (or ``decode_step``) on whole tensors, and it
+reports the gaps.  Train
 cases hold the loss and the global gradient norm to 1e-5 relative and
 every parameter after the AdamW step (lr 1e-3) to 1e-4 of it; decode
 cases hold the logits and every cache leaf after the step (the new
@@ -26,6 +27,7 @@ and minicpm_2b under ``tp_fsdp`` and ``zero3``, one case with
 ``n_kv_heads % tp != 0`` (kv heads picked per shard), and decode on a
 batch-sharded cache and on a sequence-sharded one (flash-decoding).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess
@@ -111,6 +113,11 @@ def _run_case(case, mesh_axes):
 
     if kind == "bitwise":
         return _bitwise(cfg, run, cell, mesh, B, S)
+    # the unsharded step runs on rank 0 alone, which reports the gaps;
+    # every rank runs the cell and gathers its outputs
+    lead = not torch.distributed.is_initialized() \
+        or torch.distributed.get_rank() == 0
+
     def f32_batch(step):
         # the frontends' bf16 patches and frames in f32, so that the
         # encoder runs in the weights' f32 on both sides
@@ -121,20 +128,29 @@ def _run_case(case, mesh_axes):
 
     if kind == "prefill":
         batch = {k: v for k, v in f32_batch(0).items() if k != "labels"}
-        want = ST.make_prefill_step(cfg, device="cpu")(params, batch)
-        got = ST.run_cell(cell, (params, batch))
-        return {"logits_rel": float((whole(got) - want).abs().max())
+        if lead:
+            want = ST.make_prefill_step(cfg, device="cpu")(params, batch)
+        got = whole(ST.run_cell(cell, (params, batch)))
+        if not lead:
+            return {}
+        return {"logits_rel": float((got - want).abs().max())
                 / float(want.abs().max())}
     if kind == "train":
         batch = f32_batch(0)
-        want_p, _, want = ST.make_train_step(cfg, run, device="cpu")(
-            copy.deepcopy(params), OPT.init_opt_state(params, run), batch)
+        if lead:
+            want_p, _, want = ST.make_train_step(cfg, run, device="cpu")(
+                copy.deepcopy(params), OPT.init_opt_state(params, run),
+                batch)
         got_p, _, got = ST.run_cell(
             cell, (params, OPT.init_opt_state(params, run), batch))
-        rel = {k: abs(float(whole(got[k])) - float(want[k]))
-               / abs(float(want[k])) for k in ("loss", "grad_norm")}
-        err = max(float((whole(a) - b).abs().max())
-                  for a, b in zip(leaves(got_p), leaves(want_p)))
+        got = {k: float(whole(got[k])) for k in ("loss", "grad_norm")}
+        got_p = [whole(a) for a in leaves(got_p)]
+        if not lead:
+            return {}
+        rel = {k: abs(got[k] - float(want[k])) / abs(float(want[k]))
+               for k in got}
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got_p, leaves(want_p)))
         return {"loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
                 "param_max_abs_err": err}
     # decode: a cache filled with seeded values, one token at position 5
@@ -146,13 +162,17 @@ def _run_case(case, mesh_axes):
              for k, v in cache.items()}
     token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
     pos = torch.tensor(5, dtype=torch.int32)
-    want_l, want_c = ST.make_decode_step(cfg, device="cpu")(
-        params, copy.deepcopy(cache), token, pos)
+    if lead:
+        want_l, want_c = ST.make_decode_step(cfg, device="cpu")(
+            params, copy.deepcopy(cache), token, pos)
     got_l, got_c = ST.run_cell(cell, (params, cache, token, pos))
+    got_l, got_c = whole(got_l), [whole(a) for a in leaves(got_c)]
+    if not lead:
+        return {}
     scale = float(want_l.abs().max())
-    cache_rel = max(float((whole(a) - b).abs().max() / b.abs().max())
-                    for a, b in zip(leaves(got_c), leaves(want_c)))
-    return {"logits_rel": float((whole(got_l) - want_l).abs().max()) / scale,
+    cache_rel = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(got_c, leaves(want_c)))
+    return {"logits_rel": float((got_l - want_l).abs().max()) / scale,
             "cache_rel": cache_rel}
 
 

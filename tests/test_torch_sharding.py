@@ -15,6 +15,7 @@ path reports their own formulas and launches nothing, and (in a
 subprocess over a ``fake`` group of 4 ranks) a DTensor matmul's
 all-gather and all-reduce bytes are counted exactly.
 """
+import torch_threads  # first: one torch thread
 import json
 import math
 import os
@@ -256,7 +257,8 @@ def test_dtensor_matmul_collective_bytes_are_exact():
     (16, 32) product is Partial over "model", and replicating it one
     all-reduce of its 1,024 bytes (weighted twice); a 2x2 mesh sits in
     one node, so both run at the NVLink rate."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **torch_threads.ONE_THREAD)
     res = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]

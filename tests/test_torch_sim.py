@@ -7,6 +7,7 @@ ported.
 Every state leaf must be bitwise equal except ``mgmt_latency``, held at
 rtol=1e-5: it accumulates f32 vector sums that each package reduces in
 its own order."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ port's example is held to it by tests/test_torch_examples.py), the
 fig3b spot grid at the card's horizon, and the new
 fabric, queue and cut-point horizons through the port's lane loop (exact: the
 port is bit for bit the reference)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import sys
 from pathlib import Path
 

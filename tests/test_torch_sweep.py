@@ -7,7 +7,10 @@ cost-knob sweep, lanes that end many steps apart, the knob builders'
 validation and the configurations the port refuses.
 
 Every leaf is held bitwise except ``mgmt_latency``, at rtol=1e-5 (see
-tests/test_torch_sim.py)."""
+tests/test_torch_sim.py).  The golden grid is run once in each mode
+(``_golden_grid``)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
+import functools
 import hashlib
 
 import jax
@@ -51,13 +54,21 @@ def _vs_reference(kw, knobs_kw, workload, sim_len, mode, policy=None,
     return got
 
 
+@functools.cache
+def _golden_grid(mode):
+    """The port's sweep of the frozen golden grid in ``mode``, run once
+    in this file (no test changes it)."""
+    p = SimParams(**G.GRID_PARAMS)
+    return TSW.sweep(p.shape, TSW.knob_batch(dn_th=G.GRID_DN_TH),
+                     TW.interference_batch(p, seeds=G.GRID_SEEDS,
+                                           sim_len=G.GRID_SIM_LEN),
+                     G.GRID_SIM_LEN, mode=mode, device="cpu")
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_golden_grid(mode):
     p = SimParams(**G.GRID_PARAMS)
-    st = TSW.sweep(p.shape, TSW.knob_batch(dn_th=G.GRID_DN_TH),
-                   TW.interference_batch(p, seeds=G.GRID_SEEDS,
-                                         sim_len=G.GRID_SIM_LEN),
-                   G.GRID_SIM_LEN, mode=mode, device="cpu")
+    st = _golden_grid(mode)
     assert st["beacons_tx"].tolist() == G.GRID_BEACONS
     assert _sha(st["app_done"]) == G.GRID_APP_DONE_SHA
     one = TSW.sweep(p.shape, TSW.knob_batch(),
@@ -89,14 +100,7 @@ def test_fig3b_spot_golden_is_the_references():
 
 
 def test_vmap_equals_seq_and_reference_on_golden_grid():
-    p = SimParams(**G.GRID_PARAMS)
-    kn = TSW.knob_batch(dn_th=G.GRID_DN_TH)
-    wl = TW.interference_batch(p, seeds=G.GRID_SEEDS,
-                               sim_len=G.GRID_SIM_LEN)
-    vmap = TSW.sweep(p.shape, kn, wl, G.GRID_SIM_LEN, mode="vmap",
-                     device="cpu")
-    seq = TSW.sweep(p.shape, kn, wl, G.GRID_SIM_LEN, mode="seq",
-                    device="cpu")
+    vmap, seq = _golden_grid("vmap"), _golden_grid("seq")
     _assert_states_equal(vmap, {k: v.numpy() for k, v in seq.items()})
     rp = RefParams(**G.GRID_PARAMS)
     ref = jax.device_get(RSW.sweep(

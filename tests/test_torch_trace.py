@@ -10,7 +10,10 @@ within 1e-5 x |final mgmt_latency| and the column's sum at rtol 1e-5.
 The histograms are bitwise on every configuration held here; the one
 difference by design is the bin of a value on an edge where XLA's f32
 ``log2`` falls short (8192, 32768: test_hist_bin_edges_partition_the_line,
-ROADMAP §3)."""
+ROADMAP §3).  A configuration that several tests hold is run once
+(``_both``, ``_traced_sweeps``)."""
+import torch_threads  # noqa: F401  (first: one torch thread)
+import functools
 import json
 
 import jax
@@ -76,7 +79,15 @@ def _params(k=4, **kw):
 
 
 def _both(kw, sim_len=3e5, seed=0, rspec=RSPEC, tspec=TSPEC):
-    """One traced run of both packages: (port state, reference state)."""
+    """One traced run of both packages: (port state, reference state).
+    Each configuration runs once in this file and its states are shared
+    by the tests that ask for it (no test changes them)."""
+    return _both_once(tuple(sorted(kw.items())), sim_len, seed, rspec, tspec)
+
+
+@functools.cache
+def _both_once(items, sim_len, seed, rspec, tspec):
+    kw = dict(items)
     p, q = RefParams(**kw), TS.SimParams(**kw)
     wl = RW.interference(p, seed=seed, sim_len=sim_len)
     want = jax.device_get(ref_run(p, *wl, sim_len, trace=rspec))
@@ -189,20 +200,28 @@ def test_fixed_tracespec_across_knob_grids():
     assert small["tr_ring"].shape == (2, 1, 64, 6)
 
 
-@pytest.mark.parametrize("mode", ["vmap", "seq"])
-def test_traced_sweep_matches_modes_bitwise(mode):
-    """seq and vmap agree bitwise on every leaf, the trace buffers
-    included, and equal the reference's vmap."""
+@functools.cache
+def _traced_sweeps():
+    """The reference's traced vmap sweep and the port's in both modes,
+    on one grid: (want, {mode: port state})."""
     kw = _params()
     p, q = RefParams(**kw), TS.SimParams(**kw)
     wl = RW.interference_batch(p, seeds=(0, 1), sim_len=2e5)
     want = jax.device_get(RSW.sweep(p.shape, RSW.knob_batch(dn_th=(2, 8)),
                                     wl, 2e5, mode="vmap", trace=RSPEC))
-    st = TSW.sweep(q.shape, TSW.knob_batch(dn_th=(2, 8)), wl, 2e5,
-                   mode=mode, trace=TSPEC, device="cpu")
-    other = TSW.sweep(q.shape, TSW.knob_batch(dn_th=(2, 8)), wl, 2e5,
-                      mode="seq" if mode == "vmap" else "vmap",
-                      trace=TSPEC, device="cpu")
+    return want, {mode: TSW.sweep(q.shape, TSW.knob_batch(dn_th=(2, 8)),
+                                  wl, 2e5, mode=mode, trace=TSPEC,
+                                  device="cpu")
+                  for mode in ("vmap", "seq")}
+
+
+@pytest.mark.parametrize("mode", ["vmap", "seq"])
+def test_traced_sweep_matches_modes_bitwise(mode):
+    """seq and vmap agree bitwise on every leaf, the trace buffers
+    included, and equal the reference's vmap."""
+    want, sweeps = _traced_sweeps()
+    st = sweeps[mode]
+    other = sweeps["seq" if mode == "vmap" else "vmap"]
     for leaf in st:
         assert torch.equal(st[leaf], other[leaf]), leaf
     assert_traced_states(st, want)

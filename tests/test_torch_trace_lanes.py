@@ -9,6 +9,7 @@ knob axis), each lane's ring, timelines and histograms leaf for leaf to
 the tolerances of ``test_torch_trace.assert_traced_states``; every
 shared leaf bitwise the untraced lane loop's, and the seq mode equal
 to the vmap lanes."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import pytest
 import torch

@@ -17,6 +17,7 @@ a small share of it); the int8 run quantizes both sides' gradients, where
 a value on a quantization step's edge may round either way and move its
 weight by a different ~lr, so it is held to 3e-3 (three such moves).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -16,6 +16,7 @@ on every gradient.  MoE configs are left out in bf16: a router decision
 near a tie may flip between the two sides and move a token to another
 expert, which is no sum-order difference.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

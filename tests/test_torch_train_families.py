@@ -24,6 +24,7 @@ in bf16: a router decision near a tie may flip between the two sides
 (ROADMAP §3).  And the port's three new configs equal the reference's
 field for field.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@ the same config, run and bounds) on the port's ``launch.train.train``
 on the CPU: the loss drops, a crash and resume give the same bits as an
 uninterrupted run, int8 compression trains, and two microbatches equal
 the full batch.  The CPU thread count is fixed so that sums repeat."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import pytest

@@ -11,6 +11,7 @@ the CPU.
   command without it and with ``--resume`` exits 0 and says from which
   checkpoint it resumed; ``launch.serve`` finishes every request.
 """
+import torch_threads  # first: one torch thread
 import os
 import subprocess
 import sys
@@ -59,7 +60,8 @@ def test_bf16_crash_resume_matches_uninterrupted(tmp_path):
 
 
 def _cli(module, *args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **torch_threads.ONE_THREAD)
     return subprocess.run([sys.executable, "-m", module, *args,
                            "--device", "cpu"], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)

@@ -5,6 +5,7 @@ the CPU: each row's and head-to-head combo's ``copy_bytes_per_iter`` is
 ``analysis.loop_copy.lint_combo``'s for its combo (exact: the same
 recording), and the trajectory file keys the rows by grid tier with the
 reference's row keys and accumulates tiers."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import pytest

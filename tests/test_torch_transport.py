@@ -7,6 +7,7 @@ on ``ideal``, positive skew, heterogeneous view timestamps, the
 shared-bus contention ordering, mesh delivery monotone in hops, the lane
 loop equal to per-lane runs, and applications completing on every
 fabric."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,6 +1,7 @@
 """The port's workload generators (repro_torch.core.workloads) give
 arrays equal to the reference's (repro.core.workloads) for the same
 parameters and seed."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 
