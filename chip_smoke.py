@@ -115,7 +115,8 @@ any failure ends the run with a non-zero exit:
             step, split into steps where every lane delivers a beacon
             and the rest (the loop's step spans under
             ``torch.profiler``, lane steps 51-250), and host reads per
-            step;
+            step (every counted run of phases 12-15 stops at its
+            window's last step);
 13. queues  the tree and calendar event queues and the same-timestamp
             BEACON_RX batch window (``batch_pop``) through the lane
             loop at the same tier, seeds 1-2: at k=16 on ``hier_tree`` every
@@ -126,9 +127,10 @@ any failure ends the run with a non-zero exit:
             to ``goldens.FABRICS``; the tree queue
             with batch_pop 64 at k=32 on ``hier_tree`` and ``mesh2d`` at
             2.5e4 (1e5, then 5e4 before) equal to ``goldens.FABRICS``;
-            the tier's cut points: k=1 at 1e5 (2.5e5 before; linear
-            queue), and k=256 (32,768 slots, tree/64) on ``hier_tree``
-            and ``mesh2d`` at 5e4 (cut from 1e5), equal to
+            the tier's cut points: k=1 at 5e4 (2.5e5, then 1e5,
+            before; linear queue), and k=256 (32,768 slots, tree/64)
+            on ``hier_tree`` and ``mesh2d`` at 5e4 (cut from 1e5),
+            equal to
             ``goldens.CUTS``; conservation and
             an empty ``bcn_t`` on every drop-free lane; seed 1 of the
             k=16 tree/64 run in ``"seq"`` mode equal to its vmap lane;
@@ -327,10 +329,37 @@ any failure ends the run with a non-zero exit:
             checkpoint every 4 steps (a temporary directory) and a
             failure injected at step 6, then resumed from step 4:
             parameters, moments and step counter after step 8 bit for
-            bit the uninterrupted run's; beside it, in subprocesses, the
-            train CLI's crash (``--fail-at 12``, non-zero exit) and
-            resume (``resumed from step 10``, exit 0) and the serve CLI
-            (64 of 64 requests finished);
+            bit the uninterrupted run's; in subprocesses started before
+            phase 30 (beside phases 30-32), the train CLI's crash
+            (``--fail-at 12``, non-zero exit) and resume (``resumed
+            from step 10``, exit 0) and the serve CLI (64 of 64
+            requests finished), read at this phase's end;
+33. paper_suite  (run after phase 28) the steps of ``benchmarks/run.py``
+            no other phase runs and the examples the card had not run,
+            each through ``run.Suite.step``, within
+            ``PAPER_SUITE_BUDGET_S``: ``fig2a`` and ``fig2b`` at the
+            reference's arguments (fig2b: k 1-256, c_s 1/8/64, sim_len
+            1e7, the ``independent`` workload; ``fit_ok`` and the
+            float32 bits of its 27 curve points equal to the JAX
+            reference's, ``goldens.FIG2B``); ``baseline_compare``, the
+            paper's headline comparison, at its full grid (k 1, 16, 256,
+            pair periods 2e4, 1.4e4, 1e4, seeds 1-2) cut in horizon only
+            to 1e5 (from 2e6): every rate's clustered k=16 beats both
+            baselines and each k's digest equals the reference's
+            (``goldens.BASELINE``); ``moe_balance`` on inputs drawn on
+            the CPU and moved to the card, against the same call on the
+            CPU (exact where no token's second and third router logits
+            lie within ``MOE_TIE_EPS``); ``examples/train_tiny_lm_torch.py``
+            (114 M parameters, f32: K2's CUDA-core kernel and the f32
+            backward) with ``--crash-demo`` cut to 60 steps, the resumed
+            run's parameters, moments and losses bit for bit an
+            uninterrupted ``train`` of its config, the losses finite and
+            falling, K2 and its backward launched as the config implies;
+            ``examples/quickstart_torch.py`` on glm4_9b (its default)
+            and falcon_mamba_7b (K3), its losses against its CPU run,
+            its launches as the reduced config implies;
+            ``roofline_report.render`` of phase 26's two dry-run rows at
+            their mesh, every row rendered and ``ok``;
 
 then a line of each phase's seconds, the ``kernels`` line and, last,
 the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
@@ -339,7 +368,11 @@ launch counts, zeroed just before it and read just after: the TLM path
 queues (phase 13), the faults (phase 14), the trace (phase 15) and the
 loop-copy check (phase 27), which launch none of the three kernels, the
 replay (phase 29: K1's launches read), the
-suite (phase 28: K1, from ``scheduler_overhead``), the prefill (phase
+suite (phase 28: K1, from ``scheduler_overhead``), the paper suite
+(phase 33: each step's launches read around it, the comparison runs'
+left out; K2 and its backward from the tiny LM and the quickstart, K3,
+its training variant and its backward from the SSM quickstart, no K1),
+the prefill (phase
 17: K2, K3), ``serve()`` (phase 18, whose decode steps are plain
 torch), the training runs (phases 22-24 and 30-32: K2 and its backward,
 K3's training variant and the scan's backward; phase 32's CLI
@@ -1124,13 +1157,20 @@ def _fabric_spec(ks, topologies, sim_len):
 COUNT_WINDOW = (50, 200)
 
 
+class _WindowEnd(Exception):
+    """Ends a counted run at its window's last step (the steps after it
+    are not counted: the run stops there, cut in depth)."""
+
+
 def _step_profile(run, skip=0, steps=None):
-    """``(run(), by step kind, device events before the first step)``
-    under ``torch.profiler`` (host and card), recording lane steps
-    ``skip + 1`` to ``skip + steps`` (to the end with None): each device
-    event goes to the step whose span (``core/lanes.py``) starts last
-    before it; a step's window holds its handlers and the next step's
-    pop and read (but the last recorded step's)."""
+    """``(run() or None, by step kind, device events before the first
+    step, whether the run was cut)`` under ``torch.profiler`` (host and
+    card), recording lane steps ``skip + 1`` to ``skip + steps`` (to the
+    end with None), where the run stops (``run()`` is then not
+    returned): each device event goes to the step whose span
+    (``core/lanes.py``) starts last before it; a step's window holds its
+    handlers and the next step's pop and read (but the last recorded
+    step's)."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1150,11 +1190,15 @@ def _step_profile(run, skip=0, steps=None):
             torch.cuda.synchronize()
             prof.stop()
             on[0] = False
+            raise _WindowEnd
         return out
     lanes._step = windowed
+    cut = False
     try:
         out = run()
         torch.cuda.synchronize()
+    except _WindowEnd:
+        out, cut = None, True
     finally:
         lanes._step = step
         if on[0]:
@@ -1177,30 +1221,33 @@ def _step_profile(run, skip=0, steps=None):
             continue
         by[spans[i][1]]["kernels"] += 1
         by[spans[i][1]]["busy_ns"] += e.duration_ns()
-    return out, by, before
+    return out, by, before, cut
 
 
 def _count(run, phase: str, window=COUNT_WINDOW) -> dict:
     """Steps, kernels, device busy time and host reads a step of ``run``
-    (one lane loop): one run under torch's sync debug mode with the lane
-    steps of ``window`` (skip, steps: 51-250 by default) under
-    ``torch.profiler`` (:func:`_step_profile`), split by step kind.  No
-    busy share: the profiler's own host cost stretches the window's wall
-    time.  Fails unless every step reads the card once."""
+    (one lane loop): one run under torch's sync debug mode, to the last
+    lane step of ``window`` (skip, steps: 51-250 by default), those
+    steps under ``torch.profiler`` (:func:`_step_profile`), split by
+    step kind.  No busy share: the profiler's own host cost stretches
+    the window's wall time.  Fails unless every step reads the card
+    once."""
     with _Steps() as steps:
-        (_, by, before), lines = _sync_lines(
+        (_, by, before, cut), lines = _sync_lines(
             lambda: _step_profile(run, *window))
     n = steps.n
     read_line, reads = lines.most_common(1)[0]
     others = sum(lines.values()) - reads
-    # one read a step, the last one seeing every lane done
-    if reads != n + 1 or others > SETUP_SYNCS_MAX:
+    # one read a step, and where the run ended by itself one more, the
+    # last seeing every lane done
+    if reads != n + (not cut) or others > SETUP_SYNCS_MAX:
         raise AssertionError(f"{phase}: host syncs per line {dict(lines)} "
                              f"for {n} steps")
     profiled = sum(b["steps"] for b in by.values())
     busy_us = sum(b["busy_ns"] for b in by.values()) / 1e3 / max(profiled, 1)
     kernels = sum(b["kernels"] for b in by.values()) / max(profiled, 1)
-    return {"steps": n, "window": list(window), "profiled_steps": profiled,
+    return {"steps": n, "cut_at_window_end": cut, "window": list(window),
+            "profiled_steps": profiled,
             "kernels_per_step": kernels,
             "events_before_steps": before,
             "by_step_kind": {nm.split(".")[1]: {
@@ -1210,7 +1257,8 @@ def _count(run, phase: str, window=COUNT_WINDOW) -> dict:
                     b["busy_ns"] / 1e3 / max(b["steps"], 1)}
                 for nm, b in by.items()},
             "device_busy_us_per_step": busy_us,
-            "packed_read": read_line, "reads_per_step": reads / (n + 1),
+            "packed_read": read_line,
+            "reads_per_step": reads / (n + (not cut)),
             "other_syncs": others}
 
 
@@ -1379,13 +1427,14 @@ QUEUE_H2H_SIM_LEN = 1e4         # the batch_pop-1 head-to-head's horizon
 QUEUE_COUNT_SIM_LEN = FABRIC_COUNT_SIM_LEN   # linear/1's count is fabrics'
 # The horizons are cut for the script's time limit, each to one of
 # goldens.FABRICS/CUTS: k=256's to 5e4 (both fabrics at 1e5 took 69 s of
-# a run; at 2.5e4 no k=256 lane sends a beacon), k=1's to 1e5 (2.5e5:
-# 9 s on a slow host), the tree queue's at k=32 to 2.5e4 (5e4: 26 s),
+# a run; at 2.5e4 no k=256 lane sends a beacon), k=1's to 5e4 (2.5e5:
+# 9 s on a slow host, 1e5: 3.3 s; phase paper_suite took the time), the
+# tree queue's at k=32 to 2.5e4 (5e4: 26 s),
 # the k=16 runs with batch_pop 64 and their seq run to 2.5e4 (1e5: 62 s,
 # 5e4: 20 s) and the batch_pop-1 head-to-head (compared with the linear
 # queue, not a digest) to 1e4 (2e4: 11 s): phase 28 took the time
 QUEUE_CUT_SIM_LEN = 5e4
-QUEUE_K1_SIM_LEN = 1e5
+QUEUE_K1_SIM_LEN = 5e4
 QUEUE_K32_SIM_LEN = 2.5e4
 QUEUE_BATCH_SIM_LEN = 2.5e4
 
@@ -1570,7 +1619,7 @@ def phase_queues(linear):
               else _queue_count(k, topo, qi, bp)
               for bp in (1, QUEUE_BATCH) for qi in QUEUE_IMPLS}
 
-    # the cut points: k=1 at 2.5e5, k=256 at 5e4 (k=1 on its golden's
+    # the cut points: k=1 and k=256 at 5e4 (k=1 on its golden's
     # linear queue: one cluster sends no beacon, so no queue or batch
     # window changes a bit)
     cuts = G.CUTS
@@ -2974,12 +3023,7 @@ def _lm_train_path(phase, cfg, want_per_step, run=None, *,
                                 log_every=1, verbose=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": FA.launches,  # ... and ends here
-                "flash_attention_bwd": FA.bwd_launches,
-                "selective_scan": SS.launches,
-                "selective_scan_states": SS.states_launches,
-                "selective_scan_bwd": SS.bwd_launches,
-                "hier_minsearch": HM.launches}
+    launches = _launch_counts()                  # ... and ends here
     want = {k: n * LM_TRAIN_STEPS for k, n in want_per_step.items()}
     if launches != want:
         raise AssertionError(f"{phase} launches {launches}, want {want}")
@@ -3115,6 +3159,19 @@ LM_RESUME_LAYERS, LM_RESUME_CKPT_EVERY, LM_RESUME_FAIL_AT = 4, 4, 6
 # 5, the crash at step 12, so the resumed run starts at step 10
 LM_CLI_STEPS, LM_CLI_CKPT_EVERY, LM_CLI_FAIL_AT = 20, 5, 12
 LM_CLI_TIMEOUT_S = 240
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by the kernels line's keys."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import selective_scan as SS
+    return {"flash_attention": FA.launches,
+            "flash_attention_bwd": FA.bwd_launches,
+            "selective_scan": SS.launches,
+            "selective_scan_states": SS.states_launches,
+            "selective_scan_bwd": SS.bwd_launches,
+            "hier_minsearch": HM.launches}
 
 
 def _train_want(cfg, run) -> dict:
@@ -3351,7 +3408,7 @@ def _cli_pair_and_serve(ckpt_dir) -> dict:
                       "stdout": out_s.strip().splitlines()}}
 
 
-def phase_lm_resume():
+def phase_lm_resume(cli):
     """(a) olmo_1b at full width cut to LM_RESUME_LAYERS layers in bf16
     through ``launch.train.train`` (its own main path), 8 steps
     uninterrupted, then again with a checkpoint every 4 steps in a
@@ -3359,9 +3416,11 @@ def phase_lm_resume():
     raise, then resumed: "resumed from step 4", and its parameters, both
     moments and the step counter after step 8 bit for bit (dtype
     included) the uninterrupted run's, its losses those of steps 5-8;
-    step times around the saves reported.  (b) Beside (a), in
-    subprocesses: the train CLI's crash and resume and the serve CLI
-    (``_cli_pair_and_serve``; their launches are their processes' own).
+    step times around the saves reported.  (b) ``cli``, the future of
+    ``_cli_pair_and_serve`` (the train CLI's crash and resume and the
+    serve CLI in subprocesses, their launches their processes' own),
+    which ``main`` starts before phase lm_train_remat so that it runs
+    beside phases 30-32 (device-bound steps): its result.
     -> (a)'s launches."""
     import tempfile
     import torch
@@ -3390,45 +3449,35 @@ def phase_lm_resume():
         return verbose
 
     with tempfile.TemporaryDirectory() as tmp:
-        pool = ThreadPoolExecutor(1)
-        cli = pool.submit(_cli_pair_and_serve, Path(tmp) / "cli")
+        ckpt = str(Path(tmp) / "ckpt")
+        torch.cuda.empty_cache()
+        FA.launches = FA.bwd_launches = SS.launches = 0
+        SS.bwd_launches = SS.states_launches = HM.launches = 0
+        p_u, o_u, l_u = train(cfg, run, verbose=log("uninterrupted"),
+                              **kw)
         try:
-            ckpt = str(Path(tmp) / "ckpt")
-            torch.cuda.empty_cache()
-            FA.launches = FA.bwd_launches = SS.launches = 0
-            SS.bwd_launches = SS.states_launches = HM.launches = 0
-            p_u, o_u, l_u = train(cfg, run, verbose=log("uninterrupted"),
-                                  **kw)
-            try:
-                train(cfg, run, ckpt_dir=ckpt,
-                      ckpt_every=LM_RESUME_CKPT_EVERY,
-                      fail_at=LM_RESUME_FAIL_AT, verbose=log("crash"), **kw)
-            except RuntimeError as e:
-                if f"injected failure at step {LM_RESUME_FAIL_AT}" \
-                        not in str(e):
-                    raise
-                failure = str(e)
-            else:
-                raise AssertionError("lm_resume: the run with fail_at did "
-                                     "not fail")
-            committed = CKPT.committed_steps(ckpt)
-            step_dir = Path(ckpt) / f"step_{committed[-1]:08d}"
-            ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
-            said = []
-            p_r, o_r, l_r = train(cfg, run, ckpt_dir=ckpt,
-                                  ckpt_every=LM_RESUME_CKPT_EVERY,
-                                  resume=True, verbose=log("resumed", said),
-                                  **kw)
-            torch.cuda.synchronize()
-            launches = {"flash_attention": FA.launches,
-                        "flash_attention_bwd": FA.bwd_launches,
-                        "selective_scan": SS.launches,
-                        "selective_scan_states": SS.states_launches,
-                        "selective_scan_bwd": SS.bwd_launches,
-                        "hier_minsearch": HM.launches}
-        finally:
-            pool.shutdown(wait=True)
-        cli_out = cli.result()
+            train(cfg, run, ckpt_dir=ckpt,
+                  ckpt_every=LM_RESUME_CKPT_EVERY,
+                  fail_at=LM_RESUME_FAIL_AT, verbose=log("crash"), **kw)
+        except RuntimeError as e:
+            if f"injected failure at step {LM_RESUME_FAIL_AT}" \
+                    not in str(e):
+                raise
+            failure = str(e)
+        else:
+            raise AssertionError("lm_resume: the run with fail_at did "
+                                 "not fail")
+        committed = CKPT.committed_steps(ckpt)
+        step_dir = Path(ckpt) / f"step_{committed[-1]:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        said = []
+        p_r, o_r, l_r = train(cfg, run, ckpt_dir=ckpt,
+                              ckpt_every=LM_RESUME_CKPT_EVERY,
+                              resume=True, verbose=log("resumed", said),
+                              **kw)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    cli_out = cli.result()
     start = LM_RESUME_FAIL_AT // LM_RESUME_CKPT_EVERY * LM_RESUME_CKPT_EVERY
     steps_run = 2 * LM_TRAIN_STEPS + LM_RESUME_FAIL_AT - start
     want = {k: n * steps_run for k, n in _train_want(cfg, run).items()}
@@ -3685,6 +3734,10 @@ def phase_lm_families():
 SHARD_STEPS = 3
 SHARD_PEAK_TOL = 0.25          # predicted peak within 25% of the measured
 SHARD_DRYRUN_TIMEOUT_S = 300
+# where phase shard's two dry runs write their rows (kept for phase
+# paper_suite's roofline table): the 1x1 cell, then decode_32k on 16x16
+SHARD_OUT = REPO / "chiprun_out" / "shard"
+SHARD_DRYRUNS = ("host.json", "decode.json")
 
 
 def _whole(t):
@@ -3754,14 +3807,13 @@ def phase_shard(smi):
     from repro_torch.optim import optimizer as OPT
     from repro_torch.pytree import leaves
     t0 = time.perf_counter()
-    out_dir = REPO / "chiprun_out" / "shard"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    SHARD_OUT.mkdir(parents=True, exist_ok=True)
     B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
-    procs = [(_dryrun(out_dir / "host.json", "--shape", "train_4k",
-                      "--mesh", "host", "--batch", str(B), "--seq", str(S)),
-              out_dir / "host.json"),
-             (_dryrun(out_dir / "decode.json", "--shape", "decode_32k",
-                      "--mesh", "single"), out_dir / "decode.json")]
+    host_out, decode_out = (SHARD_OUT / name for name in SHARD_DRYRUNS)
+    procs = [(_dryrun(host_out, "--shape", "train_4k", "--mesh", "host",
+                      "--batch", str(B), "--seq", str(S)), host_out),
+             (_dryrun(decode_out, "--shape", "decode_32k", "--mesh",
+                      "single"), decode_out)]
     try:
         cfg = _olmo(reduced=False)
         run = _lm_train_run()
@@ -3811,12 +3863,7 @@ def phase_shard(smi):
             per_step.append([FA.launches - before[0],
                              FA.bwd_launches - before[1]])
         peak = torch.cuda.max_memory_allocated()
-        launches = {"flash_attention": FA.launches,   # ... and ends here
-                    "flash_attention_bwd": FA.bwd_launches,
-                    "selective_scan": SS.launches,
-                    "selective_scan_states": SS.states_launches,
-                    "selective_scan_bwd": SS.bwd_launches,
-                    "hier_minsearch": HM.launches}
+        launches = _launch_counts()              # ... and ends here
         want_k2 = [2 * cfg.n_layers, cfg.n_layers]
         others = ("selective_scan", "selective_scan_states",
                   "selective_scan_bwd", "hier_minsearch")
@@ -4230,7 +4277,323 @@ def phase_suite(golden, paper_eps: float) -> int:
     return so_launches
 
 
+# --------------------------------------------------------------------------
+# The paper's headline comparison, Fig. 2, the suite's last steps and the
+# user-facing examples
+# --------------------------------------------------------------------------
+
+PAPER_SUITE_BUDGET_S = 150.0   # the phase's share of TIME_LIMIT_S
+# examples/train_tiny_lm_torch.py's crash and resume, cut in steps only
+# (its default 300): the crash at step 30, a checkpoint every 6 steps
+# (10 a run whatever the steps, ~2 s each at 1.37 GB).  The synthetic
+# tokens hold the loss near ln(50304) = 10.83: at 60 steps the last
+# logged loss is 0.098 below the first, at 30 steps 0.0026 (bit for bit
+# on the card, but a margin a change of summation order could undo)
+TINY_LM_ARGS = ("--steps", "60", "--crash-demo")
+# examples/quickstart_torch.py at its default arch, and one with an SSM
+QUICKSTART_ARCHS = ("glm4_9b", "falcon_mamba_7b")
+# the quickstart's card losses against its CPU run from the same weights:
+# relative, plus the printed four decimals
+QUICKSTART_TOL, QUICKSTART_PRINT_TOL = 1e-3, 1e-4
+# moe_balance: a token whose second and third router logits lie closer
+# than this may route otherwise on the card (its product sums in another
+# order, ~1e-6 apart at d_model 128), so its loads are held exactly only
+# where no token is that close
+MOE_TIE_EPS = 1e-4
+MOE_LOAD_BALANCE_RTOL = 1e-5   # a mean of 1,024 f32 router probabilities
+
+
+def _counted(path: dict, fn, *args, **kw):
+    """``fn(*args, **kw)``, its launches added to ``path``."""
+    before = _launch_counts()
+    try:
+        return fn(*args, **kw)
+    finally:
+        for key, n in _launch_counts().items():
+            path[key] = path.get(key, 0) + n - before[key]
+
+
+def _moe_check(card, cpu, loads, params, x) -> dict:
+    """``moe_balance`` on the card against the same call on the CPU
+    (``loads``: each call's share of the routed choices an expert, card
+    then CPU): the near ties of the router (a token's second and third
+    logits, in f64 on the CPU, within ``MOE_TIE_EPS``); with none, the
+    loads, imbalance and dropped fraction equal, else each expert's load
+    within one routed choice a near tie and the dropped fraction within
+    two (a token that moves frees a slot of one expert and takes one of
+    another); the load-balance loss within its rtol."""
+    import torch
+    from repro_torch.benchmarks import moe_balance as MB
+    cfg = MB.config()
+    logits = (x.double().reshape(-1, cfg.d_model)
+              @ params["router"].double())
+    top = torch.sort(logits, dim=-1, descending=True).values
+    k = cfg.moe.top_k
+    gap = top[:, k - 1] - top[:, k]
+    ties = int((gap < MOE_TIE_EPS).sum())
+    choices = logits.shape[0] * k
+    exact = ("max_over_mean_expert_load", "dropped_frac", "n_experts",
+             "top_k")
+    if ties == 0:
+        ok = loads[0] == loads[1] and all(card[key] == cpu[key]
+                                          for key in exact)
+    else:
+        ok = (abs(card["dropped_frac"] - cpu["dropped_frac"])
+              <= 2 * ties / choices
+              and all(abs(a - b) <= ties / choices
+                      for a, b in zip(*loads, strict=True))
+              and card["n_experts"] == cpu["n_experts"])
+    lb = abs(card["load_balance_loss"] - cpu["load_balance_loss"]) \
+        <= MOE_LOAD_BALANCE_RTOL * abs(cpu["load_balance_loss"])
+    return {"ok": bool(ok and lb), "near_ties": ties,
+            "min_gap": float(gap.min()), "tokens": int(logits.shape[0]),
+            "comparison": "exact" if ties == 0 else "within the ties",
+            "loads_card": loads[0], "loads_cpu": loads[1], "card": card,
+            "cpu": cpu}
+
+
+def _tiny_lm(tmp: Path):
+    """``examples/train_tiny_lm_torch.py`` with ``TINY_LM_ARGS`` on the
+    card, its checkpoints under ``tmp``: -> (each ``train`` call's
+    config, run, keywords and result or error, the printed lines)."""
+    mod = _example("train_tiny_lm_torch")
+    calls, train = [], mod.train
+
+    def recorded(cfg, run, **kw):
+        call = {"cfg": cfg, "run": run, "kw": kw}
+        calls.append(call)
+        try:
+            call["out"] = train(cfg, run, **kw)
+        except RuntimeError as e:
+            call["error"] = str(e)
+            raise
+        return call["out"]
+    mod.train = recorded
+    main = _quiet(mod.main)
+    argv, sys.argv = sys.argv, ["train_tiny_lm_torch.py", *TINY_LM_ARGS,
+                                "--ckpt-dir", str(tmp),
+                                "--device", SUITE_DEVICE]
+    try:
+        main()
+    finally:
+        sys.argv = argv
+    return calls, train, main.lines
+
+
+def _losses(lines) -> list:
+    """The losses of the quickstart's ``train step i: loss=x`` lines."""
+    return [float(line.rsplit("=", 1)[1]) for line in lines
+            if line.startswith("train step")]
+
+
+def _quickstart_want(arch) -> dict:
+    """The quickstart's launches on ``arch``'s reduced config (one mixer
+    kind): its forward (remat none) once a layer, three training steps
+    as :func:`_train_want` under the quickstart's run, no decode
+    launch."""
+    from repro_torch.configs import RunConfig, get_config, reduced_config
+    cfg = reduced_config(get_config(arch))
+    run = RunConfig(param_dtype="float32", total_steps=10, warmup_steps=1)
+    want = {key: 3 * n for key, n in _train_want(cfg, run).items()}
+    want["selective_scan" if cfg.ssm is not None
+         else "flash_attention"] += cfg.n_layers
+    return want
+
+
+def phase_paper_suite() -> dict:
+    """The steps of ``benchmarks/run.py`` that no other phase runs, and
+    the user-facing examples the card had not run, each through
+    ``run.Suite.step`` on the card: ``fig2a`` and ``fig2b`` at the
+    reference's arguments (fig2b: k 1-256, c_s 1/8/64, sim_len 1e7, the
+    ``independent`` workload) and ``baseline_compare`` at its full grid
+    cut to ``goldens.BASELINE_SIM_LEN``, against the JAX reference's
+    digests; ``moe_balance`` on CPU-drawn inputs moved to the card,
+    against the same call on the CPU (:func:`_moe_check`); the tiny-LM
+    example's crash and resume (f32: K2's CUDA-core kernel and the f32
+    backward), bit for bit an uninterrupted ``train`` of the same
+    config; the quickstart on ``QUICKSTART_ARCHS``, its losses against
+    its CPU run; ``roofline_report.render`` of phase ``shard``'s dry-run
+    rows at their mesh.  The line is printed before a failed gate
+    raises.  -> the launches of the examples and the runners (the
+    comparison runs' excluded)."""
+    import tempfile
+
+    import torch
+    from repro_torch.benchmarks import baseline_compare as BC
+    from repro_torch.benchmarks import fig2a, fig2b
+    from repro_torch.benchmarks import moe_balance as MB
+    from repro_torch.benchmarks import roofline_report as RR
+    from repro_torch.benchmarks import run as RUN
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import goldens as G
+    from repro_torch.pytree import leaves, tree_map
+    t_phase = time.perf_counter()
+    suite, bad, path, out = RUN.Suite(), [], {}, {}
+
+    def step(name, fn, *args, **kw):
+        return _counted(path, suite.step, name, fn, *args, **kw)
+
+    # Fig. 2a, Fig. 2b and the headline comparison
+    got = G.fig2a_digest(step("fig2a", fig2a.run, verbose=False,
+                              device=SUITE_DEVICE))
+    if got != G.FIG2A:
+        bad.append(("fig2a", got))
+    out["fig2b"] = G.fig2b_digest(step("fig2b", fig2b.run, verbose=False,
+                                       device=SUITE_DEVICE))
+    if out["fig2b"] != G.FIG2B:
+        bad.append(("fig2b", out["fig2b"]))
+    out["baseline"] = G.baseline_digest(step(
+        "baseline_compare", BC.run, verbose=False, device=SUITE_DEVICE,
+        sim_len=G.BASELINE_SIM_LEN))
+    if out["baseline"] != G.BASELINE:
+        bad.append(("baseline_compare", out["baseline"]))
+
+    # moe_balance: the CPU's numbers on both devices, each run's expert
+    # loads kept as the router gives them
+    params, x = MB.inputs()
+    apply, loads = MB.MOE.apply_moe, []
+
+    def recorded(*args, **kw):
+        y, aux = apply(*args, **kw)
+        loads.append(aux["tokens_per_expert"].cpu().tolist())
+        return y, aux
+    MB.MOE.apply_moe = recorded
+    try:
+        card = step("moe_balance", MB.run, verbose=False, device=SUITE_DEVICE,
+                    params=tree_map(lambda t: t.to(SUITE_DEVICE), params),
+                    x=x.to(SUITE_DEVICE))
+        cpu = MB.run(verbose=False, device="cpu", params=params, x=x)
+    finally:
+        MB.MOE.apply_moe = apply
+    out["moe"] = _moe_check(card, cpu, loads, params, x)
+    if not out["moe"]["ok"]:
+        bad.append(("moe_balance", out["moe"]))
+
+    # the tiny LM's crash and resume against an uninterrupted run
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        before = dict(path)
+        calls, train, lines = step("train_tiny_lm", _tiny_lm, Path(tmp))
+        lm_path = {key: n - before.get(key, 0) for key, n in path.items()}
+    crash, resumed = calls
+    cfg, run = crash["cfg"], crash["run"]
+    keep = ("steps", "batch", "seq", "device")
+    p_u, o_u, l_u = train(cfg, run, **{key: resumed["kw"][key]
+                                       for key in keep},
+                          verbose=lambda line: None)
+    p_r, o_r, l_r = resumed["out"]
+    start = int(crash["kw"]["fail_at"])
+    steps = int(crash["kw"]["steps"])
+    pairs = list(zip(leaves((p_r, o_r.mu, o_r.nu, o_r.step)),
+                     leaves((p_u, o_u.mu, o_u.nu, o_u.step)), strict=True))
+    unequal = sum(not (a.dtype == b.dtype and torch.equal(a, b))
+                  for a, b in pairs)
+    want = {key: n * steps for key, n in _train_want(cfg, run).items()}
+    said = f"[train] resumed from step {start}"
+    losses = [v for _, v in l_u]
+    out["tiny_lm"] = {
+        "params": cfg.param_count(), "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "dtype": run.param_dtype,
+        "remat": run.remat, "args": list(TINY_LM_ARGS),
+        "failure": crash.get("error"), "resumed_from": start,
+        "leaves_compared": len(pairs), "leaves_unequal": unequal,
+        "losses": l_u, "resumed_losses": l_r, "launches": lm_path,
+        "want_launches": want, "lines": lines}
+    if (crash.get("error") != f"injected failure at step {start}"
+            or said not in lines or unequal
+            or l_r != [(s, v) for s, v in l_u if s > start]
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or lm_path != want):
+        bad.append(("train_tiny_lm", {k: v for k, v in out["tiny_lm"].items()
+                                      if k not in ("losses", "lines")}))
+    del p_u, o_u, p_r, o_r, pairs, calls, crash, resumed
+    torch.cuda.empty_cache()
+
+    # the quickstart on the card against its CPU run from the card's
+    # weights (``init_model`` draws on its device's generator)
+    qs = _example("quickstart_torch")
+    init = qs.MDL.init_model
+
+    def card_init(*args, device=None, **kw):
+        return tree_map(lambda t: t.cpu(),
+                        init(*args, device=SUITE_DEVICE, **kw))
+    out["quickstart"] = {}
+    for name, arch in zip(("quickstart", "quickstart_ssm"),
+                          QUICKSTART_ARCHS):
+        before = dict(path)
+        on_card = _quiet(qs.main)
+        ids = step(name, on_card,
+                   ["--arch", arch, "--device", SUITE_DEVICE])
+        on_cpu = _quiet(qs.main)
+        qs.MDL.init_model = card_init
+        try:
+            ids_cpu = on_cpu(["--arch", arch, "--device", "cpu"])
+        finally:
+            qs.MDL.init_model = init
+        got, want_l = _losses(on_card.lines), _losses(on_cpu.lines)
+        n = {key: c - before.get(key, 0) for key, c in path.items()}
+        # the decode takes the argmax of the logits, padded_vocab wide
+        vocab = reduced_config(get_config(arch)).padded_vocab
+        row = out["quickstart"][arch] = {
+            "losses": got, "losses_cpu": want_l, "decoded": ids,
+            "decoded_equal_cpu": ids == ids_cpu, "launches": n,
+            "want_launches": _quickstart_want(arch),
+            "lines": on_card.lines}
+        if (len(got) != 3 or len(want_l) != 3
+                or not all(np.isfinite(got))
+                or any(abs(a - b) > QUICKSTART_TOL * abs(b)
+                       + QUICKSTART_PRINT_TOL for a, b in zip(got, want_l))
+                or not all(0 <= i < vocab for i in ids)
+                or f"forward: (2, 32, {vocab})" not in on_card.lines
+                or n != row["want_launches"]):
+            bad.append((name, {k: v for k, v in row.items()
+                               if k != "lines"}))
+
+    # the roofline table of phase shard's dry-run rows
+    out["roofline"] = {}
+    for file in SHARD_DRYRUNS:
+        rows = json.loads((SHARD_OUT / file).read_text())
+        mesh = rows[0]["mesh"]
+        table = step("roofline_report", RR.render, str(SHARD_OUT / file),
+                     mesh)
+        cells = [line for line in table.splitlines()
+                 if line.startswith("| ") and not line.startswith("| cell")]
+        out["roofline"][file] = {"mesh": mesh, "rows": len(rows),
+                                 "rendered": len(cells)}
+        if (len(cells) != len(rows) or "SKIPPED" in table
+                or any(r.get("status") != "ok" or r["mesh"] != mesh
+                       for r in rows)
+                or f"{len(rows)} cells" not in table.splitlines()[0]):
+            bad.append(("roofline_report", file, table))
+        out["roofline"][file]["table"] = table.splitlines()
+
+    if path.get("hier_minsearch", 0):
+        bad.append(("hier_minsearch launched", path["hier_minsearch"]))
+    wall = time.perf_counter() - t_phase
+    if wall > PAPER_SUITE_BUDGET_S:
+        bad.append(("budget", wall, PAPER_SUITE_BUDGET_S))
+    emit({"phase": "paper_suite", "ok": not bad, "failed": repr(bad),
+          "fig2a": G.FIG2A, "fig2b": out["fig2b"],
+          "fig2b_args": {"ks": list(fig2b.KS), "c_s": [1.0, 8.0, 64.0],
+                         "sim_len": 1e7},
+          "baseline_compare": out["baseline"],
+          "baseline_args": {"ks": list(BC.KS),
+                            "pair_periods": list(BC.PAIR_PERIODS),
+                            "seeds": list(BC.SEEDS),
+                            "sim_len": G.BASELINE_SIM_LEN,
+                            "cut_from": 2e6, "cut": "horizon only"},
+          "moe_balance": out["moe"], "tiny_lm": out["tiny_lm"],
+          "quickstart": out["quickstart"], "roofline": out["roofline"],
+          "launches": path, "walls_s": dict(suite.walls), "wall_s": wall,
+          "budget_s": PAPER_SUITE_BUDGET_S})
+    if bad:
+        raise AssertionError(f"paper_suite: gates failed {bad}")
+    return path
+
+
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the "
@@ -4312,9 +4675,15 @@ def main() -> int:
     trained, lm_train = timed(phase_lm_train)
     trained_ssm, lm_train_ssm = timed(phase_lm_train_ssm)
     trained_moe = timed(phase_lm_train_moe)
-    remat_runs, mb2_row = timed(phase_lm_train_remat, lm_train, lm_train_ssm)
-    accum_runs = timed(phase_lm_train_accum, lm_train, mb2_row)
-    resumed = timed(phase_lm_resume)
+    # the CLIs of phase lm_resume in subprocesses, beside phases
+    # lm_train_remat to lm_resume (their steps wait on the card)
+    with tempfile.TemporaryDirectory() as cli_dir, \
+            ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(_cli_pair_and_serve, Path(cli_dir) / "cli")
+        remat_runs, mb2_row = timed(phase_lm_train_remat, lm_train,
+                                    lm_train_ssm)
+        accum_runs = timed(phase_lm_train_accum, lm_train, mb2_row)
+        resumed = timed(phase_lm_resume, cli)
     families = timed(phase_lm_families)
     sharded = timed(phase_shard, smi)
     FA.launches = SS.launches = HM.launches = 0   # the copy check starts
@@ -4329,20 +4698,27 @@ def main() -> int:
         raise AssertionError("the suite launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
     del golden
+    FA.launches = FA.bwd_launches = SS.launches = 0   # the paper suite's
+    SS.states_launches = SS.bwd_launches = HM.launches = 0   # path starts
+    # ... each step's launches read around it (phase paper_suite)
+    paper_suite = timed(phase_paper_suite)
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
     # K2 runs on the prefill, olmo_1b's and deepseek_moe_16b's training
-    # (under every remat policy, microbatches, int8 and the resume) and
-    # the last five families' prefills and trainings (with its backward),
-    # K3 on the prefill and its training variant on falcon_mamba_7b's
-    # training (remat full, none and dots)
+    # (under every remat policy, microbatches, int8 and the resume), the
+    # last five families' prefills and trainings (with its backward) and
+    # the paper suite's examples (the tiny LM in f32, the quickstart), K3
+    # on the prefill, the SSM quickstart's forward, and its training
+    # variant on falcon_mamba_7b's training (remat full, none and dots)
+    # and the SSM quickstart's
     trains = (trained, trained_ssm, trained_moe, *remat_runs, *accum_runs,
-              resumed)
+              resumed, paper_suite)
     rows = [(HM.NAME, HM.SOURCE, HM.REPLACES,
-             tlm_launches + replay_k1 + suite_launches, k1),
+             tlm_launches + replay_k1 + suite_launches
+             + paper_suite["hier_minsearch"], k1),
             (FA.NAME, FA.SOURCE, FA.REPLACES, prefill["flash_attention"]
              + sum(t["flash_attention"] for t in trains)
              + families["flash_attention"] + sharded["flash_attention"], k2),

@@ -6,7 +6,8 @@ d_model 128, vocab 512) and reports expert-load imbalance and the
 dropped-token fraction — the same 'summarized workload' statistic the
 paper's beacons communicate, here measured on the in-model task-mapping
 problem (see DESIGN.md §4).  The weights and the (8, 128, d_model) input
-are drawn from seeded ``torch.Generator``s (the reference's
+are drawn from seeded CPU ``torch.Generator``s (:func:`inputs`) and moved
+to the device, so every device routes the same numbers (the reference's
 ``jax.random`` bits are not reproduced: pass ``params`` and ``x`` to run
 the reference's)."""
 from __future__ import annotations
@@ -25,18 +26,30 @@ def config():
                           vocab_size=512)
 
 
+def inputs(cfg=None):
+    """``(params, x)``: ``init_moe``'s f32 weights of ``cfg`` (default
+    :func:`config`) drawn from a CPU generator seeded 0, and the (8, 128,
+    d_model) input from one seeded 1, both on the CPU.  A CUDA generator
+    draws other numbers than a CPU one from the same seed, so the runner
+    draws here whatever its device."""
+    cfg = cfg or config()
+    params = MOE.init_moe(torch.Generator().manual_seed(0), cfg,
+                          torch.float32, "cpu")
+    x = torch.randn((8, 128, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    return params, x
+
+
 def run(verbose: bool = True, device=None, params=None, x=None) -> dict:
     """-> the payload (``results/torch/moe_balance.json``).  ``params``
-    (``init_moe``'s dict) and ``x`` default to seed-0 draws on
+    (``init_moe``'s dict) and ``x`` default to :func:`inputs`, moved to
     ``device`` (default: the card)."""
     cfg = config()
     dev = resolve_device(device)
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        params = MOE.init_moe(gen, cfg, torch.float32, dev)
-    if x is None:
-        gen = torch.Generator(device=dev).manual_seed(1)
-        x = torch.randn((8, 128, cfg.d_model), generator=gen, device=dev)
+    if params is None or x is None:
+        drawn = inputs(cfg)
+        params = drawn[0] if params is None else params
+        x = drawn[1] if x is None else x
     params = tree_map(lambda t: t.to(dev), params)
     with torch.no_grad():
         (_, aux), dt = timed(lambda: MOE.apply_moe(params, cfg, x.to(dev)))

@@ -38,8 +38,9 @@ without JAX (``chip_smoke.py``):
   (:func:`fabric_digest`);
 - the two cut points of that tier (the same widths, knobs, seeds and
   stimulus): k=1 on the linear queue (queue_cap 8,192) on ``ideal`` at
-  sim_len 2.5e5 and at 1e5 (the card's since it took in its phase
-  ``suite``), and k=256 with the tier's 32,768-slot tree queue and
+  sim_len 2.5e5, at 1e5 and at 5e4 (the card's since it took in its
+  phase ``paper_suite``; 1e5 since it took in its phase ``suite``), and
+  k=256 with the tier's 32,768-slot tree queue and
   ``batch_pop`` 64 on ``hier_tree`` and ``mesh2d`` at 2.5e5, at 1e5 and
   at 5e4, the card's horizon (at 2.5e4 no k=256 lane sends a beacon)
   (:func:`cut_digest`, keyed as FABRICS);
@@ -70,6 +71,12 @@ without JAX (``chip_smoke.py``):
   ``suite`` runs (:data:`SUITE_GRIDS`): ``fault_frontier``'s own
   ``determinism_digest`` and ``benchmarks.common.determinism_digest``
   of each runner's rows (:func:`suite_digests`);
+- Fig. 2a's optimal k per c_s, Fig. 2b at the reference's arguments
+  (the float32 bits of its 27 curve points, its fit to the analytic
+  model) and ``baseline_compare``'s full grid at BASELINE_SIM_LEN (per k
+  the float32 bits of its mean responses and speedups), the card's
+  phase ``paper_suite`` (:func:`fig2a_digest`, :func:`fig2b_digest`,
+  :func:`baseline_digest`);
 - the recorded stage-1 decisions of the card's phase ``replay``
   (``record_s1`` at m=64, k=8 under ``min_search`` and
   ``staleness_weighted``, interference seed 0, sim_len 3e5): the
@@ -572,7 +579,7 @@ CUT_KS = (1, 256)
 CUT_QUEUES = {1: dict(queue_cap=8192, queue_impl="linear", batch_pop=1),
               256: dict(queue_cap=32768, queue_impl="tree", batch_pop=64)}
 CUT_TOPOLOGIES = {1: ("ideal",), 256: ("hier_tree", "mesh2d")}
-CUT_SIM_LENS = {1: (2.5e5, 1e5), 256: (2.5e5, 1e5, 5e4)}
+CUT_SIM_LENS = {1: (2.5e5, 1e5, 5e4), 256: (2.5e5, 1e5, 5e4)}
 # The JAX reference's run of those points on the CPU (~25 s), made by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "from repro.core.experiment
 #   import ExperimentSpec, WorkloadSpec; from repro.core.sim import
@@ -652,6 +659,17 @@ CUTS = {
         },
     },
     50000.0: {
+        1: {
+            "ideal": {
+                "events_processed": [510, 612],
+                "beacons_tx": [0, 0],
+                "beacons_rx": [0, 0],
+                "evq_peak": [323, 327],
+                "dropped": [0, 0],
+                "mgmt_latency": [897415.0, 1110126.25],
+                "app_done_sha": "3bb8ae4b6bdacfeaedd3c0c9746e7563"
+                                "5b6f07813161a0ed26780be7a2bc05d8"},
+        },
         256: {
             "hier_tree": {
                 "events_processed": [26196, 1206],
@@ -1462,3 +1480,78 @@ def replay_digest(st) -> dict:
             _host(st[key])).tobytes()).hexdigest()
     row["app_done_sha"] = sha256_f32(st["app_done"])
     return row
+
+
+# --------------------------------------------------------------------------
+# Fig. 2 and the headline comparison (chip_smoke.py phase ``paper_suite``)
+# --------------------------------------------------------------------------
+
+# baseline_compare's horizon on the card: the runner's full grid (ks 1,
+# 16 and 256, its three pair periods, seeds 1 and 2) cut in horizon only,
+# from its 2e6 (about five minutes of the host-bound lane loop), to 1e5,
+# where every rate still has clustered management best
+BASELINE_SIM_LEN = 1e5
+
+
+def fig2b_digest(payload) -> dict:
+    """The sha256 of the float32 bits of every curve point of a
+    ``fig2b`` payload (the (c_s, k) speedups in the payload's c_s order),
+    its fit to the analytic model and its claim, keyed as FIG2B."""
+    curves = payload["curves"]
+    return {"ks": curves[next(iter(curves))]["k"],
+            "c_s": list(curves),
+            "speedup_sha": sha256_f32([curves[cs]["speedup"]
+                                       for cs in curves]),
+            "mean_rel_err_vs_analytic":
+                payload["mean_rel_err_vs_analytic"],
+            "fit_ok": payload["fit_ok"]}
+
+
+def baseline_digest(payload) -> dict:
+    """Per k of a ``baseline_compare`` payload, the sha256 of the float32
+    bits of its mean response then its speedup at each pair period; the
+    claims beside them; keyed as BASELINE."""
+    rows = payload["rows"]
+    return {"k": {int(k): sha256_f32(r["mean_response"] + r["speedup"])
+                  for k, r in rows.items()},
+            "pair_period": rows[next(iter(rows))]["pair_period"],
+            "beats_centralized_per_rate":
+                payload["beats_centralized_per_rate"],
+            "beats_distributed_per_rate":
+                payload["beats_distributed_per_rate"],
+            "claim_clustered_best": payload["claim_clustered_best"]}
+
+
+def fig2a_digest(payload) -> dict:
+    """A ``fig2a`` payload's optimal k per c_s and its claim, keyed as
+    FIG2A."""
+    return {"optimal_k_by_cs": payload["optimal_k_by_cs"],
+            "claim_holds": payload["claim_holds"]}
+
+
+# From the JAX reference's runners on the CPU (fig2b ~17 s, baseline_compare
+# ~14 s), at the reference's arguments (baseline_compare at
+# BASELINE_SIM_LEN):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "from benchmarks import
+#   fig2a, fig2b, baseline_compare as bc; from repro_torch.core import
+#   goldens as G; print(G.fig2a_digest(fig2a.run(verbose=False)),
+#   G.fig2b_digest(fig2b.run(verbose=False)), G.baseline_digest(bc.run(
+#   verbose=False, sim_len=G.BASELINE_SIM_LEN)))"
+FIG2A = {"optimal_k_by_cs": {"1.0": 16, "8.0": 32, "64.0": 64},
+         "claim_holds": True}
+FIG2B = {"ks": [1, 2, 4, 8, 16, 32, 64, 128, 256],
+         "c_s": ["1.0", "8.0", "64.0"],
+         "speedup_sha": "2bb3a3e19f8fe61bdd24065bdc8ed1d2"
+                        "58345cc29b3e634cddcf365a6fe5fe36",
+         "mean_rel_err_vs_analytic": 0.0656434203916126,
+         "fit_ok": True}
+BASELINE = {"k": {1: "cd7a48005553016ea78002845ef2e281"
+                     "051c4074597722a93a8d0dc0817e31fa",
+                  16: "70bb5bc531a0941b37622550d41fb1a5"
+                      "ece8c39fbef6bcc8f07f9e0f609298a2",
+                  256: "3f997274a30b61356fb51d3a8081c783"
+                       "07273c4ec381b5c2571b4fb3793b5627"},
+            "pair_period": [20000.0, 14000.0, 10000.0],
+            "beats_centralized_per_rate": [True, True, True],
+            "beats_distributed_per_rate": [True, True, True],
+            "claim_clustered_best": True}

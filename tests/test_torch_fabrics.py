@@ -210,8 +210,9 @@ def test_fault_group_rehearsal_matches_golden():
     assert got == {key: G.FAULTS[key]}
 
 
-# the entries of CUTS the card's phase queues reads: k=1 at 1e5, k=256
-# at 5e4
+# the entries of CUTS the card's phase queues read: k=1 at 1e5 (its
+# horizon until phase paper_suite came; the 5e4 entry it reads since is
+# recomputed in tests/test_torch_paper_card.py), k=256 at 5e4
 CARD_CUTS = ((1e5, 1), (5e4, 256))
 
 

@@ -161,8 +161,9 @@ def test_cut_digests_tell_every_group_apart():
     digest, so the card's phase would see a group that behaved like
     another: phase fabrics' groups at its cut horizon (its seq runs'
     fabrics at k=16 included; the probe and phase trace's hier_tree group
-    run there too), phase trace's three runs and phase replay's two
-    mappings."""
+    run there too), phase queues' digest groups at their horizons (the
+    k=1 cut point's since phase paper_suite came), phase trace's three
+    runs and phase replay's two mappings."""
     C = _chip_smoke()
     sim_len = C.FABRIC_CUT_SIM_LEN
     assert sim_len == C.FABRIC_PROBE_SIM_LEN == G.TRACE_SIM_LENS["hier_tree"]
@@ -171,6 +172,13 @@ def test_cut_digests_tell_every_group_apart():
     cases = {
         "fabrics": ([G.FABRICS[sim_len][k][t] for k, t in groups],
                     ("app_done_sha", "events_processed")),
+        "queues": ([G.CUTS[C.QUEUE_K1_SIM_LEN][1]["ideal"],
+                    G.FABRICS[C.QUEUE_BATCH_SIM_LEN][16]["hier_tree"],
+                    *(G.FABRICS[C.QUEUE_K32_SIM_LEN][32][t]
+                      for t in ("hier_tree", "mesh2d")),
+                    *(G.CUTS[C.QUEUE_CUT_SIM_LEN][256][t]
+                      for t in G.CUT_TOPOLOGIES[256])],
+                   ("app_done_sha",)),
         "trace": (list(G.TRACE.values()), ("ring_sha", "tr_n")),
         "replay": (list(G.REPLAY.values()),
                    ("dec_choice_sha", "dec_view_sha", "app_done_sha"))}

@@ -19,6 +19,7 @@ weight by a different ~lr, so it is held to 3e-3 (three such moves).
 """
 import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -169,11 +170,15 @@ def test_remat_and_xent_chunks_change_no_value(ref_params, batches,
 
 @pytest.fixture(scope="module")
 def ref_runs(ref_params, batches):
-    """The reference's step, jitted, three times from the converted
-    start: per run, the params after each step and the losses."""
-    out = {}
-    for name, kw in RUNS.items():
-        run = RefRun(**BASE, **kw)
+    """The reference's step of one run of RUNS, jitted, three times from
+    the converted start: ``ref_runs(name)`` -> the loss and params after
+    each step.  Each run is compiled when a test first asks for it, so a
+    worker given one parametrisation compiles one program, not three
+    (every XLA compile in a worker beside torch is a chance for the
+    abort of ROADMAP §3)."""
+    @functools.cache
+    def one(name):
+        run = RefRun(**BASE, **RUNS[name])
         step = jax.jit(RSTEPS.make_train_step(RCFG, run))
         params, opt = ref_params, ROPT.init_opt_state(ref_params, run)
         err = RCOMP.init_error_state(params)
@@ -184,8 +189,8 @@ def ref_runs(ref_params, batches):
             else:
                 params, opt, m = step(params, opt, b)
             hist.append((float(m["loss"]), _np(params)))
-        out[name] = hist
-    return out
+        return hist
+    return one
 
 
 @pytest.mark.parametrize("name", list(RUNS))
@@ -204,7 +209,7 @@ def test_train_steps_match_reference(ref_params, batches, ref_runs, name,
             params, opt, err, m = step(params, opt, err, b)
         else:
             params, opt, m = step(params, opt, b)
-        want_loss, want_params = ref_runs[name][i]
+        want_loss, want_params = ref_runs(name)[i]
         assert abs(float(m["loss"]) - want_loss) <= 1e-5 * want_loss
         assert set(m) == {"loss", "nll", "load_balance", "dropped_frac",
                           "grad_norm", "lr"}
@@ -292,7 +297,7 @@ def test_train_matches_reference_loop(ref_params, ref_runs, threads):
         TCFG, RunConfig(**BASE), steps=3, batch=4, seq=32, log_every=1,
         verbose=lambda *_: None, device="cpu",
         params=_port_params(ref_params))
-    want = ref_runs["plain"]
+    want = ref_runs("plain")
     assert [s for s, _ in losses] == [1, 2, 3]
     for (_, got), (loss, _) in zip(losses, want):
         assert abs(got - loss) <= 1e-5 * loss
