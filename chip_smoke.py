@@ -53,18 +53,20 @@ any failure ends the run with a non-zero exit:
             largest magnitude, f32 in both dtypes) on every case; the
             kernel's and the training variant's times (in turns), plain
             times and bounds (the variant's with its states' bytes);
-6. golden   the frozen golden grid and single-app anchor;
+6. golden   the frozen golden grid and single-app anchor (nine runs of
+            ``sim.run``: the paper's program, so nine launches of the
+            event-loop kernel ``tlm_loop``);
 7. paper    the paper point (m=256, k=16, n_childs=100, queue_cap=2048,
-            interference seed 1) at sim_len 1e6 (13,824 events; the
-            paper's 4e6 is cut for the script's time limit), timed,
-            against the frozen digests;
+            interference seed 1) at sim_len 1e6 (13,824 events), one
+            ``tlm_loop`` launch, timed, against the frozen digests;
 8. mapper   ``mapping.map_batch``/``map_one`` on a cuda ``MapperState``
             at m=256, k=16, T=100, against the plain version;
 9. profile  the paper point at sim_len 2.5e5 (cut from 1e6 in PR 25
-            for the script's time; the JAX reference's digest), timed,
-            then run again under ``torch.profiler``: kernels per event
-            and device kernel time against the timed run's wall (the
-            event loop's device busy share);
+            for the script's time; the JAX reference's digest) through
+            the host loop (``sim.simulate_host``, the kernel's plain
+            version), timed, then run again under ``torch.profiler``:
+            kernels per event and device kernel time against the timed
+            run's wall (the host loop's device busy share);
 10. syncs   the profiled run, under torch's sync debug mode as well,
             which warns at every call that waits for the card: all but a
             few set-up syncs must come from the loop's one packed read
@@ -73,9 +75,15 @@ any failure ends the run with a non-zero exit:
             serving files, which must find nothing): the packed read's
             line carries the lint's ``allow(host-sync)`` pragma and
             every other line that synced lies outside the loop path the
-            lint computes;
+            lint computes; then one covered ``lanes.simulate_lanes``
+            call (fig3a's k=16 group at 5e4, 12 lanes) under the same
+            mode: one ``tlm_loop`` launch, a few set-up syncs before it
+            and only the status read after it;
 11. sweep   the design-space engine, every sweep in ``"vmap"`` mode
-            (the lane-batched loop of ``core/lanes.py``): the golden
+            (``lanes.simulate_lanes``: each group here the paper's
+            program, one ``tlm_loop`` launch; ``"seq"`` one a lane;
+            the kernels and syncs a step counted on the host loop,
+            ``lanes.simulate_lanes_host``): the golden
             grid and the fig3b spot grid (m=64, k=16, 6 lanes, sim_len
             2.5e5 since phase 28, 1e6 before) through ``sweep`` against
             their frozen digests; Table 5
@@ -360,12 +368,36 @@ any failure ends the run with a non-zero exit:
             its launches as the reduced config implies;
             ``roofline_report.render`` of phase 26's two dry-run rows at
             their mesh, every row rendered and ``ok``;
+34. tlm_device  (run after phase 7) the event-loop kernel
+            (``csrc/tlm_loop.cu``: every lane's whole run of the paper's
+            program in one launch) against its plain version, the host
+            loop (``lanes.simulate_lanes_host``), on the golden grid,
+            the paper point at 1e6, fig3a's k=16 and k=1 groups at 5e4,
+            fig3b's k=32 group at 2.5e5, Table 5's k=256 group at 1e5
+            and ``baseline_compare``'s k=16 group at 1e5: two runs a
+            group, one launch each (the second, warm, reported), every
+            leaf bit for bit but ``mgmt_latency`` (rtol 1e-5), the
+            frozen digests where they exist; each group's events, the
+            launch's device time (CUDA events around it), walls and
+            events/s in both loops;
+35. paper_full  (run after phase 33) ``fig3a``, ``fig3b`` and
+            ``table5`` at sim_len 4e6 and ``baseline_compare`` at 2e6,
+            the reference's own arguments and full grids, each through
+            ``run.Suite.step``: the rows digest and every claim equal to
+            the reference runner's (``goldens.PAPER_FULL``), one
+            ``tlm_loop`` launch a k group, within
+            ``PAPER_FULL_BUDGET_S``;
 
-then a line of each phase's seconds, the ``kernels`` line and, last,
-the ``{"ok": true, "device": ...}`` line.  Each main path reads its own
-launch counts, zeroed just before it and read just after: the TLM path
-(phases 7-8: K1), the sweep (phase 11), the fabrics (phase 12), the
-queues (phase 13), the faults (phase 14), the trace (phase 15) and the
+then a line of each phase's seconds, the ``tlm_loop`` launches of each
+path, the ``kernels`` line and, last, the ``{"ok": true, "device":
+...}`` line.  Each main path reads its own launch counts, zeroed just
+before it and read just after: ``tlm_loop`` on every path that runs
+the paper's program (phases 6, 7, 10's covered run, 11, 13's k=1
+group, 28's ``policy_frontier``, ``pmap`` and ``paper_repro``, 33's
+``fig2b`` and ``baseline_compare``, 34 and 35; one launch a lane
+group, two in 34) and on none of those of the host loop alone (9, 12, 14, 15, 27,
+29); the TLM path (phases 7-8: K1), the sweep (phase 11), the fabrics
+(phase 12), the queues (phase 13), the faults (phase 14), the trace (phase 15) and the
 loop-copy check (phase 27), which launch none of the three kernels, the
 replay (phase 29: K1's launches read), the
 suite (phase 28: K1, from ``scheduler_overhead``), the paper suite
@@ -397,6 +429,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -413,7 +446,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCES = ("hier_minsearch", "flash_attention",
                   "flash_attention_bwd", "selective_scan",
-                  "selective_scan_bwd")
+                  "selective_scan_bwd", "tlm_loop")
 K1_KS = (1, 8, 16, 32, 256)
 K1_M, K1_T, K1_MAIN_K = 256, 100, 16
 # ragged shapes, and one above the warp kernel's capacity (block only)
@@ -567,9 +600,19 @@ def phase_build():
         raise AssertionError(f"the scan's backward: want no spills and at "
                              f"most one MUFU.EX2 a recomputed state-step in "
                              f"every ssm_scan_bwd instance, got {k3_bwd}")
+    # the event-loop kernel: no FFMA (every f32 add and product rounded
+    # on its own, as the host loop's), no spills
+    tlm = {fn: {**kernels.get(fn, {}), "FFMA": sum(
+        bool(re.search(r"\bFFMA\b", ln)) for ln in lines)}
+        for fn, lines in _sass(bin_dir, built["tlm_loop"][0],
+                               demangle).items()}
+    if not tlm or any(v["FFMA"] or v.get("spill_bytes") != 0
+                      for v in tlm.values()):
+        raise AssertionError(f"the event-loop kernel: want no FFMA and no "
+                             f"spills, got {tlm}")
     emit({"phase": "build", "libraries": {n: b[0] for n, b in built.items()},
           "seconds": {n: b[1] for n, b in built.items()}, "wall_s": wall,
-          "ptxas": kernels, "k3_bwd": k3_bwd,
+          "ptxas": kernels, "k3_bwd": k3_bwd, "tlm_loop": tlm,
           "k2_hgmma_instructions": hgmma,
           "k2_bwd_bf16": bwd_tc, "k1_warp": k1_warp,
           "spill_free": all(k.get("spill_bytes", 0) == 0
@@ -840,7 +883,8 @@ def phase_mapper():
 
 
 def phase_profile():
-    """Device busy share of the event loop at the paper point (sim_len
+    """Device busy share of the host event loop (``sim.simulate_host``,
+    the ``tlm_loop`` kernel's plain version) at the paper point (sim_len
     PROFILE_CUT_SIM_LEN): CUDA kernel time over wall time, against a run
     of it timed without the profiler.  The profiled run is also under
     torch's sync debug mode: returns its events and host syncs by line
@@ -848,11 +892,10 @@ def phase_profile():
     phase ``trace``'s untraced baseline."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.sim import run
     p, wl = _paper_run(PROFILE_CUT_SIM_LEN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = run(p, *wl, PROFILE_CUT_SIM_LEN)
+    st = _run_host(p, *wl, PROFILE_CUT_SIM_LEN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = _check_paper(st, PROFILE_CUT_SIM_LEN, "profile")
@@ -861,7 +904,7 @@ def phase_profile():
     def profiled():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            st = run(p, *wl, PROFILE_CUT_SIM_LEN)
+            st = _run_host(p, *wl, PROFILE_CUT_SIM_LEN)
             torch.cuda.synchronize()
             return st, prof, time.perf_counter() - t0
     (st, prof, wall_prof), lines = _sync_lines(profiled)
@@ -878,7 +921,7 @@ def phase_profile():
         name = e.name()[:60]
         by_name[name] = by_name.get(name, 0) + ns
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    emit({"phase": "profile", "sim_len": PROFILE_CUT_SIM_LEN,
+    emit({"phase": "profile", "loop": "host", "sim_len": PROFILE_CUT_SIM_LEN,
           "events": events,
           "wall_s": wall, "events_per_s": events / wall,
           "wall_s_profiled": wall_prof, "device_kernels": n_dev,
@@ -942,11 +985,46 @@ def _lint_guard(lines):
     return len(on_path), sorted(ln for ln in lines if ln != read_line)
 
 
+def _sync_sequence(run):
+    """``(run(), the calls that waited for the card in order)``, under
+    torch's sync debug mode, each as its ``file.py:N``, with ``"launch"``
+    where each ``tlm_loop`` launch returned."""
+    import warnings
+    import torch
+    from repro_torch.kernels import tlm_loop as TL
+    invoke, mark = TL._invoke, "tlm_loop kernel launched"
+
+    def marked(*args, **kw):
+        out = invoke(*args, **kw)
+        warnings.warn(mark)
+        return out
+    torch.cuda.synchronize()
+    TL._invoke = marked
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            TL._invoke = invoke
+    return out, ["launch" if str(r.message) == mark
+                 else f"{Path(r.filename).name}:{r.lineno}" for r in rec
+                 if str(r.message) == mark
+                 or "synchronizing" in str(r.message)]
+
+
 def phase_syncs(events: int, lines):
-    """Host syncs of the paper point's event loop (phase profile's
-    profiled run, sim_len PROFILE_CUT_SIM_LEN) under torch's sync debug
-    mode, which warns at every call that waits for the card, held
-    against the lint's static guard (:func:`_lint_guard`)."""
+    """Host syncs of the host event loop at the paper point (phase
+    profile's profiled run, sim_len PROFILE_CUT_SIM_LEN) under torch's
+    sync debug mode, which warns at every call that waits for the card,
+    held against the lint's static guard (:func:`_lint_guard`); then one
+    covered ``lanes.simulate_lanes`` call (fig3a's k=16 group at
+    SWEEP_SIM_LEN, 12 lanes) under the same mode: one ``tlm_loop``
+    launch, a few set-up syncs before it, and after it only the status
+    read that ends the run (``tlm_loop._check_status``), so no
+    device->host read inside the run.  Returns that call's launches."""
+    from repro_torch.core import lanes as LN
     read_line, per_read = lines.most_common(1)[0]
     others = sum(lines.values()) - per_read
     # one read per iteration, the last one seeing the empty queue
@@ -954,13 +1032,43 @@ def phase_syncs(events: int, lines):
         raise AssertionError(f"host syncs per line {dict(lines)} for "
                              f"{events} events")
     n_path, outside = _lint_guard(lines)
-    emit({"phase": "syncs", "sim_len": PROFILE_CUT_SIM_LEN,
+    p, kn, arr, gmn, lens, sim_len = _tlm_lanes("fig3a_k16")
+    st, seq = _sync_sequence(lambda: LN.simulate_lanes(
+        p.shape, kn, arr, gmn, lens, sim_len, p.policy, p.topo))
+    n_launch = seq.count("launch")
+    cut = seq.index("launch") if n_launch else len(seq)
+    setup, after = seq[:cut], seq[cut + 1:]
+    status_lines = _status_read_lines()
+    covered = {"group": "fig3a_k16", "lanes": int(arr.shape[0]),
+               "sim_len": sim_len,
+               "events": int(st["events_processed"].sum()),
+               "launches": n_launch, "setup_syncs": len(setup),
+               "setup_by_line": dict(Counter(setup)),
+               "syncs_after_launch": after}
+    if n_launch != 1 or len(setup) > SETUP_SYNCS_MAX or not after \
+            or any(ln not in status_lines for ln in after):
+        raise AssertionError(f"syncs: the covered run's syncs {covered}; "
+                             f"want one launch, at most {SETUP_SYNCS_MAX} "
+                             f"set-up syncs and then only the status read "
+                             f"({sorted(status_lines)})")
+    emit({"phase": "syncs", "loop": "host", "sim_len": PROFILE_CUT_SIM_LEN,
           "events": events,
           "packed_read": read_line, "packed_reads": per_read,
           "other_syncs": others, "by_line": dict(lines),
           "lint": {"findings": 0, "packed_read_allowed": True,
                    "loop_path_lines": n_path,
-                   "other_lines_off_path": outside}})
+                   "other_lines_off_path": outside},
+          "covered_run": covered})
+    return n_launch
+
+
+def _status_read_lines() -> set:
+    """The ``tlm_loop.py:N`` lines of ``tlm_loop._check_status``: the one
+    read of a covered run, after its launch has ended."""
+    import inspect
+    from repro_torch.kernels import tlm_loop as TL
+    src, first = inspect.getsourcelines(TL._check_status)
+    return {f"tlm_loop.py:{first + i}" for i in range(len(src))}
 
 
 # --------------------------------------------------------------------------
@@ -972,6 +1080,276 @@ SWEEP_K, SWEEP_SEEDS = 16, (1, 2)
 SWEEP_THRESHOLDS = (1, 2, 4, 8, 16, 32)
 SWEEP_SIM_LEN = 5e4     # cut for the script's time limit (1e5 until phase 28)
 SWEEP_COUNT_SIM_LEN = 5e4     # the horizon kernels and syncs are counted at
+
+
+def _run_host(p, arrivals, arrival_gmns, lengths, sim_len, trace=None):
+    """``sim.run`` on the card through the host loop
+    (``sim.simulate_host``) whatever the program: the phases that study
+    the host loop itself (``profile``, ``syncs``, ``trace``'s untraced
+    side) call it, since ``sim.run`` sends the paper's program to the
+    ``tlm_loop`` kernel."""
+    import torch
+    from repro_torch.core import sim as S
+
+    def dev(x, dt):
+        return torch.as_tensor(x, dtype=dt).to("cuda")
+    return S.simulate_host(p.shape, p.knobs, dev(arrivals, torch.float32),
+                           dev(arrival_gmns, torch.int32),
+                           dev(lengths, torch.float32), sim_len, p.policy,
+                           p.topo, None, trace)
+
+
+# phase tlm_device's lane groups, each run twice as one launch of tlm_loop
+# and held against the host loop on the same lanes: (params, dn_th values, seeds, pair
+# periods (None: the workload's default), sim_len).  The golden grid and
+# the paper point at 1e6; one group of each paper runner at the horizon
+# the card ran it at before the kernel (fig3a's k=16 and k=1 groups at
+# SWEEP_SIM_LEN, fig3b's k=32 group at goldens.FIG3B_CARD_SIM_LEN, Table
+# 5's k=256 group at goldens.TABLE5_SIM_LEN, baseline_compare's k=16
+# group at goldens.BASELINE_SIM_LEN)
+_PAPER_SHAPE = dict(m=256, n_childs=100, max_apps=512, queue_cap=2048)
+TLM_DEVICE_GROUPS = {
+    "golden": ("grid", None, None, None, None),
+    "paper_1e6": (dict(k=16, **_PAPER_SHAPE), (4,), (1,), None, 1e6),
+    "fig3a_k16": (dict(k=16, **_PAPER_SHAPE), SWEEP_THRESHOLDS, (1, 2), None,
+                  SWEEP_SIM_LEN),
+    "fig3a_k1": (dict(k=1, **_PAPER_SHAPE), SWEEP_THRESHOLDS, (1, 2), None,
+                 SWEEP_SIM_LEN),
+    "fig3b_k32": (dict(k=32, **_PAPER_SHAPE), SWEEP_THRESHOLDS, (1,), None,
+                  "fig3b"),
+    "table5_k256": (dict(k=256, **_PAPER_SHAPE), (4,), (1, 2, 3), None,
+                    "table5"),
+    "baseline_k16": (dict(k=16, **_PAPER_SHAPE), (4,), (1, 2),
+                     (20_000.0, 14_000.0, 10_000.0), "baseline"),
+}
+
+
+def _tlm_lanes(name):
+    """(params, (L,) knobs, arrivals, gmns, lengths on the card, sim_len)
+    of a ``TLM_DEVICE_GROUPS`` group, lane i*S + j as ``sweep`` lays out
+    knob i and workload j."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import workloads as W
+    from repro_torch.core.sim import SimKnobs, SimParams
+    params, ths, seeds, periods, sim_len = TLM_DEVICE_GROUPS[name]
+    if params == "grid":
+        params, ths, seeds, sim_len = (G.GRID_PARAMS, G.GRID_DN_TH,
+                                       G.GRID_SEEDS, G.GRID_SIM_LEN)
+    sim_len = {"fig3b": G.FIG3B_CARD_SIM_LEN, "table5": G.TABLE5_SIM_LEN,
+               "baseline": G.BASELINE_SIM_LEN}.get(sim_len, sim_len)
+    p = SimParams(**params)
+    wls = [W.interference_batch(p, seeds=seeds, sim_len=sim_len,
+                                **({} if pp is None else
+                                   {"pair_period": pp}))
+           for pp in (periods or (None,))]
+    arr, gmn, lens = (torch.as_tensor(np.concatenate([np.asarray(w[i])
+                                                      for w in wls]),
+                                      dtype=dt).to("cuda")
+                      for i, dt in enumerate((torch.float32, torch.int32,
+                                              torch.float32)))
+    kn = SW.knob_batch(dn_th=ths).to("cuda")
+    b, s = kn.dn_th.shape[0], arr.shape[0]
+    return (p, SimKnobs(*(v.repeat_interleave(s) for v in kn)),
+            arr.repeat(b, 1), gmn.repeat(b, 1), lens.repeat(b, 1, 1),
+            sim_len)
+
+
+def tlm_bound_ms(st, p, arr, sim_len) -> tuple:
+    """The least time the card could take for a tlm_loop launch's work on
+    this run's data, from ``tlm::run_lanes``' body; the larger of the
+    bytes and the operations, and which.
+
+    Bytes: every leaf the kernel touches, read once where it reads it and
+    written once where it writes it, over the memory rate: the queue
+    slots the run used (at most each lane's ``evq_peak``: a push takes
+    the first free slot, so slot j is written only with j + 1 events
+    queued), the rows of the applications that arrive before
+    ``sim_len`` (their ``lengths`` and barrier GMN read, ``app_remaining``
+    read and written, ``app_arrive`` and ``app_done`` written), the
+    cluster leaves (``view_t`` and ``last_bcast_t`` written only), the
+    scalars, knobs and children counts.  Operations, over the f32 peak
+    (integer compares counted at that rate too, as K1's bound counts
+    them): each handler's f32 arithmetic, the own-first argmins over a
+    view row and the stage-2 argmins and row sums over a cluster's loads;
+    the remote stage-1 targets and remote forwards are counted at the
+    smaller cost of the two (3 operations), as ``mgmt_msgs`` does not
+    tell them apart, and the pop's scan of the queue is not counted (a
+    heap would do it in log Q operations).  Exact for a run that dropped
+    nothing, as at the paper point; a run with drops raises."""
+    if int(st["dropped"].sum()):
+        raise ValueError("tlm_bound_ms counts the events of a run that "
+                         "dropped nothing")
+    sh = p.shape
+    k, mpk, ns, nc = sh.k, sh.mpk, sh.ns, sh.n_childs
+    lanes = int(arr.shape[0])
+    n_arr = int((arr < sim_len).sum())
+    slots = int(st["evq_peak"].sum())
+    beacons = int(st["beacons_tx"].sum())
+    n_spawn, children = n_arr * ns, n_arr * nc
+    n_join = children
+    if int(st["events_processed"].sum()) != n_arr + n_spawn + n_join:
+        raise ValueError("tlm_bound_ms: the events are not each arrival's "
+                         "ARRIVE, LOCAL_SPAWNs and JOIN_EXITs")
+    remote = (int(st["mgmt_msgs"].sum()) - children - n_join
+              - (k - 1) * beacons)
+    n_bytes = (40 * slots               # ev_time, ev_type, ev_a: r+w
+               + n_arr * (4 * nc + 20)  # lengths, parent, app_*
+               + lanes * (16 * k * mpk  # pe_free, loads: r+w
+                          + 32 * k      # gmn_free, lbus_free, rr_ptr,
+                                        # last_bcast: r+w
+                          + 4 * k       # last_bcast_t: w
+                          + 8 * k * k   # view: r+w
+                          + 4 * k * k   # view_t: w
+                          + 72          # the nine scalars: r+w
+                          + 24          # knobs, dn_th: r; status: w
+                          + 4 * ns))    # cnts: r
+    ops = (n_arr * (6 + ns + mpk + ns * k)            # ARRIVE
+           + n_spawn * (4 + mpk) + children * (7 + mpk)   # LOCAL_SPAWN
+           + n_join * (8 + mpk)                       # JOIN_EXIT
+           + 3 * remote + 5 * beacons)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def _launch_ms(run):
+    """``(run(), device ms of each tlm_loop launch in it)``: CUDA events
+    recorded on the launch's stream just before and just after each
+    launch (``tlm_loop._invoke``), so the times leave out the state's
+    set-up and the status read."""
+    import torch
+    from repro_torch.kernels import tlm_loop as TL
+    invoke, spans = TL._invoke, []
+
+    def timed_invoke(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = invoke(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    TL._invoke = timed_invoke
+    try:
+        out = run()
+    finally:
+        TL._invoke = invoke
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in spans]
+
+
+def _tlm_diff(got, want) -> tuple:
+    """(leaves that differ, max |got - want| over every leaf): bitwise but
+    ``mgmt_latency``, which is held to rtol 1e-5 (the host loop adds a
+    handler's latencies as one vector sum)."""
+    import torch
+    bad, err = [], 0.0
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want)), float("inf")
+    for key, w in want.items():
+        g = got[key]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            bad.append(key)
+            continue
+        err = max(err, float((g.double() - w.double()).abs().max())
+                  if g.numel() else 0.0)
+        ok = torch.allclose(g, w, rtol=1e-5, atol=0.0) \
+            if key == "mgmt_latency" else torch.equal(g, w)
+        if not ok:
+            bad.append(key)
+    return bad, err
+
+
+def phase_tlm_device():
+    """The event-loop kernel (``kernels/tlm_loop``) against its plain
+    version, the host loop (``lanes.simulate_lanes_host``), on the card:
+    each group of ``TLM_DEVICE_GROUPS`` through ``lanes.simulate_lanes``
+    twice (the dispatch's path, one launch a run: the first also pays the
+    allocator's and the library's first use, the second is the warm one
+    reported) and the host loop on the same lanes, every leaf bit for bit
+    but ``mgmt_latency`` (rtol 1e-5), the golden grid, the paper point
+    and Table 5's k=256 group also against the reference's frozen
+    digests.  Each group's launches (two), events, the longest lane's
+    events, the launch's device time (CUDA events around it), the call's
+    wall, events/s of both loops, and µs an event of the longest lane
+    (the kernel's serial chain).  Returns the ``kernels`` line's numbers
+    (the paper point's group)."""
+    import torch
+    from repro_torch.core import goldens as G
+    from repro_torch.core import lanes as LN
+    from repro_torch.kernels import tlm_loop as TL
+    t_phase, rows, bad, err = time.perf_counter(), {}, [], 0.0
+    kernel_row = None
+    for name in TLM_DEVICE_GROUPS:
+        p, kn, arr, gmn, lens, sim_len = _tlm_lanes(name)
+        args = (p.shape, kn, arr, gmn, lens, sim_len, p.policy, p.topo)
+        torch.cuda.synchronize()
+        before = TL.launches
+        t0 = time.perf_counter()
+        st, first_ms = _launch_ms(lambda: LN.simulate_lanes(*args))
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, warm_ms = _launch_ms(lambda: LN.simulate_lanes(*args))
+        wall = time.perf_counter() - t0
+        n = TL.launches - before
+        t0 = time.perf_counter()
+        host = LN.simulate_lanes_host(*args)
+        torch.cuda.synchronize()
+        wall_h = time.perf_counter() - t0
+        diff, e = _tlm_diff(st, host)
+        err = max(err, e)
+        ev = int(st["events_processed"].sum())
+        longest = int(st["events_processed"].max())
+        if n != 2 or len(first_ms) != 1 or len(warm_ms) != 1 or diff:
+            bad.append((name, "launches", n, "leaves", diff))
+        dev_ms = warm_ms[0] if warm_ms else float("nan")
+        digest = None
+        if name == "golden":
+            shape = (len(G.GRID_DN_TH), len(G.GRID_SEEDS))
+            digest = [st["beacons_tx"].reshape(shape).tolist(),
+                      G.sha256_f32(st["app_done"].reshape(shape + (-1,)))] \
+                == [G.GRID_BEACONS, G.GRID_APP_DONE_SHA]
+        elif name == "paper_1e6":
+            digest = G.paper_point_digest({k: v[0] for k, v in st.items()}) \
+                == G.PAPER_POINT[sim_len]
+            bound, bound_by = tlm_bound_ms(st, p, arr, sim_len)
+            kernel_row = {"ms": dev_ms, "wall_ms": wall * 1e3,
+                          "plain_ms": wall_h * 1e3,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": None,
+                          "events": ev, "us_per_event": dev_ms * 1e3 / ev,
+                          "plain_us_per_event": wall_h * 1e6 / ev}
+        elif name == "table5_k256":
+            want = G.TABLE5[256]
+            digest = [st["beacons_tx"].tolist(),
+                      st["events_processed"].tolist(),
+                      G.sha256_f32(st["app_done"])] == [
+                want["beacons_tx"], want["events_processed"],
+                want["app_done_sha"]]
+        if digest is False:
+            bad.append((name, "digest"))
+        rows[name] = {"k": p.k, "lanes": int(arr.shape[0]),
+                      "sim_len": sim_len, "launches": n, "events": ev,
+                      "longest_lane_events": longest,
+                      "device_ms": dev_ms, "first_device_ms": first_ms,
+                      "wall_s": wall, "first_wall_s": first,
+                      "events_per_s": ev / wall,
+                      "device_events_per_s": ev * 1e3 / dev_ms,
+                      "us_per_event_longest_lane": dev_ms * 1e3 / longest,
+                      "host_wall_s": wall_h, "host_events_per_s": ev / wall_h,
+                      "kernel_over_host": wall_h / wall,
+                      "leaves_equal": not diff, "digest": digest}
+    kernel_row["max_abs_err"] = err
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "tlm_device", "ok": not bad, "failed": repr(bad),
+          "groups": rows, "max_abs_err": err,
+          "launches": sum(r["launches"] for r in rows.values()),
+          "paper_point": kernel_row, "wall_s": wall})
+    if bad:
+        raise AssertionError(f"tlm_device: gates failed {bad}")
+    return kernel_row
 
 
 def _device_kernels(run):
@@ -999,14 +1377,17 @@ def _same_leaves(got: dict, want: dict) -> bool:
 
 def phase_sweep() -> dict:
     """The sweep engine and the paper runners on the card, all sweeps in
-    "vmap" mode.  Returns the golden grid's vmap state (phase ``suite``
-    holds ``pmap`` against it)."""
+    "vmap" mode: every group here is the paper's program, so each runs
+    as one ``tlm_loop`` launch (``"seq"``: one a lane); the kernels and
+    syncs a step are counted on the host loop.  Returns the golden
+    grid's vmap state (phase ``suite`` holds ``pmap`` against it)."""
     import torch
     from repro_torch.benchmarks import table5
     from repro_torch.core import goldens as G
+    from repro_torch.core import lanes as LN
     from repro_torch.core import sweep as SW
     from repro_torch.core import workloads as W
-    from repro_torch.core.sim import SimParams
+    from repro_torch.core.sim import SimKnobs, SimParams
     t_phase, walls = time.perf_counter(), {}
 
     def timed(name, fn):
@@ -1070,9 +1451,21 @@ def phase_sweep() -> dict:
     ev_s = int(st_s["events_processed"].sum())
     wl_c = W.interference_batch(p, seeds=SWEEP_SEEDS,
                                 sim_len=SWEEP_COUNT_SIM_LEN)
+    # the count studies the host loop (``lanes.simulate_lanes_host``, the
+    # tlm_loop kernel's plain version): the sweep sends this group to the
+    # kernel, which has no lane steps
+    arr_c, gmn_c, lens_c = (torch.as_tensor(np.asarray(x), dtype=dt)
+                            .to("cuda") for x, dt in zip(
+                                wl_c, (torch.float32, torch.int32,
+                                       torch.float32)))
+    kn_c = SimKnobs(*(v.to("cuda").repeat_interleave(arr_c.shape[0])
+                      for v in kn))
+    n_k = kn.dn_th.shape[0]
 
     def count_run():
-        return SW.sweep(p.shape, kn, wl_c, SWEEP_COUNT_SIM_LEN, mode="vmap")
+        return LN.simulate_lanes_host(
+            p.shape, kn_c, arr_c.repeat(n_k, 1), gmn_c.repeat(n_k, 1),
+            lens_c.repeat(n_k, 1, 1), SWEEP_COUNT_SIM_LEN, p.policy, p.topo)
     (st_c, n_kernels, busy_ns), lines = _sync_lines(
         lambda: _device_kernels(count_run))
     steps_c = int(st_c["events_processed"].max())
@@ -1082,7 +1475,8 @@ def phase_sweep() -> dict:
     if reads != steps_c + 1 or others > SETUP_SYNCS_MAX:
         raise AssertionError(f"sweep: host syncs per line {dict(lines)} "
                              f"for {steps_c} steps")
-    emit({"phase": "sweep", "mode": "vmap", "golden_match": True,
+    emit({"phase": "sweep", "mode": "vmap", "loop": "tlm_loop",
+          "count_loop": "host", "golden_match": True,
           "fig3b_spot_match": True, "fig3b_spot_steps": fig3b_steps,
           "table5": {"sim_len": G.TABLE5_SIM_LEN, "digests_match": True,
                      "events_per_lane": {k: v["events_processed"]
@@ -1442,11 +1836,13 @@ QUEUE_BATCH_SIM_LEN = 2.5e4
 class _Steps:
     """Counts the event loops' iterations while open: calls of
     ``lanes._step`` (a lane step) and ``sim._commit`` (an iteration of
-    the single loop)."""
+    the single loop); ``launches`` the ``tlm_loop`` kernel's launches
+    (a run of the paper's program, which takes no host step)."""
 
     def __enter__(self):
         from repro_torch.core import lanes, sim
-        self.n = 0
+        from repro_torch.kernels import tlm_loop as TL
+        self.n, self.l0, self.launches = 0, TL.launches, 0
         self._saved = [(lanes, "_step", lanes._step),
                        (sim, "_commit", sim._commit)]
         for mod, name, fn in self._saved:
@@ -1460,8 +1856,10 @@ class _Steps:
         return counted
 
     def __exit__(self, *exc):
+        from repro_torch.kernels import tlm_loop as TL
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+        self.launches = TL.launches - self.l0
 
 
 def _queue_group(k, topology, sim_len, queue_impl, batch_pop, mode="vmap"):
@@ -1481,17 +1879,20 @@ def _queue_group(k, topology, sim_len, queue_impl, batch_pop, mode="vmap"):
         sim_len=sim_len, mode=mode)
     with _Steps() as steps:
         frame = spec.run()
-    return frame.groups[0].state, frame.groups[0].wall_s, steps.n
+    return (frame.groups[0].state, frame.groups[0].wall_s, steps.n,
+            steps.launches)
 
 
 def _queue_row(k, topology, sim_len, queue_impl, batch_pop, run):
-    """The printed record of one run ``(state, wall_s, steps)``: the lane
-    loop's steps, events and events/s."""
-    st, wall, steps = run
+    """The printed record of one run ``(state, wall_s, steps,
+    launches)``: the lane loop's steps (0 where the run is one
+    ``tlm_loop`` launch: k=1 on ``ideal``), events and events/s."""
+    st, wall, steps, launches = run
     ev = np.asarray(st["events_processed"])
     return {"k": k, "topology": topology, "queue_impl": queue_impl,
             "batch_pop": batch_pop, "sim_len": sim_len,
-            "lanes": int(ev.size), "steps": steps, "events": int(ev.sum()),
+            "lanes": int(ev.size), "steps": steps,
+            "tlm_loop_launches": launches, "events": int(ev.sum()),
             "wall_s": wall, "events_per_s": int(ev.sum()) / wall}
 
 
@@ -1847,11 +2248,11 @@ def _trace_gates(name, on, off, spec) -> list:
 
 def _paper_count(trace):
     """Kernels, device busy time and host syncs an event of the paper
-    point at TRACE_COUNT_SIM_LEN, with ``trace`` or without."""
-    from repro_torch.core.sim import run
+    point at TRACE_COUNT_SIM_LEN in the host loop, with ``trace`` or
+    without."""
     p, wl = _paper_run(TRACE_COUNT_SIM_LEN)
     (st, n, busy), lines = _sync_lines(lambda: _device_kernels(
-        lambda: run(p, *wl, TRACE_COUNT_SIM_LEN, trace=trace)))
+        lambda: _run_host(p, *wl, TRACE_COUNT_SIM_LEN, trace=trace)))
     events = int(st["events_processed"])
     read_line, reads = lines.most_common(1)[0]
     others = sum(lines.values()) - reads
@@ -1888,7 +2289,9 @@ def _in_turns(run_off, run_on) -> dict:
 def phase_trace(paper_off, linear):
     """The in-loop trace on the card, with trace_report's TraceSpec:
     (a) the paper point through ``sim.run`` at PROFILE_CUT_SIM_LEN
-    against phase ``profile``'s untraced timed run (``paper_off``);
+    against phase ``profile``'s untraced timed run (``paper_off``; both
+    in the host loop: a trace is outside the ``tlm_loop`` kernel's
+    program, so the untraced side runs ``sim.simulate_host`` too);
     (b) the tier's k=16 ``hier_tree`` group (linear queue, seeds 1-2) at
     5e4 through the lane loop against phase ``fabrics``' untraced probe;
     (c) k=16 ``hier_tree`` on tree/64 under a partition at 2e4 with a
@@ -1933,7 +2336,7 @@ def phase_trace(paper_off, linear):
              "wall_s_on": wall, "wall_s_off": paper_off["wall_s"],
              "mgmt": tf.percentiles("mgmt"), "resp": tf.percentiles("resp"),
              "in_turns": {"sim_len": TRACE_COUNT_SIM_LEN, **_in_turns(
-                 lambda: run(p_c, *wl_c, TRACE_COUNT_SIM_LEN),
+                 lambda: _run_host(p_c, *wl_c, TRACE_COUNT_SIM_LEN),
                  lambda: run(p_c, *wl_c, TRACE_COUNT_SIM_LEN,
                              trace=spec))},
              "count": {"sim_len": TRACE_COUNT_SIM_LEN,
@@ -4112,7 +4515,9 @@ def phase_suite(golden, paper_eps: float) -> int:
     single loop, predicts ``paper_repro``'s time at 1e5 (see
     :func:`_paper_repro_horizon`).  The line is printed before a failed
     gate raises.  Returns the K1 launches of its
-    ``scheduler_overhead``."""
+    ``scheduler_overhead`` and the ``tlm_loop`` launches of each step
+    (the paper's program in ``policy_frontier``'s ideal groups, ``pmap``
+    and ``paper_repro``; the other steps' programs run the host loop)."""
     import tempfile
 
     import torch
@@ -4127,6 +4532,7 @@ def phase_suite(golden, paper_eps: float) -> int:
     from repro_torch.core import goldens as G
     from repro_torch.core.sim import SimParams
     from repro_torch.kernels import hier_minsearch as HM
+    from repro_torch.kernels import tlm_loop as TL
     t_phase = time.perf_counter()
     # the K1 kernel phase k1 holds against the plain version at these
     # shapes
@@ -4152,11 +4558,15 @@ def phase_suite(golden, paper_eps: float) -> int:
         saved[3], **SUITE_SO_SWEEP)
     suite = RUN.Suite(profile=True)
     prof = RUN.profiler(SUITE_DEVICE)
-    out, trajectory = {}, []
+    out, trajectory, tlm = {}, [], {}
     try:
         with prof, _Sampled(prof, SUITE_SAMPLE_STEPS) as sampled:
             def step(name, fn, *args, **kw):
-                return suite.step(name, sampled.body(fn), *args, **kw)
+                before = TL.launches
+                try:
+                    return suite.step(name, sampled.body(fn), *args, **kw)
+                finally:
+                    tlm[name] = TL.launches - before
 
             before = HM.launches
             out["so"] = step("scheduler_overhead", scheduler_overhead.run,
@@ -4243,6 +4653,9 @@ def phase_suite(golden, paper_eps: float) -> int:
     empty = [name for name, n in kernels.items() if n == 0]
     if empty:
         bad.append(("trace regions without a kernel", empty))
+    if not all(tlm[name] for name in ("pmap", "pmap_workers",
+                                      "paper_repro")):
+        bad.append(("tlm_loop launches", tlm))
     wall = time.perf_counter() - t_phase
     if wall > SUITE_BUDGET_S:
         bad.append(("budget", wall, SUITE_BUDGET_S))
@@ -4250,7 +4663,7 @@ def phase_suite(golden, paper_eps: float) -> int:
     emit({"phase": "suite", "ok": not bad, "failed": repr(bad),
           "claims": not failed & set(FRONTIERS),
           "digests_match": "digests" not in failed,
-          "k1_launches": so_launches,
+          "k1_launches": so_launches, "tlm_loop_launches": tlm,
           "so_sweep_cut": SUITE_SO_SWEEP,
           "us_per_decision": {k: r["us_per_decision"]
                               for k, r in out["so"]["two_stage"].items()},
@@ -4274,7 +4687,7 @@ def phase_suite(golden, paper_eps: float) -> int:
           "budget_s": SUITE_BUDGET_S})
     if bad:
         raise AssertionError(f"suite: gates failed {bad}")
-    return so_launches
+    return so_launches, tlm
 
 
 # --------------------------------------------------------------------------
@@ -4426,12 +4839,17 @@ def phase_paper_suite() -> dict:
     from repro_torch.benchmarks import run as RUN
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import goldens as G
+    from repro_torch.kernels import tlm_loop as TL
     from repro_torch.pytree import leaves, tree_map
     t_phase = time.perf_counter()
-    suite, bad, path, out = RUN.Suite(), [], {}, {}
+    suite, bad, path, out, tlm = RUN.Suite(), [], {}, {}, {}
 
     def step(name, fn, *args, **kw):
-        return _counted(path, suite.step, name, fn, *args, **kw)
+        before = TL.launches
+        try:
+            return _counted(path, suite.step, name, fn, *args, **kw)
+        finally:
+            tlm[name] = tlm.get(name, 0) + TL.launches - before
 
     # Fig. 2a, Fig. 2b and the headline comparison
     got = G.fig2a_digest(step("fig2a", fig2a.run, verbose=False,
@@ -4569,6 +4987,9 @@ def phase_paper_suite() -> dict:
 
     if path.get("hier_minsearch", 0):
         bad.append(("hier_minsearch launched", path["hier_minsearch"]))
+    # fig2b's and the headline comparison's runs are the paper's program
+    if not (tlm["fig2b"] and tlm["baseline_compare"]):
+        bad.append(("tlm_loop launches", tlm))
     wall = time.perf_counter() - t_phase
     if wall > PAPER_SUITE_BUDGET_S:
         bad.append(("budget", wall, PAPER_SUITE_BUDGET_S))
@@ -4584,11 +5005,68 @@ def phase_paper_suite() -> dict:
                             "cut_from": 2e6, "cut": "horizon only"},
           "moe_balance": out["moe"], "tiny_lm": out["tiny_lm"],
           "quickstart": out["quickstart"], "roofline": out["roofline"],
-          "launches": path, "walls_s": dict(suite.walls), "wall_s": wall,
+          "launches": path, "tlm_loop_launches": tlm,
+          "walls_s": dict(suite.walls), "wall_s": wall,
           "budget_s": PAPER_SUITE_BUDGET_S})
     if bad:
         raise AssertionError(f"paper_suite: gates failed {bad}")
-    return path
+    return dict(path, tlm_loop=sum(tlm.values()))
+
+
+# --------------------------------------------------------------------------
+# The paper's runners at the reference's own horizons
+# --------------------------------------------------------------------------
+
+PAPER_FULL_BUDGET_S = 60.0     # the phase's share of TIME_LIMIT_S
+# each runner's horizon: the reference's default (fig3a, fig3b, table5
+# 4e6, baseline_compare 2e6), uncut; a cut would be named here and in the
+# phase's line
+PAPER_FULL_SIM_LEN = {"fig3a": 4e6, "fig3b": 4e6, "table5": 4e6,
+                      "baseline_compare": 2e6}
+
+
+def phase_paper_full() -> int:
+    """The paper's Fig. 3a, Fig. 3b, Table 5 and headline comparison
+    (``baseline_compare``) at the reference's own arguments, full grids
+    and horizons, each through ``run.Suite.step`` on the card: each
+    payload's rows digest and claims equal to the reference runner's on
+    the CPU at the same arguments (``goldens.PAPER_FULL``), each k group
+    one ``tlm_loop`` launch.  The line is printed before a failed gate
+    raises.  Returns the launches."""
+    from repro_torch.benchmarks import baseline_compare, fig3a, fig3b
+    from repro_torch.benchmarks import run as RUN
+    from repro_torch.benchmarks import table5
+    from repro_torch.core import goldens as G
+    from repro_torch.kernels import tlm_loop as TL
+    t_phase = time.perf_counter()
+    suite, bad, rows, launches = RUN.Suite(), [], {}, 0
+    runners = {"fig3a": (fig3a, fig3a.KS), "fig3b": (fig3b, fig3b.KS),
+               "table5": (table5, tuple(table5.PAPER)),
+               "baseline_compare": (baseline_compare, baseline_compare.KS)}
+    for name in G.PAPER_FULL_RUNNERS:
+        mod, ks = runners[name]
+        before = TL.launches
+        payload = suite.step(name, mod.run, verbose=False,
+                             sim_len=PAPER_FULL_SIM_LEN[name],
+                             device=SUITE_DEVICE)
+        n = TL.launches - before
+        launches += n
+        got = G.paper_full_digest(payload)
+        rows[name] = dict(got, sim_len=PAPER_FULL_SIM_LEN[name],
+                          ks=list(ks), launches=n,
+                          wall_s=suite.walls[-1][1],
+                          match=got == G.PAPER_FULL[name])
+        if got != G.PAPER_FULL[name] or n != len(ks):
+            bad.append((name, got, n))
+    wall = time.perf_counter() - t_phase
+    if wall > PAPER_FULL_BUDGET_S:
+        bad.append(("budget", wall, PAPER_FULL_BUDGET_S))
+    emit({"phase": "paper_full", "ok": not bad, "failed": repr(bad),
+          "runners": rows, "cuts": {}, "launches": launches,
+          "wall_s": wall, "budget_s": PAPER_FULL_BUDGET_S})
+    if bad:
+        raise AssertionError(f"paper_full: gates failed {bad}")
+    return launches
 
 
 def main() -> int:
@@ -4604,6 +5082,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import hier_minsearch as HM
     from repro_torch.kernels import selective_scan as SS
+    from repro_torch.kernels import tlm_loop as TL
 
     t_script, seconds = time.perf_counter(), {}
 
@@ -4620,7 +5099,22 @@ def main() -> int:
     k1 = timed(phase_k1)
     k2 = timed(phase_k2)
     k3, k3_states = timed(phase_k3)
+    tlm = {}                                      # tlm_loop's, a path
+
+    def tlm_path(name, want=None):
+        """Read the tlm_loop launches of the path that just ended:
+        ``want`` None means more than 0 (the paper's program), else
+        exactly ``want`` (0: a path of the host loop alone)."""
+        n = tlm[name] = TL.launches
+        if (n == 0) if want is None else (n != want):
+            raise AssertionError(f"the {name} path launched tlm_loop {n} "
+                                 f"times, want "
+                                 f"{'> 0' if want is None else want}")
+        TL.launches = 0
+
+    TL.launches = 0                               # the golden path starts
     timed(phase_golden)
+    tlm_path("golden")                            # ... and ends here
     FA.launches = SS.launches = HM.launches = 0   # the TLM path starts
     paper_off = timed(phase_paper)
     paper_eps = paper_off["events"] / paper_off["wall_s"]
@@ -4628,44 +5122,54 @@ def main() -> int:
     tlm_launches = HM.launches                    # ... and ends here
     if tlm_launches == 0:
         raise AssertionError("the TLM path never launched hier_minsearch")
+    tlm_path("paper", 1)
+    tlm_row = timed(phase_tlm_device)             # the device loop's check
+    tlm_path("tlm_device", 2 * len(TLM_DEVICE_GROUPS))   # two runs a group
     events, lines, profile_off = timed(phase_profile)
-    timed(phase_syncs, events, lines)
+    tlm_path("profile", 0)                        # the host loop alone
+    tlm_path("syncs", timed(phase_syncs, events, lines))
     FA.launches = SS.launches = HM.launches = 0   # the sweep path starts
     golden = timed(phase_sweep)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
-        raise AssertionError("the sweep path (no kernel of its own) "
-                             "launched "
+        raise AssertionError("the sweep path (no kernel of its own but "
+                             "tlm_loop) launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("sweep")
     FA.launches = SS.launches = HM.launches = 0   # the fabric path starts
     linear = timed(phase_fabrics)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the fabric path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("fabrics", 0)
     FA.launches = SS.launches = HM.launches = 0   # the queue path starts
     timed(phase_queues, linear)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
-        raise AssertionError("the queue path (no kernel of its own) "
-                             "launched "
+        raise AssertionError("the queue path (no kernel of its own but "
+                             "tlm_loop's k=1 group) launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("queues", 1)
     FA.launches = SS.launches = HM.launches = 0   # the fault path starts
     timed(phase_faults, linear)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the fault path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("faults", 0)
     FA.launches = SS.launches = HM.launches = 0   # the trace path starts
     timed(phase_trace, profile_off, linear)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the trace path (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("trace", 0)
     del paper_off, profile_off, linear
     FA.launches = SS.launches = HM.launches = 0   # the replay path starts
     replay_k1 = timed(phase_replay)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, replay_k1):
         raise AssertionError("the replay path launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("replay", 0)
     timed(phase_lm_small)
     prefill = timed(phase_lm_prefill)
     timed(phase_lm_serve)
@@ -4687,26 +5191,32 @@ def main() -> int:
     families = timed(phase_lm_families)
     sharded = timed(phase_shard, smi)
     FA.launches = SS.launches = HM.launches = 0   # the copy check starts
+    TL.launches = 0
     timed(phase_loop_copy)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, 0):
         raise AssertionError("the loop-copy check (no kernel of its own) "
                              "launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("loop_copy", 0)
     FA.launches = SS.launches = HM.launches = 0   # the suite starts
-    suite_launches = timed(phase_suite, golden, paper_eps)
+    suite_launches, suite_tlm = timed(phase_suite, golden, paper_eps)
     if (FA.launches, SS.launches, HM.launches) != (0, 0, suite_launches):
         raise AssertionError("the suite launched "
                              f"{(FA.launches, SS.launches, HM.launches)}")
+    tlm_path("suite", sum(suite_tlm.values()))
     del golden
     FA.launches = FA.bwd_launches = SS.launches = 0   # the paper suite's
     SS.states_launches = SS.bwd_launches = HM.launches = 0   # path starts
     # ... each step's launches read around it (phase paper_suite)
     paper_suite = timed(phase_paper_suite)
+    tlm_path("paper_suite", paper_suite["tlm_loop"])
+    tlm_path("paper_full", timed(phase_paper_full))
     # K2's row also covers its forward at the training shape (phase k2_bwd)
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             k2_bwd.pop("k2_out_max_abs_err"))
     emit({"phase_seconds": seconds,
           "script_s": time.perf_counter() - t_script})
+    emit({"tlm_loop_launches": tlm})
     # K2 runs on the prefill, olmo_1b's and deepseek_moe_16b's training
     # (under every remat policy, microbatches, int8 and the resume), the
     # last five families' prefills and trainings (with its backward) and
@@ -4731,7 +5241,8 @@ def main() -> int:
              + families["flash_attention_bwd"]
              + sharded["flash_attention_bwd"], k2_bwd),
             (SS.BWD_NAME, SS.BWD_SOURCE, SS.BWD_REPLACES,
-             sum(t["selective_scan_bwd"] for t in trains), k3_bwd)]
+             sum(t["selective_scan_bwd"] for t in trains), k3_bwd),
+            (TL.NAME, TL.SOURCE, TL.REPLACES, sum(tlm.values()), tlm_row)]
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n,

@@ -7,12 +7,15 @@ out is the host waiting on the card.  The pass finds it in code *on the
 loop path*, not by naive pattern matching: set-up before a loop, the
 end-of-run decoding and host-side schedule builders are legitimate.
 
-  loop roots      the event loops: the ``while`` bodies of
-                  ``core/sim.simulate`` and ``core/lanes.simulate_lanes``
-                  (``LOOP_ROOTS``) and the lambdas those functions define
-                  (``simulate``'s handler table); plus everything they
-                  call, propagated to a fixpoint across the analysed file
-                  set, import-alias aware (``EQ._tree_commit_`` in sim.py
+  loop roots      the host event loops: the ``while`` bodies of
+                  ``core/sim.simulate_host`` and
+                  ``core/lanes.simulate_lanes_host`` (``LOOP_ROOTS``; the
+                  dispatchers ``simulate`` and ``simulate_lanes`` hold no
+                  loop, and the ``tlm_loop`` kernel reads nothing back
+                  until its run ends) and the lambdas those functions
+                  define (``simulate_host``'s handler table); plus
+                  everything they call, propagated to a fixpoint across
+                  the analysed file set, import-alias aware (``EQ._tree_commit_`` in sim.py
                   and ``from repro_torch.core.sim import _detect`` in
                   lanes.py both reach eventq.py / sim.py), and the nested
                   ``def``s of a function on the path.
@@ -55,8 +58,8 @@ HOST_MODULE_PRAGMA = re.compile(r"#\s*lint:\s*host-module")
 
 # the event loops: module -> functions whose ``while`` bodies (and
 # lambdas) are the roots of the loop path
-LOOP_ROOTS = {"repro_torch.core.sim": ("simulate",),
-              "repro_torch.core.lanes": ("simulate_lanes",)}
+LOOP_ROOTS = {"repro_torch.core.sim": ("simulate_host",),
+              "repro_torch.core.lanes": ("simulate_lanes_host",)}
 
 HOST_TIME_FNS = {"time", "perf_counter", "monotonic", "sleep",
                  "process_time", "thread_time", "time_ns",

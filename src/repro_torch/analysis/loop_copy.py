@@ -5,8 +5,8 @@ The §11 discovery in the reference: a scatter XLA cannot prove in place
 is "demoted" to a whole-buffer copy every loop iteration, turning the
 O(log Q) tree pop into O(Q) traffic.  The port runs eagerly, so there is
 no compiled body to read; what a step copies is what it dispatches.
-:func:`lint_combo` runs the lane loop (``core/lanes.simulate_lanes``,
-one lane) for a window of steps after a warm-up under a
+:func:`lint_combo` runs the lane loop (``core/lanes.simulate_lanes_host``,
+the host loop, one lane) for a window of steps after a warm-up under a
 ``TorchDispatchMode`` that records every op that copies a tensor
 (``clone``, ``copy_``, ``_to_copy``, ``cat``, ``stack``, ``repeat``)
 or makes one (the factories: ``zeros``, ``full``, ``arange``, ...), with
@@ -167,6 +167,9 @@ def lint_combo(*, m: int, k: int, queue_cap: int, queue_impl: str,
     also count the window's copy kernels under ``torch.profiler``."""
     import torch
 
+    import numpy as np
+
+    from repro_torch.core import lanes as LN
     from repro_torch.core import sweep as SW
     from repro_torch.core import workloads as W
     from repro_torch.device import resolve_device
@@ -198,10 +201,17 @@ def lint_combo(*, m: int, k: int, queue_cap: int, queue_impl: str,
             torch.cuda.synchronize()
             prof.stop()
 
+    # the host loop, which every combo runs (on the card the dispatch of
+    # ``lanes.simulate_lanes`` would send the paper's program to the
+    # tlm_loop kernel, which has no lane steps to record)
+    arrivals, gmns, lengths = (
+        torch.as_tensor(np.asarray(x), dtype=dt).to(dev)
+        for x, dt in zip(wl, (torch.float32, torch.int32, torch.float32)))
     with _step_window(warmup, steps, start, stop) as seen:
         try:
-            SW.sweep(p, SW.knob_batch(dn_th=(p.dn_th,)), wl, sim_len,
-                     mode="vmap", device=dev)
+            LN.simulate_lanes_host(
+                p.shape, SW.knob_batch(dn_th=(p.dn_th,)).to(dev), arrivals,
+                gmns, lengths, sim_len, p.policy, p.topo)
         except _WindowDone:
             pass
     n_steps = seen[0] - warmup

@@ -36,7 +36,7 @@ Grid tiers (the reference's):
   paper       the paper's scale: m=256, k in {1, 16, 32, 256} across
               ideal/hier_tree/mesh2d on the tree queue, batch_pop=64.
 
-Four departures from the reference:
+Five departures from the reference:
 
 - **No ``claim_one_program_per_group``.**  It counts the XLA programs
   the reference compiles against its planner's count; the port compiles
@@ -58,6 +58,13 @@ Four departures from the reference:
   and without its ``baseline_pr4`` anchor, an XLA:CPU number too.
 - **No ``pr1_reference``**: the reference's anchor of its own XLA:CPU
   cost a point is not a number of the port's.
+- **Which loop timed a row.**  Each row's ``loop`` is ``"tlm_loop"``
+  where its group ran as one launch of the event-loop kernel (on the
+  card, a program ``kernels/tlm_loop.covers``: the ``ideal`` rows of a
+  linear-queue tier) and ``"host"`` where it ran the host loop, so no
+  reader sets one loop's events/s against the other's as two fabrics.
+  The queue head-to-head runs on ``hier_tree``, which the kernel does not
+  cover: every queue in it runs the host loop.
 
 The event loop runs on the CUDA card unless ``device="cpu"``:
 
@@ -81,6 +88,8 @@ from repro_torch.core.experiment import ExperimentSpec, WorkloadSpec
 from repro_torch.core.sim import SimParams
 from repro_torch.core.sim import run as sim_run
 from repro_torch.core.transport import TOPOLOGIES
+from repro_torch.device import resolve_device
+from repro_torch.kernels import tlm_loop as TL
 
 # The port's event-queue throughput trajectory, merged by grid tier
 # (check_regression's default fresh file); under the git-ignored results/
@@ -211,6 +220,7 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
             topologies=topologies, knobs=knobs, workloads=(workload,),
             sim_len=g["sim_len"], mode="seq"))
 
+    on_card = resolve_device(device).type == "cuda"
     frames, t_total = [], 0.0
     for spec in specs:
         frame, dt = timed(spec.run, device=device)
@@ -240,9 +250,13 @@ def run(verbose: bool = True, grid: str = "default", topologies=None,
             lane_walls = list(gr.lane_wall_s)
             warm = warm_lane.get((k, topo), lane_walls[1:])
             marginal = float(np.mean(warm))
+            covered = on_card and TL.covers(gr.combo.shape,
+                                            gr.combo.policy,
+                                            gr.combo.topology)
             rows.append({
                 "k": k, "topology": topo, "queue_impl": qi,
                 "batch_pop": g.get("batch_pop", 1),
+                "loop": "tlm_loop" if covered else "host",
                 "mean_response": float(np.nanmean(
                     frame.mean_response(k=k, topology=topo))),
                 "beacons_tx": int(np.asarray(st["beacons_tx"]).sum()),

@@ -21,7 +21,8 @@ SimPolicy, Topology)``, with the reference's arithmetic (so
 runs through :mod:`repro_torch.core.sweep`'s engines:
 
   seq    ``sim.simulate`` once per lane — the CPU's path (per-lane walls).
-  vmap   one lane-batched loop per group (``core/lanes.py``) — the card's.
+  vmap   one lane-batched loop per group (``core/lanes.py``; on the card
+         one ``tlm_loop`` launch for the paper's program) — the card's.
   pmap   groups round-robined over the cards of :func:`pmap_devices`
          (group i on card i mod n), one worker thread a card running its
          groups' lane loops in plan order, the results gathered once in

@@ -77,6 +77,10 @@ without JAX (``chip_smoke.py``):
   the float32 bits of its mean responses and speedups), the card's
   phase ``paper_suite`` (:func:`fig2a_digest`, :func:`fig2b_digest`,
   :func:`baseline_digest`);
+- the paper's Fig. 3a, Fig. 3b, Table 5 and headline comparison at the
+  reference runners' own arguments (sim_len 4e6, and 2e6 for
+  ``baseline_compare``; full grids), the card's phase ``paper_full``:
+  each payload's rows sha256 and its claims (:func:`paper_full_digest`);
 - the recorded stage-1 decisions of the card's phase ``replay``
   (``record_s1`` at m=64, k=8 under ``min_search`` and
   ``staleness_weighted``, interference seed 0, sim_len 3e5): the
@@ -1555,3 +1559,54 @@ BASELINE = {"k": {1: "cd7a48005553016ea78002845ef2e281"
             "beats_centralized_per_rate": [True, True, True],
             "beats_distributed_per_rate": [True, True, True],
             "claim_clustered_best": True}
+
+
+# --------------------------------------------------------------------------
+# The paper's runners at the reference's own horizons (chip_smoke.py phase
+# ``paper_full``)
+# --------------------------------------------------------------------------
+
+# each runner's arguments: the reference's defaults (fig3a, fig3b and
+# table5 at sim_len 4e6, baseline_compare at 2e6, their full grids)
+PAPER_FULL_RUNNERS = ("fig3a", "fig3b", "table5", "baseline_compare")
+# what a payload holds besides its results: its provenance (the spec and
+# the fabric block), the paper's published numbers, and the compile
+# counts of the reference (the port compiles no program)
+PAPER_FULL_SKIP = ("spec", "meta", "paper_claim", "note", "n_compiles",
+                   "compile_once_per_shape")
+
+
+def paper_full_digest(payload) -> dict:
+    """A paper runner's payload as its ``rows`` sha256 (every field but
+    :data:`PAPER_FULL_SKIP`, floats as JSON writes them) and its claims
+    (each ``claim_*`` and ``ordering_*`` boolean), keyed as an entry of
+    PAPER_FULL."""
+    import json
+    rows = {k: v for k, v in payload.items() if k not in PAPER_FULL_SKIP}
+    blob = json.dumps(rows, sort_keys=True, default=float)
+    return {"rows": hashlib.sha256(blob.encode()).hexdigest(),
+            "claims": {k: bool(v) for k, v in sorted(payload.items())
+                       if k.startswith(("claim_", "ordering_"))}}
+
+
+# From the JAX reference's runners on the CPU at their own arguments
+# (fig3a ~11 min, fig3b ~4.5 min, table5 ~3 min, baseline_compare ~2.5
+# min, each in its own process):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "from benchmarks import
+#   fig3a as R; from repro_torch.core import goldens as G; print(
+#   G.paper_full_digest(R.run(verbose=False)))"
+# and the same with fig3b, table5 and baseline_compare for fig3a.
+PAPER_FULL = {
+    "fig3a": {"rows": "b429702a8f32c1d305ff11c9c50d59e0"
+                      "8333a705667fa1cb1eca0a2ce73eedfc",
+              "claims": {"claim_k16_band": True, "claim_robust": True}},
+    "fig3b": {"rows": "b7df97001c768fd174066c2f421e51b8"
+                      "796813eac66c810157a9ed2ebfeba240",
+              "claims": {"claim_monotone": True, "claim_ratio_band": True}},
+    "table5": {"rows": "9601b329ee66ef5b132eebf01fda5504"
+                       "25cd9d802ddd00b01a01e98e1390e990",
+               "claims": {"ordering_clustered_best": True}},
+    "baseline_compare": {"rows": "901346f644a44c915fed9daa6a3f4993"
+                                 "b2bad4efaa1e07f2366b505e2d657161",
+                         "claims": {"claim_clustered_best": True}},
+}

@@ -1,7 +1,7 @@
 """The lane-batched event loop: L runs of one static shape advanced
-together — the port's counterpart of ``jax.vmap(simulate)`` in the
-reference's ``core/sweep.py`` (``_sweep``), and the engine of
-``sweep(mode="vmap")``.
+together — the port's ``jax.vmap(simulate)`` (the reference's
+``core/sweep._sweep``): on the card one ``tlm_loop`` launch for the
+paper's program (:func:`simulate_lanes` dispatches), else the host loop.
 
 The lanes of one call share the static shape (m, k, n_childs,
 queue_cap, max_apps), the policy and the fabric; they differ in their
@@ -11,7 +11,7 @@ bits ``sim.simulate`` ends with on lane l's knobs and workload
 (``mgmt_latency`` up to the order of its f32 vector sums, as in
 ``sim``; tests/test_torch_sweep.py).
 
-One step serves every lane:
+A host step (:func:`simulate_lanes_host`) serves every lane:
 
 1. **Pop.**  Each lane's packed record ``(t, slot, typ, a0, a1, a2)``:
    on the linear queue ``argmin(ev_time, dim=1)`` (the first minimal
@@ -693,17 +693,46 @@ def simulate_lanes(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
                    lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
                    topology: Topology = DEFAULT_TOPOLOGY, faults=None,
                    trace=None):
-    """L runs in one loop on ``arrivals.device``: knobs with (L,) leaves,
-    arrivals (L, A) f32, arrival_gmns (L, A) i32, lengths (L, A, n_childs)
-    f32 tensors; ``faults`` None, a FaultSpec or a FaultSchedule that
-    every lane meets; ``trace`` None or a TraceSpec (each lane's own
+    """L runs of one static shape on ``arrivals.device``: knobs with (L,)
+    leaves, arrivals (L, A) f32, arrival_gmns (L, A) i32, lengths (L, A,
+    n_childs) f32 tensors; ``faults`` None, a FaultSpec or a FaultSchedule
+    that every lane meets; ``trace`` None or a TraceSpec (each lane's own
     ring, timelines and histograms).  Returns the final state dict, every
-    leaf (L, ...)."""
+    leaf (L, ...).  On a CUDA device a program the ``tlm_loop`` kernel
+    covers (``kernels/tlm_loop.covers``) runs every lane in one launch
+    of it (``sim._simulate_device``); any other program, and every
+    program on the CPU, runs the lane-batched host loop
+    (:func:`simulate_lanes_host`)."""
+    from repro_torch.core.sim import _simulate_device
+    from repro_torch.kernels import tlm_loop as TL
     _require_ported(shape, policy, topology, faults, trace)
+    _check_lanes(knobs, arrivals, lengths)
+    if arrivals.device.type == "cuda" \
+            and TL.covers(shape, policy, topology, faults, trace):
+        return _simulate_device(shape, knobs, arrivals, arrival_gmns,
+                                lengths, sim_len, policy, topology)
+    return simulate_lanes_host(shape, knobs, arrivals, arrival_gmns,
+                               lengths, sim_len, policy, topology, faults,
+                               trace)
+
+
+def _check_lanes(knobs, arrivals, lengths) -> None:
     if arrivals.ndim != 2 or lengths.ndim != 3 \
             or knobs.dn_th.shape != arrivals.shape[:1]:
         raise ValueError("simulate_lanes needs knobs (L,), arrivals (L, A), "
                          "arrival_gmns (L, A) and lengths (L, A, n)")
+
+
+def simulate_lanes_host(shape: SimShape, knobs: SimKnobs, arrivals,
+                        arrival_gmns, lengths, sim_len,
+                        policy: SimPolicy = DEFAULT_POLICY,
+                        topology: Topology = DEFAULT_TOPOLOGY, faults=None,
+                        trace=None):
+    """The lane-batched host loop (:func:`simulate_lanes`' arguments and
+    result): one (L, 6) device->host read a step.  It runs every program,
+    and it is the plain version of the ``tlm_loop`` kernel."""
+    _require_ported(shape, policy, topology, faults, trace)
+    _check_lanes(knobs, arrivals, lengths)
     dev = arrivals.device
     faults = FLT.as_schedule(faults, shape.k, float(sim_len))
     p = _LaneCtx(shape, knobs, policy, topology, dev, arrival_gmns,

@@ -17,17 +17,17 @@ detector refreshed at every pop — and the in-loop trace
 (``core/trace``): a TraceSpec adds the ring, timeline and histogram
 leaves, written after each step's commit.
 
-How the loop runs.  The reference is one ``lax.while_loop``; here the
-loop is Python and every state tensor lives on the device.  Each
-iteration makes one device->host read: the packed event record
-``(t, slot, typ, a0, a1, a2)`` of the queue's minimum (the linear
+How the loop runs.  The reference is one ``lax.while_loop``.  On the
+card the paper's program (``kernels/tlm_loop.covers``) runs as one
+launch of the kernel ``csrc/tlm_loop.cu`` (:func:`simulate` dispatches);
+every other program, and every one on the CPU, runs the host loop
+:func:`simulate_host`, the kernel's plain version: Python, every state
+tensor on the device, one device->host read an iteration, the packed
+record ``(t, slot, typ, a0, a1, a2)`` of the queue's minimum (the linear
 queue's argmin and gathers, or the tree's and calendar's ``evq_root``
-row).  The host uses it
-to stop at ``t >= INF`` and to dispatch on ``typ``; ``app``/``g``/``cnt``
-and ``pe`` then index state tensors as host ints.  Every other value —
-times, loads, views, policy decisions, beacon firing — stays a device
-tensor, and no handler reads one back.  The reference's ``lax.scan``s
-are Python loops over device tensors.
+row).  The host uses it to stop at ``t >= INF`` and to dispatch on
+``typ``; ``app``/``g``/``cnt`` and ``pe`` index state tensors as host
+ints, and no handler reads any other value back (a ``lax.scan``: a loop).
 
 State is a dict of tensors with the reference's leaf names and dtypes
 (int32/float32/bool), updated in place: the handlers write single
@@ -1192,7 +1192,60 @@ def simulate(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
     arrival_gmns (A,) i32, lengths (A, n_childs) f32 tensors; ``faults``
     None (the no-fault program), a FaultSpec or a FaultSchedule;
     ``trace`` None or a TraceSpec (``core/trace``).  Returns the final
-    state dict."""
+    state dict.  On a CUDA device a program the ``tlm_loop`` kernel
+    covers (``kernels/tlm_loop.covers``: the paper's program) runs as one
+    launch of it, a lane of one; any other program, and every program on
+    the CPU, runs the host loop (:func:`simulate_host`)."""
+    from repro_torch.kernels import tlm_loop as TL
+    _require_ported(shape, policy, topology, faults, trace)
+    if arrivals.device.type == "cuda" \
+            and TL.covers(shape, policy, topology, faults, trace):
+        st = _simulate_device(
+            shape, SimKnobs(*(v.reshape(1) for v in knobs)), arrivals[None],
+            arrival_gmns[None], lengths[None], sim_len, policy, topology)
+        return {key: v[0] for key, v in st.items()}
+    return simulate_host(shape, knobs, arrivals, arrival_gmns, lengths,
+                         sim_len, policy, topology, faults, trace)
+
+
+def _simulate_device(shape: SimShape, knobs: SimKnobs, arrivals,
+                     arrival_gmns, lengths, sim_len, policy: SimPolicy,
+                     topology: Topology):
+    """L runs of a program ``tlm_loop`` covers, on the card: knobs (L,),
+    arrivals (L, A), arrival_gmns (L, A), lengths (L, A, n_childs).  The
+    state is built and seeded as the host loops build it
+    (:func:`make_state`, a leading lane axis, :func:`_init_queue`), then
+    every lane runs to its empty queue in one launch, with no host read
+    until it ends.  Returns the final state dict, every leaf (L, ...)."""
+    from repro_torch.kernels import tlm_loop as TL
+    st, p = _device_state(shape, knobs, arrivals, arrival_gmns, sim_len,
+                          policy, topology)
+    TL.run(st, p, lengths.contiguous(), arrival_gmns.contiguous())
+    return st
+
+
+def _device_state(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
+                  sim_len, policy: SimPolicy, topology: Topology):
+    """The kernel's starting state on ``arrivals.device``, and the run's
+    context over the (L,) knobs: :func:`make_state` with a leading lane
+    axis, the queue seeded by :func:`_init_queue`."""
+    dev = arrivals.device
+    p = _Ctx(shape, knobs, policy, topology, dev)
+    n_lanes = arrivals.shape[0]
+    st = {key: v.repeat((n_lanes,) + (1,) * v.ndim)
+          for key, v in make_state(p, dev).items()}
+    _init_queue(st, p, arrivals, arrival_gmns,
+                torch.tensor(sim_len, dtype=F32, device=dev))
+    return st, p
+
+
+def simulate_host(shape: SimShape, knobs: SimKnobs, arrivals, arrival_gmns,
+                  lengths, sim_len, policy: SimPolicy = DEFAULT_POLICY,
+                  topology: Topology = DEFAULT_TOPOLOGY, faults=None,
+                  trace=None):
+    """The host loop (:func:`simulate`'s arguments and result): one
+    packed device->host read an event.  It runs every program, and it is
+    the plain version of the ``tlm_loop`` kernel."""
     _require_ported(shape, policy, topology, faults, trace)
     dev = arrivals.device
     faults = FLT.as_schedule(faults, shape.k, float(sim_len))

@@ -19,8 +19,10 @@ workload (lane ``i*S + j`` of the run is knob i, workload j).
 Two execution strategies, with equal results (tests/test_torch_sweep.py):
 ``"vmap"`` runs all B*S lanes in one lane-batched loop
 (:func:`repro_torch.core.lanes.simulate_lanes`: one host read per step
-for every lane — the card's path), ``"seq"`` runs ``sim.simulate`` once
-per lane (one host read per event of each lane — the CPU's path).
+for every lane, or on the card one launch of the ``tlm_loop`` kernel
+for the paper's program — the card's path), ``"seq"`` runs
+``sim.simulate`` once per lane (one host read per event of each lane,
+or one launch a lane — the CPU's path).
 
 The reference's ``cache_size`` has no counterpart here: the port
 compiles no program per shape (its event loop is eager torch), so there

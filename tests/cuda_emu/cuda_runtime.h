@@ -33,7 +33,15 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+int __shfl_xor_sync(unsigned mask, int v, int lane_mask);
+unsigned __ballot_sync(unsigned mask, int predicate);
+void __syncwarp(unsigned mask = 0xffffffffu);
 void __syncthreads();
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// f32 arithmetic rounded once (the host compiles no FMA without -mfma)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};

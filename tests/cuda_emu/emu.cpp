@@ -4,7 +4,8 @@
 // one block at a time), each with its own dynamic shared memory (filled
 // with NaN bytes at the start, as the card leaves it unset); a barrier per
 // block for __syncthreads, per cluster for cluster.sync(), and a warp-wide
-// exchange for __shfl_xor_sync.  A fiber runs until it waits at a barrier
+// exchange for __shfl_xor_sync (f32 and int32) and __ballot_sync, and a
+// warp barrier for __syncwarp.  A fiber runs until it waits at a barrier
 // that not every participant has reached, then yields; the scheduler
 // resumes the fibers in thread order, so a warp's 32 threads go through a
 // shuffle together, as in lockstep.  A barrier that no thread can leave
@@ -48,6 +49,7 @@ struct Block {
   std::unique_ptr<Barrier> bar;
   std::vector<std::unique_ptr<Barrier>> warps;
   std::vector<float> slots;
+  std::vector<uint32_t> words;
   std::vector<uint4> smem;
 };
 
@@ -143,6 +145,7 @@ void run_grid(dim3 grid, int threads, size_t smem_bytes, unsigned cluster_x,
           blk->warps.push_back(
               std::make_unique<Barrier>(std::min(32, threads - 32 * w)));
         blk->slots.resize(threads);
+        blk->words.resize(threads);
         blk->smem.resize((smem_bytes + 15) / 16);
         memset(blk->smem.data(), 0xff, blk->smem.size() * 16);
         cluster.blocks.push_back(blk.get());
@@ -198,6 +201,32 @@ float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const float r = blk->slots[(t & ~31) | ((t & 31) ^ lane_mask)];
   blk->warps[w]->arrive_and_wait();
   return r;
+}
+
+int __shfl_xor_sync(unsigned, int v, int lane_mask) {
+  const int t = threadIdx.x, w = t / 32;
+  Block* blk = g_cur->block;
+  blk->words[t] = (uint32_t)v;
+  blk->warps[w]->arrive_and_wait();
+  const int r = (int)blk->words[(t & ~31) | ((t & 31) ^ lane_mask)];
+  blk->warps[w]->arrive_and_wait();
+  return r;
+}
+
+unsigned __ballot_sync(unsigned, int predicate) {
+  const int t = threadIdx.x, w = t / 32;
+  Block* blk = g_cur->block;
+  blk->words[t] = predicate != 0;
+  blk->warps[w]->arrive_and_wait();
+  unsigned m = 0;
+  const int n = std::min(32, (int)blk->words.size() - 32 * w);
+  for (int i = 0; i < n; ++i) m |= blk->words[32 * w + i] << i;
+  blk->warps[w]->arrive_and_wait();
+  return m;
+}
+
+void __syncwarp(unsigned) {
+  g_cur->block->warps[threadIdx.x / 32]->arrive_and_wait();
 }
 
 void* emu_shared() { return g_cur->block->smem.data(); }

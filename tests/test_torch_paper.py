@@ -20,6 +20,7 @@ sys.path.insert(0, str(ROOT))            # the reference's benchmarks/
 
 import benchmarks.common as ref_common  # noqa: E402
 from repro_torch.benchmarks import common as port_common  # noqa: E402
+from repro_torch.core import goldens as G  # noqa: E402
 
 # wall-clock fields and the compile counts: measured, not computed
 SKIP = {"us_per_batch", "us_per_decision", "flat_argmin_us_per_batch",
@@ -27,8 +28,9 @@ SKIP = {"us_per_batch", "us_per_decision", "flat_argmin_us_per_batch",
         "lane_wall_s", "n_compiles", "copy_bytes_per_iter", "cold_wall_s",
         "warm_wall_s", "warm_events_per_sec", "marginal_wall_s",
         "compile_s", "detector_compiles"}
-# what the port's payloads add: K1's assignments against its plain version
-PORT_ONLY = {"two_stage_matches_plain"}
+# what the port's payloads add: K1's assignments against its plain version,
+# and which loop timed a topology_frontier row
+PORT_ONLY = {"two_stage_matches_plain", "loop"}
 # what only the reference's have: its own XLA:CPU cost anchor
 # (topology_frontier) and its claims about how many XLA programs it
 # compiles (the port compiles none)
@@ -70,12 +72,16 @@ def test_runner_payload_equals_reference(name, tmp_path, monkeypatch,
     monkeypatch.setattr(port_common, "RESULTS_DIR", str(tmp_path / "torch"))
     ref = importlib.import_module(f"benchmarks.{name}")
     port = importlib.import_module(f"repro_torch.benchmarks.{name}")
-    ref.run(**CASES[name])
+    ref_out = ref.run(**CASES[name])
     got = port.run(**CASES[name], device="cpu")
     want = json.loads((tmp_path / f"{name}.json").read_text())
     written = json.loads((tmp_path / "torch" / f"{name}.json").read_text())
     _same(written, want)
     assert written == json.loads(json.dumps(got, default=float))
+    if name in G.PAPER_FULL_RUNNERS:
+        # the digest the card's phase paper_full holds against the
+        # reference's frozen one treats both packages' payloads alike
+        assert G.paper_full_digest(got) == G.paper_full_digest(ref_out)
     ref_row, port_row = capsys.readouterr().out.strip().splitlines()
     assert port_row.split(",")[0] == ref_row.split(",")[0]
     if name == "scheduler_overhead":
@@ -123,6 +129,8 @@ def test_topology_frontier_payload_equals_reference(tmp_path, monkeypatch,
         assert [set(r) for r in traj["grids"]["paper_tiny"][part]] \
             == [set(r) for r in ref_bench["grids"]["paper_tiny"][part]]
     assert len(got["queue_head_to_head"]) == 6
+    # on the CPU every row runs the host loop
+    assert {r["loop"] for r in got["rows"]} == {"host"}
     assert all(got[f"claim_{c}"] for c in (
         "tree_matches_linear_bitwise", "calendar_matches_linear_bitwise",
         "batched_matches_singleton_bitwise", "ideal_bitwise_vs_run"))
